@@ -11,11 +11,19 @@ block. In order:
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``;
   3. makes the fixtures from fixed seeds (keys, signatures, leaves);
   4. holds each kernel against its plain PyTorch version on the card at the
-     main path's shapes (exact equality), and times both;
+     main path's shapes (exact equality), and times both: the ladder (fused
+     with the cofactored epilogue) at every group width it is built for,
+     timed in turns, verdict and accumulator; the sha256 tree entry at the
+     65,536- and 10,000-leaf roots, and its leaf and inner entries level by
+     level; prints ptxas's registers and spills, the ladder's launch shape
+     and, where cuobjdump exists, its SASS instruction mix, the measured
+     issue rates of the instructions it runs on
+     (``cometbft_tpu_torch/probe``) and the issue-time estimate they give;
   5. runs the main path (launch counters zeroed just before): the valid
      commit, the commit with localized corruptions, the ZIP-215 edge batch,
      an oversized message (host-hash program), the 65,536- and
-     10,000-leaf roots, each against its expected answer; then times
+     10,000-leaf roots, each against its expected answer, and asserts one
+     ladder launch a batch and two sha256 launches a root; then times
      ``verify_10k_commit_plus_64k_merkle_ms`` and its stage split;
   6. prints the ``kernels`` line, the card line and, last, the result line.
 
@@ -25,8 +33,11 @@ printing any result. It imports nothing of JAX or of ``cometbft_tpu``.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,9 +57,20 @@ INT32_OPS_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 # Operation counts behind each kernel's bound (see PERF.md).
-FE_MUL_OPS = 100  # 32x32->64 multiply-adds of one radix-2^25.5 field multiply
-LADDER_FE_MULS = 71 + 64 * 49  # A table + 64 windows of 4 doublings and 2 adds
-DECOMPRESS_FE_MULS = 275  # 262 in the (p-5)/8 chain + 13 around it
+# 32x32->64 multiply-adds of one radix-2^25.5 field multiply (10 x 10
+# limb products) and of one squaring (10 squares + 45 doubled cross terms)
+FE_MUL_OPS = 100
+FE_SQ_OPS = 55
+# Ladder, a lane: the [1..8](-A) table (to_precomp, then 7 x (add_precomp 8
+# + to_precomp 1)); 64 windows of 4 doublings (4 squarings and 3
+# multiplies each, 4 in the last), add_precomp (8) and add_precomp_z1 (7);
+# the epilogue's point_add (9) and 3 doublings without T.
+LADDER_FE_MULS = 1 + 7 * 9 + 64 * (3 * 3 + 4 + 8 + 7) + 9 + 3 * 3
+LADDER_FE_SQS = 64 * 4 * 4 + 3 * 4
+# Decompress, a lane: the (p-5)/8 chain (251 squarings, 11 multiplies) and
+# 4 squarings and 9 multiplies around it.
+DECOMPRESS_FE_MULS = 11 + 9
+DECOMPRESS_FE_SQS = 251 + 4
 SHA512_BLOCK_OPS = 2 * (80 * 25 + 64 * 13 + 8)  # 64-bit ops, two 32-bit ops each
 SHA256_BLOCK_OPS = 64 * 25 + 48 * 13 + 8
 
@@ -188,6 +210,56 @@ def bound_ms(ops: float, nbytes: float, sms: int, clock_hz: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# SASS opcodes by the pipe that runs them, for the ladder's issue estimate
+ALU_OPS = ("IADD3", "LOP3", "SHF", "LEA", "SEL", "ISETP", "MOV", "PRMT", "VIADD", "IMNMX",
+           "VIMNMX", "IABS", "PLOP3", "P2R", "R2P", "FLO", "POPC")
+
+
+def sass_mix(so) -> dict:
+    """Static SASS instruction counts of the ladder kernel per group width
+    (cuobjdump, where the toolkit has it; else empty), by class: the
+    32x32->64 multiplies (IMAD.WIDE, .U32), other IMADs, shuffles, ALU
+    operations and the rest (memory, branches; NOPs left out)."""
+    from cometbft_tpu_torch.probe import issue_rates
+
+    out = {}
+    for g, c in sorted(issue_rates.sass_counts(so, r"ladder_verify_kernelILi(\d+)E").items()):
+        c.pop("NOP", None)
+        wide = {k: c[k] for k in ("IMAD.WIDE", "IMAD.WIDE.U32")}
+        imad = sum(v for k, v in c.items() if k.startswith("IMAD") and k not in wide)
+        shfl = sum(v for k, v in c.items() if k.startswith("SHFL"))
+        alu = sum(v for k, v in c.items() if k.split(".")[0] in ALU_OPS)
+        out[g] = {"instructions": sum(c.values()), **wide, "imad_other": imad, "shfl": shfl,
+                  "alu": alu, "top": c.most_common(8)}
+    return out
+
+
+def ladder_issue_estimate(mix, rates, g, n, sms, clock_hz) -> dict:
+    """Least time the ladder's instruction stream could issue in, if the
+    loop runs the static mix: each lane issues the kernel's limb products
+    (100 a multiply or squaring: g_sq is a g_mul) as IMAD.WIDE(.U32), and
+    every other class in its static ratio to them; a warp's threads past
+    its last whole group (G = 5: 2 of 32) issue too. Each class over its
+    measured rate (thread-instructions a clock per SM); IMADs share one
+    pipe; dispatch at 4 warps a clock per SM."""
+    per_wide = n * (LADDER_FE_MULS + LADDER_FE_SQS) * FE_MUL_OPS * 32 / (32 // g * g) / (
+        mix["IMAD.WIDE"] + mix["IMAD.WIDE.U32"])
+
+    def ms(count, rate):
+        return count * per_wide / (rate * sms * clock_hz) * 1e3
+
+    t = {
+        "imad_pipe": ms(mix["IMAD.WIDE"], rates["IMAD.WIDE"]["rate"])
+        + ms(mix["IMAD.WIDE.U32"], rates["IMAD.WIDE.U32"]["rate"])
+        + ms(mix["imad_other"], rates["IMAD"]["rate"]),
+        "alu": ms(mix["alu"], rates["LOP3.LUT"]["rate"]),
+        "shfl": ms(mix["shfl"], rates["SHFL.IDX"]["rate"]),
+        "dispatch": ms(mix["instructions"], 128),
+    }
+    t["estimate"] = max(t.values())
+    return t
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
 
@@ -195,7 +267,7 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # -- phases ------------------------------------------------------------------
 
 
-def compare_kernels(fixtures, dev, sms, clock_hz):
+def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
     """Phase 4: each kernel against its plain version at the main path's
     shapes; returns the per-kernel records (without launches)."""
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -248,7 +320,7 @@ def compare_kernels(fixtures, dev, sms, clock_hz):
     y_mix, sg_mix = y2.clone(), sg2.clone()
     y_mix[:, : len(edge)] = torch.from_numpy(fe.fe_from_bytes_le(enc)).to(dev)
     sg_mix[: len(edge)] = torch.from_numpy((enc[:, 31] >> 7).astype(bool)).to(dev)
-    pt_k, ok_k = ed.decompress(y_mix, sg_mix)
+    pt_k, ok_k = ed.decompress_stacked(y_mix, sg_mix)
     pt_p, ok_p = ed.decompress_plain(y_mix, sg_mix)
     canon_k = torch.stack(ed.point_freeze(pt_k))
     err = max_abs_err(canon_k, torch.stack(ed.point_freeze(pt_p)))
@@ -256,26 +328,44 @@ def compare_kernels(fixtures, dev, sms, clock_hz):
     check(err == 0, f"decompress kernel != plain (max abs err {err})")
     check(ok_k[len(edge):].all().item(), "a fixture encoding failed to decode")
     m = y2.shape[1]
-    t_b = bound_ms(m * DECOMPRESS_FE_MULS * FE_MUL_OPS, m * (72 + 276), sms, clock_hz)
+    t_b = bound_ms(m * (DECOMPRESS_FE_MULS * FE_MUL_OPS + DECOMPRESS_FE_SQS * FE_SQ_OPS),
+                   m * (72 + 276), sms, clock_hz)
     records["decompress"] = dict(
         max_abs_err=err,
-        ms=time_cuda(lambda: ed.decompress(y2, sg2), 50),
+        ms=time_cuda(lambda: ed.decompress_stacked(y2, sg2), 50),
         plain_ms=time_cuda(lambda: ed.decompress_plain(y2, sg2), 2),
         bound_ms=t_b[0], bound_by=t_b[1], shape=f"{m} lanes",
     )
 
-    # ladder: the main path's digits and -A
-    neg_a, _, _ = ek.decode_stage(y2, sg2, n)
-    acc_k = ladder.windowed_double_base_mult(s_dig, k_dig, neg_a)
-    acc_p = ed.windowed_double_base_mult(s_dig, k_dig, neg_a)
-    err = max_abs_err(torch.stack(ed.point_freeze(acc_k)), torch.stack(ed.point_freeze(acc_p)))
+    # ladder (fused with the epilogue): the main path's digits and decoded
+    # A, R, at every group width; widths timed in turns
+    pt, ok = ed.decompress_stacked(y2, sg2)
+    want, acc_p = ladder.verify_lanes_plain(s_dig, k_dig, pt, ok)
+    acc_p = torch.stack(ed.point_freeze(acc_p))
+    check(bool(want.all()), "plain ladder rejects a fixture signature")
+    err = 0
+    for g in ladder.GROUPS:
+        got, acc = ladder.verify_lanes(s_dig, k_dig, pt, ok, group=g, with_acc=True)
+        err = max(err, max_abs_err(got, want),
+                  max_abs_err(torch.stack(ed.point_freeze(acc)), acc_p))
     check(err == 0, f"ladder kernel != plain (max abs err {err})")
-    t_b = bound_ms(n * LADDER_FE_MULS * FE_MUL_OPS, n * (2 * 64 * 4 + 2 * 4 * 17 * 4), sms, clock_hz)
+    runs = {g: [] for g in ladder.GROUPS}
+    for rep in range(3):
+        for g in ladder.GROUPS[:: 1 if rep % 2 == 0 else -1]:
+            runs[g].append(time_cuda(lambda: ladder.verify_lanes(s_dig, k_dig, pt, ok, group=g), 20))
+    ms_by_group = {g: statistics.median(v) for g, v in runs.items()}
+    configs = {g: ladder.launch_config(n, g) for g in ladder.GROUPS}
+    print(f"ladder ms by threads a lane (median of 3 turns of 20 launches): {ms_by_group}; "
+          f"runs {runs}", flush=True)
+    for g, cfg in configs.items():
+        print(f"ladder launch at {g} threads a lane: {cfg}", flush=True)
+    t_b = bound_ms(n * (LADDER_FE_MULS * FE_MUL_OPS + LADDER_FE_SQS * FE_SQ_OPS),
+                   n * (2 * 64 * 4 + 2 * 4 * 17 * 4 + 2 + 1), sms, clock_hz)
     records["ladder"] = dict(
-        max_abs_err=err,
-        ms=time_cuda(lambda: ladder.windowed_double_base_mult(s_dig, k_dig, neg_a), 20),
-        plain_ms=time_cuda(lambda: ed.windowed_double_base_mult(s_dig, k_dig, neg_a), 1, warmup=0),
-        bound_ms=t_b[0], bound_by=t_b[1], shape=f"{n} lanes x 64 windows",
+        max_abs_err=err, ms=ms_by_group[ladder.GROUP], ms_by_group=ms_by_group,
+        threads_per_lane=ladder.GROUP,
+        plain_ms=time_cuda(lambda: ladder.verify_lanes_plain(s_dig, k_dig, pt, ok), 1, warmup=0),
+        bound_ms=t_b[0], bound_by=t_b[1], shape=f"{n} lanes x 64 windows + epilogue",
     )
 
     # sha256: the 65,536-leaf block, leaf pass and every inner level
@@ -290,21 +380,26 @@ def compare_kernels(fixtures, dev, sms, clock_hz):
         err = max(err, max_abs_err(cur_k, cur_p))
     check(err == 0, f"sha256 kernel != plain (max abs err {err})")
 
-    def plain_root():
-        cur = mk.leaf_core_plain(blk, nbk)
-        while cur.shape[1] > 1:
-            cur = mk.inner_core_plain(cur[:, 0::2], cur[:, 1::2])
-        return cur
-
-    nl = blk.shape[2]
-    compressions = int(nbk.sum().item()) + 2 * (nl - 1)
-    t_b = bound_ms(compressions * SHA256_BLOCK_OPS, int(nbk.sum().item()) * 64 + nl * 4 + 32,
+    # the tree entry (what the root path runs): two launches a root
+    for part in (leaves, leaves[:N_RAGGED_LEAVES]):
+        flat, offsets = mk.pack_leaves(part, dev)
+        got = mk.tree_root(flat, offsets)
+        err = max(err, max_abs_err(got, mk.tree_root_plain(flat, offsets)))
+        check(sha.digest_words_to_bytes(got.cpu().numpy())[0] == merkle_oracle(part),
+              f"sha256 tree entry: {len(part)}-leaf root != hash_from_byte_slices")
+    check(err == 0, f"sha256 kernel != plain (max abs err {err})")
+    flat, offsets = mk.pack_leaves(leaves, dev)
+    nl = len(leaves)
+    lens = np.diff(offsets.cpu().numpy())
+    compressions = int(((lens + 1 + 8) // 64 + 1).sum()) + 2 * (nl - 1)
+    t_b = bound_ms(compressions * SHA256_BLOCK_OPS, flat.numel() + 8 * (nl + 1) + 32,
                    sms, clock_hz)
     records["sha256"] = dict(
         max_abs_err=err,
-        ms=time_cuda(lambda: mk.leaves_to_root_core(blk, nbk), 50),
-        plain_ms=time_cuda(plain_root, 1, warmup=0),
-        bound_ms=t_b[0], bound_by=t_b[1], shape=f"{nl} leaves, leaf pass + {nl.bit_length() - 1} levels",
+        ms=time_cuda(lambda: mk.tree_root(flat, offsets), 50),
+        plain_ms=time_cuda(lambda: mk.tree_root_plain(flat, offsets), 1, warmup=0),
+        bound_ms=t_b[0], bound_by=t_b[1],
+        shape=f"{nl} leaves, 2 launches ({-(-nl // mk.CHUNK)} chunks of {mk.CHUNK})",
     )
     return records
 
@@ -350,6 +445,7 @@ def drive_main_path(fixtures, pure, merkle_oracle, backend):
 def stage_split(fixtures, dev):
     """One verify + root, stage by stage, each ended by a synchronize."""
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import edwards as ed
     from cometbft_tpu_torch.ops import ladder
     from cometbft_tpu_torch.ops import merkle_kernel as mk
     from cometbft_tpu_torch.ops import sha512_kernel as s5
@@ -366,16 +462,15 @@ def stage_split(fixtures, dev):
 
     run("pack", lambda: ek.operands_to_device(ek.pack_batch(pubs, msgs, sigs)[0], dev))
     a_w, r_w, s_w, msg_w, msg_nb = box["pack"]
-    n = a_w.shape[1]
     run("sha512", lambda: s5.hash_blocks_core(msg_w, msg_nb))
     run("unpack", lambda: ek.unpack_stage(a_w, r_w, s_w, box["sha512"]))
     y2, sg2, s_dig, k_dig = box["unpack"]
-    run("decompress", lambda: ek.decode_stage(y2, sg2, n))
-    neg_a, r, ok = box["decompress"]
-    run("ladder", lambda: ladder.windowed_double_base_mult(s_dig, k_dig, neg_a))
-    run("epilogue", lambda: ek.epilogue_stage(box["ladder"], r, ok, n).cpu())
-    run("merkle", lambda: mk.merkle_root_fused(leaves, device=dev))
-    check(bool(box["epilogue"].all()), "stage-split verify failed")
+    run("decompress", lambda: ed.decompress_stacked(y2, sg2))
+    pt, ok = box["decompress"]
+    run("ladder_epilogue", lambda: ladder.verify_lanes(s_dig, k_dig, pt, ok).cpu())
+    run("merkle_pack", lambda: mk.pack_leaves(leaves, dev))
+    run("merkle_tree", lambda: mk.tree_root(*box["merkle_pack"]).cpu())
+    check(bool(box["ladder_epilogue"].all()), "stage-split verify failed")
     return st
 
 
@@ -402,8 +497,19 @@ def main() -> int:
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}", flush=True)
     for line in _build.BUILD_LOG.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        entry = re.search(r"entry function '_Z\w*?\d+(\w+_kernel)(ILi(\d+)EE)?", line)
+        if entry:
+            print(f"  {entry.group(1)}" + (f"<{entry.group(3)}>" if entry.group(3) else ""))
+        elif line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
+    mixes = sass_mix(so)
+    for g, mix in mixes.items():
+        print(f"ladder SASS at {g} threads a lane (static instruction counts): {mix}", flush=True)
+    from cometbft_tpu_torch.probe import issue_rates
+
+    rates = issue_rates.measure(props.multi_processor_count, clock_hz)
+    print(f"issue rates (thread-instructions a clock per SM, measured): {json.dumps(rates)}",
+          flush=True)
 
     t0 = time.perf_counter()
     fixtures = make_fixtures(pure, N_SIGS, N_LEAVES)
@@ -411,15 +517,22 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    records = compare_kernels(fixtures, dev, props.multi_processor_count, clock_hz)
+    records = compare_kernels(fixtures, hash_from_byte_slices, dev, props.multi_processor_count,
+                              clock_hz)
     print(f"kernels equal their plain versions (compare + timing {time.perf_counter() - t0:.1f} s)",
           flush=True)
+    for g, mix in mixes.items():
+        est = ladder_issue_estimate(mix, rates, g, N_SIGS, props.multi_processor_count, clock_hz)
+        print(f"ladder issue estimate at {g} threads a lane (ms, static mix over measured "
+              f"rates): {est}; measured {records['ladder']['ms_by_group'][g]}", flush=True)
 
     backend = TorchBackend()
     _build.reset_launches()
     drive_main_path(fixtures, pure, hash_from_byte_slices, backend)
     launches = dict(_build.LAUNCHES)
     check(all(launches[k] > 0 for k in _build.KERNELS), f"a kernel was not launched: {launches}")
+    check(launches["ladder"] == 4 and launches["sha256"] == 4,
+          f"expected one ladder launch a batch and two sha256 launches a root: {launches}")
     print(f"main path ok; launches {launches}", flush=True)
 
     _, _, pubs, msgs, sigs, leaves = fixtures
@@ -437,13 +550,13 @@ def main() -> int:
 
     sources = {
         "ladder": ("cometbft_tpu_torch/ops/csrc/ladder.cu", "cometbft_tpu/ops/pallas_ladder.py:218",
-                   "pallas_ladder._ladder_kernel"),
+                   "pallas_ladder._ladder_kernel + the epilogue of ed25519_kernel._verify_from_words"),
         "decompress": ("cometbft_tpu_torch/ops/csrc/decompress.cu", "cometbft_tpu/ops/edwards.py:141",
                        "edwards.decompress"),
         "sha512": ("cometbft_tpu_torch/ops/csrc/sha512.cu", "cometbft_tpu/ops/sha512_kernel.py:188",
                    "sha512_kernel.hash_blocks_core"),
         "sha256": ("cometbft_tpu_torch/ops/csrc/sha256.cu", "cometbft_tpu/ops/sha256_kernel.py:48",
-                   "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core)"),
+                   "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core/leaves_to_root_core)"),
     }
     kernels = []
     for name in _build.KERNELS:
@@ -455,6 +568,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "match": rec["max_abs_err"] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"],
+            **{k: rec[k] for k in ("threads_per_lane", "ms_by_group") if k in rec},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

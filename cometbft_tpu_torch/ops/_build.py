@@ -42,11 +42,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "cmtpu_ladder": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "cmtpu_ladder_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cmtpu_ladder_config": [_I, _I, _P],
     "cmtpu_decompress": [_P, _P, _P, _P, _I, _P],
     "cmtpu_sha512": [_P, _P, _P, _I, _I, _P],
     "cmtpu_sha256_leaf": [_P, _P, _P, _I, _I, _P],
     "cmtpu_sha256_inner": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
+    "cmtpu_sha256_tree_chunks": [_P, _P, _I, _I, _P, _P],
+    "cmtpu_sha256_tree_roots": [_P, _I, _I, _P],
 }
 
 
@@ -152,13 +155,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous int32 CUDA tensors on one device."""
+def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.int32) -> None:
+    """The kernels take contiguous CUDA tensors of one dtype (int32 unless
+    stated) on one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: expected int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")

@@ -10,9 +10,10 @@
 // reduces it); all-zero padded lanes decode without fault and are vetoed by
 // the host mask, not here.
 //
-// What bounds it: operations, about 270 field multiplications a lane (the
-// exponentiation is 251 squarings and 11 multiplies), each 100 32x32->64
-// multiply-adds, against 72 bytes in and 276 out per lane.
+// What bounds it: operations. A lane needs 255 squarings (251 in the
+// exponentiation) of 55 32x32->64 multiply-adds and 20 multiplies of 100,
+// against 72 bytes in and 276 out; fe_sq is a full fe_mul here, so the
+// kernel issues 100 products a squaring.
 //
 // Design: one thread per lane, the whole chain in registers (a handful of
 // field elements live at once). Outputs are canonical 17x15-bit limbs, the

@@ -3,21 +3,38 @@
 // Replaces cometbft_tpu/ops/sha256_kernel.py:compress as the Merkle kernels
 // run it: merkle_kernel._leaf_core (multi-block leaf hashes of 0x00 || leaf
 // with per-lane block counts) and merkle_kernel._inner_core (0x01 || L || R,
-// two blocks), which leaves_to_root_core chains into a whole tree. Two
-// __global__ entries share one __device__ compression:
+// two blocks), which leaves_to_root_core chains into a whole tree. One
+// __device__ compression under four __global__ entries:
 //   - leaf:  pre-padded big-endian word blocks [B, 16, N] (lane-minor, so
 //            neighbouring lanes read neighbouring words) and nblocks[N];
 //            lanes stop after their own count;
 //   - inner: two digest arrays [8, M] read through row and lane strides (so
 //            the even and odd columns of one level are passed without a
-//            copy), out [8, M].
+//            copy), out [8, M];
+//   - tree_chunks and tree_roots: a whole root in two launches, from the
+//            raw leaves (one flat byte buffer and int64 offsets[n + 1]).
+//            Launch 1 runs one block per aligned chunk of C leaves (C a
+//            power of two, one thread a leaf): each thread pads and hashes
+//            0x00 || leaf itself, for any length, and the block reduces its
+//            chunk level by level in shared memory, an odd node promoted.
+//            Launch 2 reduces the chunk roots the same way in one block,
+//            C at a time, until one node is left.
+//
+// Why two launches give the RFC-6962 root: pairing level by level with the
+// odd node promoted makes node j of level h the root of leaves
+// [j 2^h, min((j+1) 2^h, n)) (the reference's recursive split at the
+// largest power of two below the count gives the same tree). So an aligned
+// chunk of C = 2^c leaves is node j of level c, the ragged last chunk
+// included, and the chunk roots are exactly level c.
 //
 // What bounds it: operations. A block is 64 rounds plus 48 schedule steps,
 // about 2,200 32-bit operations, against 64 bytes read and 32 written.
 //
-// Design: one thread per lane, state and the 16-word schedule window in
-// registers (rounds fully unrolled), round constants in __constant__ memory
-// (uniform across lanes).
+// Design: one thread per lane (or leaf, or node pair), state and the
+// 16-word schedule window in registers (rounds fully unrolled), round
+// constants in __constant__ memory (uniform across lanes). The tree's
+// nodes sit in shared memory word-major ([8][C]), so a level's reads and
+// writes are conflict-free.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -94,19 +111,9 @@ leaf_kernel(const uint32_t* __restrict__ blocks, const int32_t* __restrict__ nbl
   for (int t = 0; t < 8; ++t) out[(size_t)t * n + lane] = st[t];
 }
 
-__global__ void __launch_bounds__(kThreads)
-inner_kernel(const uint32_t* __restrict__ left, long long l_row, long long l_lane,
-             const uint32_t* __restrict__ right, long long r_row, long long r_lane,
-             uint32_t* __restrict__ out, int m) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= m) return;
-  uint32_t L[8], R[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    L[i] = left[i * l_row + lane * l_lane];
-    R[i] = right[i * r_row + lane * r_lane];
-  }
-  // Block 1: 0x01 || L || R[:31] as big-endian words (merkle_kernel._inner_core).
+// SHA-256(0x01 || L || R) of two big-endian digests (merkle_kernel._inner_core).
+__device__ __forceinline__ void inner_hash(uint32_t st[8], const uint32_t L[8], const uint32_t R[8]) {
+  // Block 1: 0x01 || L || R[:31] as big-endian words.
   uint32_t w[16];
   w[0] = (0x01u << 24) | (L[0] >> 8);
 #pragma unroll
@@ -114,7 +121,6 @@ inner_kernel(const uint32_t* __restrict__ left, long long l_row, long long l_lan
   w[8] = (L[7] << 24) | (R[0] >> 8);
 #pragma unroll
   for (int i = 9; i < 16; ++i) w[i] = (R[i - 9] << 24) | (R[i - 8] >> 8);
-  uint32_t st[8];
   iv(st);
   compress(st, w);
   // Block 2: last byte of R || 0x80 pad || bit length 65 * 8 = 520.
@@ -123,8 +129,129 @@ inner_kernel(const uint32_t* __restrict__ left, long long l_row, long long l_lan
   w[0] = (R[7] << 24) | (0x80u << 16);
   w[15] = 520;
   compress(st, w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+inner_kernel(const uint32_t* __restrict__ left, long long l_row, long long l_lane,
+             const uint32_t* __restrict__ right, long long r_row, long long r_lane,
+             uint32_t* __restrict__ out, int m) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= m) return;
+  uint32_t L[8], R[8], st[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    L[i] = left[i * l_row + lane * l_lane];
+    R[i] = right[i * r_row + lane * r_lane];
+  }
+  inner_hash(st, L, R);
 #pragma unroll
   for (int t = 0; t < 8; ++t) out[(size_t)t * m + lane] = st[t];
+}
+
+// SHA-256(0x00 || leaf), padded here: byte q of the message is 0x00 at
+// q = 0, leaf[q - 1] up to the leaf's end, then 0x80, zeros, and the 64-bit
+// bit length in the last 8 bytes of the last block.
+__device__ __forceinline__ void leaf_hash(uint32_t st[8], const uint8_t* __restrict__ leaf,
+                                          long long len) {
+  const long long mlen = len + 1;
+  const long long nb = (mlen + 8) / 64 + 1;
+  const unsigned long long bits = (unsigned long long)mlen * 8;
+  iv(st);
+#pragma unroll 1
+  for (long long b = 0; b < nb; ++b) {
+    uint32_t w[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const long long q = b * 64 + 4 * t + k;
+        uint32_t byte = 0;
+        if (q >= 1 && q <= len) byte = leaf[q - 1];
+        if (q == mlen) byte = 0x80u;
+        word = (word << 8) | byte;
+      }
+      w[t] = word;
+    }
+    if (b == nb - 1) {
+      w[14] |= (uint32_t)(bits >> 32);
+      w[15] |= (uint32_t)bits;
+    }
+    compress(st, w);
+  }
+}
+
+// Reduce m nodes (nodes[word * C + i], C = blockDim.x) to the root in slot
+// 0, level by level, an odd node promoted. Every thread of the block calls
+// it with the same m.
+__device__ void reduce_nodes(uint32_t* nodes, int m) {
+  const int C = blockDim.x, i = threadIdx.x;
+  while (m > 1) {
+    const int pairs = m / 2;
+    uint32_t out[8];
+    if (i < pairs) {
+      uint32_t L[8], R[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        L[w] = nodes[w * C + 2 * i];
+        R[w] = nodes[w * C + 2 * i + 1];
+      }
+      inner_hash(out, L, R);
+    } else if (i == pairs && (m & 1)) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) out[w] = nodes[w * C + m - 1];
+    }
+    __syncthreads();
+    if (i < (m + 1) / 2) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) nodes[w * C + i] = out[w];
+    }
+    __syncthreads();
+    m = (m + 1) / 2;
+  }
+}
+
+// Launch 1: block b hashes leaves [b C, min((b+1) C, n)) and writes their
+// subtree root to roots[b] (8 big-endian words).
+__global__ void tree_chunks_kernel(const uint8_t* __restrict__ flat,
+                                   const long long* __restrict__ offsets, int n,
+                                   uint32_t* __restrict__ roots) {
+  extern __shared__ uint32_t nodes[];
+  const int C = blockDim.x, i = threadIdx.x;
+  const long long first = (long long)blockIdx.x * C;
+  const int m = (int)min((long long)C, n - first);
+  if (i < m) {
+    const long long off = offsets[first + i];
+    uint32_t st[8];
+    leaf_hash(st, flat + off, offsets[first + i + 1] - off);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) nodes[w * C + i] = st[w];
+  }
+  __syncthreads();
+  reduce_nodes(nodes, m);
+  for (int w = i; w < 8; w += C) roots[(size_t)blockIdx.x * 8 + w] = nodes[w * C];
+}
+
+// Launch 2 (one block): reduce nc chunk roots in place, C at a time (group
+// g's root goes to slot g, which no later group reads), until one is left.
+__global__ void tree_roots_kernel(uint32_t* __restrict__ roots, int nc) {
+  extern __shared__ uint32_t nodes[];
+  const int C = blockDim.x, i = threadIdx.x;
+  while (nc > 1) {
+    const int groups = (nc + C - 1) / C;
+    for (int g = 0; g < groups; ++g) {
+      const int m = min(C, nc - g * C);
+      if (i < m) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) nodes[w * C + i] = roots[((size_t)g * C + i) * 8 + w];
+      }
+      __syncthreads();
+      reduce_nodes(nodes, m);
+      for (int w = i; w < 8; w += C) roots[(size_t)g * 8 + w] = nodes[w * C];
+      __syncthreads();
+    }
+    nc = groups;
+  }
 }
 
 }  // namespace
@@ -142,5 +269,21 @@ extern "C" int cmtpu_sha256_inner(const uint32_t* left, long long l_row, long lo
   const int grid = (m + kThreads - 1) / kThreads;
   inner_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(left, l_row, l_lane, right,
                                                               r_row, r_lane, out, m);
+  return (int)cudaGetLastError();
+}
+
+// The two launches of one root of n >= 1 leaves (flat bytes, offsets[n + 1])
+// with chunks of C leaves (a power of two, 2..1024); roots is
+// uint32[ceil(n / C), 8] scratch, and the root is left in roots[0..7].
+extern "C" int cmtpu_sha256_tree_chunks(const uint8_t* flat, const long long* offsets, int n,
+                                        int chunk, uint32_t* roots, void* stream) {
+  const int nc = (n + chunk - 1) / chunk;
+  tree_chunks_kernel<<<nc, chunk, (size_t)chunk * 32, (cudaStream_t)stream>>>(flat, offsets, n,
+                                                                               roots);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cmtpu_sha256_tree_roots(uint32_t* roots, int nc, int chunk, void* stream) {
+  tree_roots_kernel<<<1, chunk, (size_t)chunk * 32, (cudaStream_t)stream>>>(roots, nc);
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,8 @@ pipeline order:
      y-limbs and signs              plain PyTorch      (unpack)
   3. ZIP-215 decoding of A and R,
      lane-stacked into one 2N pass  ``decompress`` kernel (edwards)
-  4. [s]B + [k](-A)                 ``ladder`` kernel  (ladder)
-  5. add -R, 3 doublings, identity  plain PyTorch      (edwards)
+  4. -A, [s]B + [k](-A), add -R,
+     3 doublings, identity test     ``ladder`` kernel  (ladder)
 
 The batch axis is bucketed as in the reference (``BUCKETS``,
 ``BLOCK_BUCKETS``) so bitmaps and packed operands compare lane for lane;
@@ -85,27 +85,10 @@ def unpack_stage(a_words, r_words, s_words, k_words):
     )
 
 
-def decode_stage(y2, sg2, n: int):
-    """Stage 3: ZIP-215 decoding of the lane-stacked A and R -> (-A, R, ok)."""
-    pt, ok = ed.decompress(y2, sg2)
-    a = tuple(c[:, :n] for c in pt)
-    r = tuple(c[:, n:] for c in pt)
-    return ed.point_neg(a), r, ok
-
-
-def epilogue_stage(acc, r, ok, n: int) -> torch.Tensor:
-    """Stage 5: the cofactored identity test of acc - R, and both decodings."""
-    acc = ed.point_add(acc, ed.point_neg(r))
-    acc = ed.point_double(ed.point_double(ed.point_double(acc)))
-    return ok[:n] & ok[n:] & ed.point_is_identity(acc)
-
-
 def _verify_from_words(a_words, r_words, s_words, k_words) -> torch.Tensor:
-    n = a_words.shape[1]
     y2, sg2, s_digits, k_digits = unpack_stage(a_words, r_words, s_words, k_words)
-    neg_a, r, ok = decode_stage(y2, sg2, n)
-    acc = ladder.windowed_double_base_mult(s_digits, k_digits, neg_a)
-    return epilogue_stage(acc, r, ok, n)
+    pt, ok = ed.decompress_stacked(y2, sg2)
+    return ladder.verify_lanes(s_digits, k_digits, pt, ok)
 
 
 def verify_core(a_words, r_words, s_words, msg_words, msg_nblocks) -> torch.Tensor:

@@ -12,11 +12,11 @@ Double-scalar multiplication [s]B + [k]A uses signed 4-bit windows (64
 digits in [-8, 8], MSB first): 4 doublings plus one add from the per-lane
 [0..8]A table and one from the constant [0..8]B table per window.
 ``windowed_double_base_mult`` here is the plain version of the ``ladder``
-kernel (ops/ladder.py).
+kernel's accumulator (ops/ladder.py).
 
-``decompress`` is the ZIP-215 decoding wrapper: the CUDA kernel
-(``csrc/decompress.cu``) for CUDA tensors, ``decompress_plain`` for CPU
-tensors.
+``decompress`` / ``decompress_stacked`` are the ZIP-215 decoding
+wrappers: the CUDA kernel (``csrc/decompress.cu``) for CUDA tensors,
+``decompress_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -151,15 +151,17 @@ def decompress_plain(y_limbs: torch.Tensor, sign: torch.Tensor):
     return (x, y, one.expand_as(y).contiguous(), fe.fe_mul(x, y)), ok
 
 
-def decompress(y_limbs: torch.Tensor, sign: torch.Tensor):
+def decompress_stacked(y_limbs: torch.Tensor, sign: torch.Tensor):
     """ZIP-215 decoding of int32[17, M] y limbs (bits 0..254 of the
-    encodings) with bool[M] signs -> ((X, Y, Z, T), ok bool[M]).
+    encodings) with bool[M] signs -> (int32[4, 17, M] X, Y, Z, T stacked,
+    ok bool[M]): the layout the ``ladder`` kernel reads.
 
     CPU tensors take ``decompress_plain``. CUDA tensors launch the
     ``decompress`` kernel, which returns canonical coordinates (equal to
     the plain version's as residues mod p)."""
     if y_limbs.device.type == "cpu":
-        return decompress_plain(y_limbs, sign)
+        pt, ok = decompress_plain(y_limbs, sign)
+        return torch.stack(pt), ok
     y = y_limbs.to(torch.int32).contiguous()
     m = y.shape[1]
     sg = sign.to(torch.int32).contiguous()
@@ -172,7 +174,7 @@ def decompress(y_limbs: torch.Tensor, sign: torch.Tensor):
             _build.stream_of(y),
         )
         _build.check_launch("decompress", rc)
-    return (out[0], out[1], out[2], out[3]), ok.bool()
+    return out, ok.bool()
 
 
 # -- precomputed ("cached") point form ---------------------------------------

@@ -9,11 +9,18 @@ batched hash over all sibling pairs:
   leaf  = SHA-256(0x00 || leaf bytes)
   inner = SHA-256(0x01 || left(32) || right(32))   [65 bytes -> 2 blocks]
 
-Digests are int32[8, N] tensors holding big-endian uint32 words.
-``leaf_core`` and ``inner_core`` are the wrappers of the ``sha256`` kernel's
-two entries (``csrc/sha256.cu``): CPU tensors take their plain versions
-(the reference's ``_leaf_core`` and ``_inner_core`` over
-``sha256_kernel.compress``), CUDA tensors launch the kernel.
+Digests are int32[8, N] tensors holding big-endian uint32 words. The
+wrappers of the ``sha256`` kernel (``csrc/sha256.cu``) take their plain
+versions for CPU tensors and launch the kernel for CUDA tensors:
+
+  ``tree_root``   raw leaves (one flat byte buffer + offsets) to the root in
+                  two launches; what ``merkle_root`` runs (plain version
+                  ``tree_root_plain``);
+  ``leaf_core``   pre-padded leaf blocks to leaf digests, and
+  ``inner_core``  one level's sibling pairs to the next level: every level
+                  (``tree_levels``), as the proofs need (the reference's
+                  ``_leaf_core`` and ``_inner_core`` over
+                  ``sha256_kernel.compress``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import torch
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import sha256_kernel as sha
+
+# Leaves a block of the tree entry's first launch hashes and reduces.
+CHUNK = 256
 
 
 def inner_core_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -101,34 +111,93 @@ def inner_core(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _packed_leaves(items: list[bytes], device) -> tuple[torch.Tensor, torch.Tensor]:
-    blocks, nblocks = sha.pack_messages([b"\x00" + it for it in items])
-    dev = resolve(device)
-    return (
-        torch.from_numpy(blocks.view(np.int32)).to(dev),
-        torch.from_numpy(nblocks).to(dev),
-    )
-
-
-def hash_leaves_device(items: list[bytes], device=None) -> torch.Tensor:
-    """RFC-6962 leaf hashes of all items in one pass: int32[8, n]."""
-    return leaf_core(*_packed_leaves(items, device))
+def _level_up(cur: torch.Tensor, inner) -> torch.Tensor:
+    """One tree level: each sibling pair hashed by ``inner``, an odd last
+    node promoted."""
+    m = cur.shape[1]
+    pairs = m // 2
+    nxt = inner(cur[:, 0 : 2 * pairs : 2], cur[:, 1 : 2 * pairs : 2])
+    if m % 2 == 1:
+        nxt = torch.cat([nxt, cur[:, -1:]], dim=1)
+    return nxt
 
 
 def tree_levels(leaf_digests: torch.Tensor) -> list[torch.Tensor]:
     """All tree levels bottom-up from int32[8, n] leaf digests; each level
     is one batched hash over its sibling pairs, an odd node promoted."""
     levels = [leaf_digests]
-    cur = leaf_digests
-    while cur.shape[1] > 1:
-        m = cur.shape[1]
-        pairs = m // 2
-        nxt = inner_core(cur[:, 0 : 2 * pairs : 2], cur[:, 1 : 2 * pairs : 2])
-        if m % 2 == 1:
-            nxt = torch.cat([nxt, cur[:, -1:]], dim=1)
-        levels.append(nxt)
-        cur = nxt
+    while levels[-1].shape[1] > 1:
+        levels.append(_level_up(levels[-1], inner_core))
     return levels
+
+
+def pack_leaves(leaves: list[bytes], device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tree entry's input: the leaves joined into one uint8 buffer and
+    int64 offsets[n + 1] (leaf i is flat[offsets[i]:offsets[i + 1]])."""
+    n = len(leaves)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, leaves), np.int64, n), out=offsets[1:])
+    flat = np.frombuffer(b"".join(leaves), np.uint8)
+    dev = resolve(device)
+    return torch.from_numpy(flat.copy()).to(dev), torch.from_numpy(offsets).to(dev)
+
+
+def _reduce_chunks(nodes: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Each aligned run of ``chunk`` nodes (the last one ragged) reduced to
+    its subtree root, level by level, all runs at once: int32[8, m] ->
+    int32[8, ceil(m / chunk)]. Pairs never cross a run's edge, since a run
+    starts at an even index of every level below the top."""
+    for _ in range(chunk.bit_length() - 1):
+        if nodes.shape[1] == 1:
+            break
+        nodes = _level_up(nodes, inner_core_plain)
+    return nodes
+
+
+def tree_root_plain(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Plain version of the tree entry: the same (flat, offsets, chunk),
+    leaves packed on the host, then the kernel's two passes: every chunk of
+    ``chunk`` leaves to its root, then the chunk roots ``chunk`` at a time
+    until one is left -> int32[8, 1]."""
+    fl, off = flat.cpu().numpy(), offsets.cpu().numpy()
+    items = [b"\x00" + fl[off[i] : off[i + 1]].tobytes() for i in range(len(off) - 1)]
+    blocks, nblocks = sha.pack_messages(items)
+    dev = flat.device
+    nodes = leaf_core_plain(
+        torch.from_numpy(blocks.view(np.int32)).to(dev), torch.from_numpy(nblocks).to(dev)
+    )
+    nodes = _reduce_chunks(nodes, chunk)
+    while nodes.shape[1] > 1:
+        nodes = _reduce_chunks(nodes, chunk)
+    return nodes
+
+
+def tree_root(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """RFC-6962 root of n >= 1 raw leaves (``pack_leaves``): int32[8, 1].
+    CPU tensors take ``tree_root_plain``; CUDA tensors launch the ``sha256``
+    kernel's tree entry twice (chunks of ``chunk`` leaves, then the chunk
+    roots)."""
+    n = offsets.shape[0] - 1
+    if n < 1:
+        raise ValueError("tree_root: needs at least one leaf")
+    if chunk < 2 or chunk > 1024 or chunk & (chunk - 1):
+        raise ValueError(f"tree_root: chunk must be a power of two in [2, 1024], got {chunk}")
+    if flat.device.type == "cpu":
+        return tree_root_plain(flat, offsets, chunk)
+    _build.require_cuda("sha256", flat, dtype=torch.uint8)
+    _build.require_cuda("sha256", offsets, dtype=torch.int64)
+    if flat.device != offsets.device:
+        raise ValueError("sha256: flat and offsets on different devices")
+    nc = -(-n // chunk)
+    roots = torch.empty((nc, 8), dtype=torch.int32, device=flat.device)
+    lib, stream = _build.lib(), _build.stream_of(flat)
+    rc = lib.cmtpu_sha256_tree_chunks(
+        flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), stream
+    )
+    _build.check_launch("sha256", rc)
+    rc = lib.cmtpu_sha256_tree_roots(roots.data_ptr(), nc, chunk, stream)
+    _build.check_launch("sha256", rc)
+    return roots[0].reshape(8, 1)
 
 
 def _root_bytes(digest: torch.Tensor) -> bytes:
@@ -137,28 +206,8 @@ def _root_bytes(digest: torch.Tensor) -> bytes:
 
 def merkle_root(leaves: list[bytes], device=None) -> bytes:
     """Root of the RFC-6962 tree over ``leaves`` for any count (empty tree =
-    SHA-256 of the empty string)."""
+    SHA-256 of the empty string, on the host): the tree entry, two
+    launches on the card."""
     if len(leaves) == 0:
         return hashlib.sha256(b"").digest()
-    return _root_bytes(tree_levels(hash_leaves_device(leaves, device))[-1])
-
-
-def leaves_to_root_core(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
-    """Leaf-hash all padded messages and reduce the tree to its root:
-    int32[B, 16, n] blocks (n a power of two), int32[n] -> int32[8, 1].
-    One leaf launch and log2(n) inner launches."""
-    cur = leaf_core(blocks, nblocks)
-    while cur.shape[1] > 1:
-        cur = inner_core(cur[:, 0::2], cur[:, 1::2])
-    return cur
-
-
-def merkle_root_fused(leaves: list[bytes], device=None) -> bytes:
-    """RFC-6962 root; power-of-two counts take the fused leaves-to-root
-    pass, ragged counts the level loop with odd promotion."""
-    n = len(leaves)
-    if n == 0:
-        return hashlib.sha256(b"").digest()
-    if n & (n - 1):
-        return merkle_root(leaves, device)
-    return _root_bytes(leaves_to_root_core(*_packed_leaves(leaves, device)))
+    return _root_bytes(tree_root(*pack_leaves(leaves, device)))

@@ -46,7 +46,7 @@ class TorchBackend(VerifyBackend):
         return self._ed.batch_verify(pubs, msgs, sigs, device=self.device)
 
     def merkle_root(self, leaves):
-        return self._merkle.merkle_root_fused(leaves, device=self.device)
+        return self._merkle.merkle_root(leaves, device=self.device)
 
     def mesh_width(self) -> int:
         return self._ed.mesh_width()

@@ -77,9 +77,10 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
     point = tuple(torch.zeros((17, 4), dtype=torch.int32, device=meta) for _ in range(4))
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
-        ladder.windowed_double_base_mult(digits, digits, point)
+        ladder.verify_lanes(digits, digits, torch.stack(point).repeat(1, 1, 2),
+                            torch.zeros(8, dtype=torch.bool, device=meta))
     with pytest.raises(ValueError, match="CUDA"):
-        ted.decompress(point[0], torch.zeros(4, dtype=torch.bool, device=meta))
+        ted.decompress_stacked(point[0], torch.zeros(4, dtype=torch.bool, device=meta))
     with pytest.raises(ValueError, match="CUDA"):
         ts5.hash_blocks_core(
             torch.zeros((4, 64), dtype=torch.int32, device=meta),
@@ -92,12 +93,15 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
         )
     with pytest.raises(ValueError, match="CUDA"):
         tmk.inner_core(point[0][:8], point[1][:8])
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.tree_root(torch.zeros(4, dtype=torch.uint8, device=meta),
+                      torch.arange(5, dtype=torch.int64, device=meta))
     assert _build.LAUNCHES == before
 
 
 def test_cpu_wrappers_count_no_launches():
     before = dict(_build.LAUNCHES)
-    tmk.merkle_root_fused([b"a", b"b", b"c", b"d"], device="cpu")
+    tmk.merkle_root([b"a", b"b", b"c", b"d"], device="cpu")
     assert _build.LAUNCHES == before
     assert set(_build.LAUNCHES) == {"ladder", "decompress", "sha512", "sha256"}
 
