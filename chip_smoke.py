@@ -11,20 +11,29 @@ block. In order:
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``;
   3. makes the fixtures from fixed seeds (keys, signatures, leaves);
   4. holds each kernel against its plain PyTorch version on the card at the
-     main path's shapes (exact equality), and times both: the ladder (fused
-     with the cofactored epilogue) at every group width it is built for,
-     timed in turns, verdict and accumulator; the sha256 tree entry at the
-     65,536- and 10,000-leaf roots, and its leaf and inner entries level by
-     level; prints ptxas's registers and spills, the ladder's launch shape
-     and, where cuobjdump exists, its SASS instruction mix, the measured
-     issue rates of the instructions it runs on
-     (``cometbft_tpu_torch/probe``) and the issue-time estimate they give;
+     main path's shapes (exact equality), and times both (the kernel by
+     CUDA events over back-to-back launches and by its own device time in
+     a torch.profiler trace, ``kernel_ms``): sha512's
+     ``challenge_digits`` on the commit and on a ragged batch up to 32
+     blocks with a zero-block lane (k also against hashlib), and its
+     ``scalar_digits`` with the all-ones and zero digests, s = L - 1 and
+     s = 0; ``decompress_words`` on the commit's A and R words with the
+     ZIP-215 edge encodings mixed in; the ladder (fused with the
+     cofactored epilogue) at every group width it is built for, timed in
+     turns, verdict and accumulator; the sha256 tree entry at the 65,536-
+     and 10,000-leaf roots, and its leaf and inner entries level by level;
+     prints ptxas's registers and spills, the ladder's launch shape and,
+     where cuobjdump exists, its SASS instruction mix, the measured issue
+     rates of the instructions it runs on (``cometbft_tpu_torch/probe``)
+     and the issue-time estimate they give;
   5. runs the main path (launch counters zeroed just before): the valid
      commit, the commit with localized corruptions, the ZIP-215 edge batch,
      an oversized message (host-hash program), the 65,536- and
      10,000-leaf roots, each against its expected answer, and asserts one
-     ladder launch a batch and two sha256 launches a root; then times
-     ``verify_10k_commit_plus_64k_merkle_ms`` and its stage split;
+     sha512, one decompress and one ladder launch a batch and two sha256
+     launches a root; then times ``verify_10k_commit_plus_64k_merkle_ms``
+     and its stage split, and traces one such call (``torch.profiler``:
+     each kernel's device time, and the device's busy time over the call);
   6. prints the ``kernels`` line, the card line and, last, the result line.
 
 Any failure raises and exits nonzero. Without CUDA it exits nonzero before
@@ -71,7 +80,15 @@ LADDER_FE_SQS = 64 * 4 * 4 + 3 * 4
 # 4 squarings and 9 multiplies around it.
 DECOMPRESS_FE_MULS = 11 + 9
 DECOMPRESS_FE_SQS = 251 + 4
+DECOMPRESS_GROUP = 1  # threads a lane (kGroup in decompress.cu)
 SHA512_BLOCK_OPS = 2 * (80 * 25 + 64 * 13 + 8)  # 64-bit ops, two 32-bit ops each
+# What sha512 does a lane after hashing, in 32-bit operations: k mod L
+# (three folds: 18 products of 64-bit words, 4 multiply-adds and 4 adds
+# each; 9 high words of 3 shifts and an or, twice; 16 words of
+# add-then-subtract with carries, 16; the 4-word conditional subtraction,
+# 14 a word) and the recodes of k and s (4 words of add with carry, 8
+# each, and 64 digits of shift, mask and subtract).
+SCALAR_LANE_OPS = 18 * 8 + 9 * 6 + 16 * 16 + 4 * 14 + 2 * (4 * 8 + 64 * 3)
 SHA256_BLOCK_OPS = 64 * 25 + 48 * 13 + 8
 
 
@@ -267,9 +284,24 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # -- phases ------------------------------------------------------------------
 
 
-def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
+def digits_values(digits: torch.Tensor) -> list:
+    """int32[64, N] signed radix-16 digits -> the N integers they encode."""
+    d = digits.cpu().numpy().astype(object)
+    return [sum(int(x) << (4 * i) for i, x in enumerate(d[:, lane])) for lane in range(d.shape[1])]
+
+
+def words_of(values, nbytes: int) -> np.ndarray:
+    """Integers -> int32[nbytes / 4, N] little-endian words (the operand layout)."""
+    from cometbft_tpu_torch.ops import unpack
+
+    return unpack.bytes_to_words(np.stack([np.frombuffer(v.to_bytes(nbytes, "little"), np.uint8)
+                                           for v in values]))
+
+
+def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
     """Phase 4: each kernel against its plain version at the main path's
     shapes; returns the per-kernel records (without launches)."""
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
     from cometbft_tpu_torch.ops import edwards as ed
     from cometbft_tpu_torch.ops import field25519 as fe
@@ -277,6 +309,9 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
     from cometbft_tpu_torch.ops import merkle_kernel as mk
     from cometbft_tpu_torch.ops import sha256_kernel as sha
     from cometbft_tpu_torch.ops import sha512_kernel as s5
+    from cometbft_tpu_torch.ops import unpack
+
+    L = ek.L
 
     _, _, pubs, msgs, sigs, leaves = fixtures
     records = {}
@@ -285,10 +320,11 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
     a_w, r_w, s_w, msg_w, msg_nb = ek.operands_to_device(operands, dev)
     n = a_w.shape[1]
 
-    # sha512: the main path's pack buffer, then a ragged batch up to 32 blocks
-    k_words = s5.hash_blocks_core(msg_w, msg_nb)
-    plain = s5.hash_blocks_plain(msg_w, msg_nb)
-    err = max_abs_err(k_words, plain)
+    # sha512: the main path's challenge_digits, a ragged batch up to 32
+    # blocks with a zero-block lane, scalar_digits on edge digests and s
+    s_dig, k_dig = s5.challenge_digits(msg_w, msg_nb, s_w)
+    err = max_abs_err(torch.stack([s_dig, k_dig]),
+                      torch.stack(s5.challenge_digits_plain(msg_w, msg_nb, s_w)))
     rng = np.random.default_rng(SEED)
     lens = rng.integers(0, 32 * 128 - 17, 1024)
     lens[:4] = [111, 112, 0, 32 * 128 - 17]
@@ -297,49 +333,70 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
     nb[5] = 0
     rw = torch.from_numpy(buf.view("<u4").view(np.int32)).to(dev)
     rnb = torch.from_numpy(nb).to(dev)
-    got = s5.hash_blocks_core(rw, rnb)
-    err = max(err, max_abs_err(got, s5.hash_blocks_plain(rw, rnb)))
-    digests = s5.digest_words_to_bytes(got.cpu().numpy())
-    check(all(digests[i] == hashlib.sha512(m).digest() for i, m in enumerate(ragged) if i != 5),
-          "sha512 kernel disagrees with hashlib")
+    rs = torch.from_numpy(words_of([int.from_bytes(rng.bytes(32), "little") % L for _ in ragged],
+                                   32)).to(dev)
+    got = torch.stack(s5.challenge_digits(rw, rnb, rs))
+    err = max(err, max_abs_err(got, torch.stack(s5.challenge_digits_plain(rw, rnb, rs))))
+    iv = b"".join(v.to_bytes(8, "big") for v in s5._IV)
+    want_k = [int.from_bytes(iv if i == 5 else hashlib.sha512(m).digest(), "little") % L
+              for i, m in enumerate(ragged)]
+    check(digits_values(got[1]) == want_k, "sha512 kernel: k != hashlib digest mod L")
+    k_words = s5.hash_blocks_plain(msg_w, msg_nb)
+    edge_k = [2**512 - 1, 0, L - 1, L]
+    k_words[:, : len(edge_k)] = torch.from_numpy(words_of(edge_k, 64)).to(dev)
+    s_edge = s_w.clone()
+    s_edge[:, :3] = torch.from_numpy(words_of([L - 1, 0, L - 1], 32)).to(dev)
+    got = torch.stack(s5.scalar_digits(k_words, s_edge))
+    err = max(err, max_abs_err(got, torch.stack(s5.scalar_digits_plain(k_words, s_edge))))
+    check(digits_values(got[1][:, : len(edge_k)]) == [v % L for v in edge_k]
+          and digits_values(got[0][:, :3]) == [L - 1, 0, L - 1],
+          "sha512 scalar_digits: edge digests or scalars decoded wrong")
     check(err == 0, f"sha512 kernel != plain (max abs err {err})")
     blocks_hashed = int(msg_nb.sum().item())
-    t_b = bound_ms(blocks_hashed * SHA512_BLOCK_OPS, blocks_hashed * 128 + n * (4 + 64), sms, clock_hz)
+    t_b = bound_ms(blocks_hashed * SHA512_BLOCK_OPS + n * SCALAR_LANE_OPS,
+                   blocks_hashed * 128 + n * (4 + 32 + 2 * 64 * 4), sms, clock_hz)
     records["sha512"] = dict(
         max_abs_err=err,
-        ms=time_cuda(lambda: s5.hash_blocks_core(msg_w, msg_nb), 50),
-        plain_ms=time_cuda(lambda: s5.hash_blocks_plain(msg_w, msg_nb), 2),
-        bound_ms=t_b[0], bound_by=t_b[1], shape=f"{n} lanes x {msg_w.shape[1] // 32} blocks",
+        ms=time_cuda(lambda: s5.challenge_digits(msg_w, msg_nb, s_w), 50),
+        kernel_ms=kernel_ms(lambda: s5.challenge_digits(msg_w, msg_nb, s_w)),
+        plain_ms=time_cuda(lambda: s5.challenge_digits_plain(msg_w, msg_nb, s_w), 2),
+        bound_ms=t_b[0], bound_by=t_b[1],
+        shape=f"{n} lanes x {msg_w.shape[1] // 32} blocks ({blocks_hashed} hashed)",
     )
 
-    # decompress: the main path's 2N lanes with the ZIP-215 encodings mixed in
-    y2, sg2, s_dig, k_dig = ek.unpack_stage(a_w, r_w, s_w, k_words)
+    # decompress: the main path's A and R words with the ZIP-215 edge
+    # encodings fed as raw words in the first lanes
     edge = [(1).to_bytes(32, "little"), _enc_int(1 + fe.P_INT), _enc_int(fe.P_INT - 1),
-            _enc_int((1 << 255) - 1), _enc_int(1, 1), _enc_int(0, 1), b"\x11" * 32, bytes(32)]
-    enc = np.stack([np.frombuffer(e, np.uint8) for e in edge])
-    y_mix, sg_mix = y2.clone(), sg2.clone()
-    y_mix[:, : len(edge)] = torch.from_numpy(fe.fe_from_bytes_le(enc)).to(dev)
-    sg_mix[: len(edge)] = torch.from_numpy((enc[:, 31] >> 7).astype(bool)).to(dev)
-    pt_k, ok_k = ed.decompress_stacked(y_mix, sg_mix)
-    pt_p, ok_p = ed.decompress_plain(y_mix, sg_mix)
-    canon_k = torch.stack(ed.point_freeze(pt_k))
-    err = max_abs_err(canon_k, torch.stack(ed.point_freeze(pt_p)))
-    err = max(err, max_abs_err(ok_k, ok_p))
+            _enc_int(fe.P_INT), _enc_int((1 << 255) - 1), _enc_int(1, 1), _enc_int(0, 1),
+            b"\x11" * 32, bytes(32)]
+    a_mix = a_w.clone()
+    a_mix[:, : len(edge)] = torch.from_numpy(
+        unpack.bytes_to_words(np.stack([np.frombuffer(e, np.uint8) for e in edge]))).to(dev)
+    pt_k, ok_k = ed.decompress_words(a_mix, r_w)
+    pt_p, ok_p = ed.decompress_words_plain(a_mix, r_w)
+    err = max(max_abs_err(torch.stack(ed.point_freeze(pt_k)), torch.stack(ed.point_freeze(pt_p))),
+              max_abs_err(ok_k, ok_p))
     check(err == 0, f"decompress kernel != plain (max abs err {err})")
+    check(ok_k[: len(edge)].tolist() == [pure.point_decompress_zip215(e) is not None for e in edge],
+          "decompress: an edge encoding decoded against ZIP-215")
     check(ok_k[len(edge):].all().item(), "a fixture encoding failed to decode")
-    m = y2.shape[1]
-    t_b = bound_ms(m * (DECOMPRESS_FE_MULS * FE_MUL_OPS + DECOMPRESS_FE_SQS * FE_SQ_OPS),
-                   m * (72 + 276), sms, clock_hz)
+    m = 2 * n
+    products = m * (DECOMPRESS_FE_MULS * FE_MUL_OPS + DECOMPRESS_FE_SQS * FE_SQ_OPS)
+    t_b = bound_ms(products, m * (32 + 273), sms, clock_hz)
+    lpb = -(-m // sms)  # grid.cuh's balanced grid (one wave at this size)
     records["decompress"] = dict(
         max_abs_err=err,
-        ms=time_cuda(lambda: ed.decompress_stacked(y2, sg2), 50),
-        plain_ms=time_cuda(lambda: ed.decompress_plain(y2, sg2), 2),
-        bound_ms=t_b[0], bound_by=t_b[1], shape=f"{m} lanes",
+        ms=time_cuda(lambda: ed.decompress_words(a_w, r_w), 50),
+        kernel_ms=kernel_ms(lambda: ed.decompress_words(a_w, r_w)),
+        plain_ms=time_cuda(lambda: ed.decompress_words_plain(a_w, r_w), 2),
+        bound_ms=t_b[0], bound_by=t_b[1],
+        bound_ms_at_imad_wide_rate=products / (rates["IMAD.WIDE"]["rate"] * sms * clock_hz) * 1e3,
+        shape=f"{m} lanes, {-(-m // lpb)} blocks of {lpb} lanes x {DECOMPRESS_GROUP} threads",
     )
 
     # ladder (fused with the epilogue): the main path's digits and decoded
     # A, R, at every group width; widths timed in turns
-    pt, ok = ed.decompress_stacked(y2, sg2)
+    pt, ok = ed.decompress_words(a_w, r_w)
     want, acc_p = ladder.verify_lanes_plain(s_dig, k_dig, pt, ok)
     acc_p = torch.stack(ed.point_freeze(acc_p))
     check(bool(want.all()), "plain ladder rejects a fixture signature")
@@ -363,6 +420,7 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
                    n * (2 * 64 * 4 + 2 * 4 * 17 * 4 + 2 + 1), sms, clock_hz)
     records["ladder"] = dict(
         max_abs_err=err, ms=ms_by_group[ladder.GROUP], ms_by_group=ms_by_group,
+        kernel_ms=kernel_ms(lambda: ladder.verify_lanes(s_dig, k_dig, pt, ok)),
         threads_per_lane=ladder.GROUP,
         plain_ms=time_cuda(lambda: ladder.verify_lanes_plain(s_dig, k_dig, pt, ok), 1, warmup=0),
         bound_ms=t_b[0], bound_by=t_b[1], shape=f"{n} lanes x 64 windows + epilogue",
@@ -397,6 +455,7 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz):
     records["sha256"] = dict(
         max_abs_err=err,
         ms=time_cuda(lambda: mk.tree_root(flat, offsets), 50),
+        kernel_ms=kernel_ms(lambda: mk.tree_root(flat, offsets)),
         plain_ms=time_cuda(lambda: mk.tree_root_plain(flat, offsets), 1, warmup=0),
         bound_ms=t_b[0], bound_by=t_b[1],
         shape=f"{nl} leaves, 2 launches ({-(-nl // mk.CHUNK)} chunks of {mk.CHUNK})",
@@ -442,6 +501,35 @@ def drive_main_path(fixtures, pure, merkle_oracle, backend):
     check(backend.merkle_root(ragged) == merkle_oracle(ragged), "10,000-leaf root mismatch")
 
 
+def trace_call(fn) -> dict:
+    """One call of fn under torch.profiler: its wall ms (traced, so slower
+    than untraced), the device time of each kernel and copy by name, and
+    their sum (one stream, so the sum is the device's busy time). Empty
+    device times mean the profiler saw no kernel: nothing is claimed then."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = time_host(fn)
+    device = collections.Counter()
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if t > 0 and e.device_type.name == "CUDA":
+            device[e.key] += t / 1e3
+    return {"wall_ms": wall, "device_ms": sum(device.values()),
+            "kernels_ms": dict(device.most_common())}
+
+
+def kernel_ms(fn, reps: int = 20):
+    """Mean device time of fn's kernels a call (torch.profiler, CUPTI): the
+    kernels' own time, without the gaps that the host's enqueue leaves
+    between launches and that CUDA events around back-to-back launches
+    count. None when the profiler saw no kernel."""
+    fn()
+    t = trace_call(lambda: [fn() for _ in range(reps)])["kernels_ms"]
+    ms = sum(v for k, v in t.items() if not k.startswith(("Memcpy", "Memset"))) / reps
+    return ms or None
+
+
 def stage_split(fixtures, dev):
     """One verify + root, stage by stage, each ended by a synchronize."""
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -462,10 +550,9 @@ def stage_split(fixtures, dev):
 
     run("pack", lambda: ek.operands_to_device(ek.pack_batch(pubs, msgs, sigs)[0], dev))
     a_w, r_w, s_w, msg_w, msg_nb = box["pack"]
-    run("sha512", lambda: s5.hash_blocks_core(msg_w, msg_nb))
-    run("unpack", lambda: ek.unpack_stage(a_w, r_w, s_w, box["sha512"]))
-    y2, sg2, s_dig, k_dig = box["unpack"]
-    run("decompress", lambda: ed.decompress_stacked(y2, sg2))
+    run("sha512", lambda: s5.challenge_digits(msg_w, msg_nb, s_w))
+    s_dig, k_dig = box["sha512"]
+    run("decompress", lambda: ed.decompress_words(a_w, r_w))
     pt, ok = box["decompress"]
     run("ladder_epilogue", lambda: ladder.verify_lanes(s_dig, k_dig, pt, ok).cpu())
     run("merkle_pack", lambda: mk.pack_leaves(leaves, dev))
@@ -497,7 +584,7 @@ def main() -> int:
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}", flush=True)
     for line in _build.BUILD_LOG.splitlines():
-        entry = re.search(r"entry function '_Z\w*?\d+(\w+_kernel)(ILi(\d+)EE)?", line)
+        entry = re.search(r"entry function '_Z\w*?\d+(\w+_kernel)(IL[ib](\d+)EE)?", line)
         if entry:
             print(f"  {entry.group(1)}" + (f"<{entry.group(3)}>" if entry.group(3) else ""))
         elif line.startswith("==") or "registers" in line or "spill" in line:
@@ -518,7 +605,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records = compare_kernels(fixtures, hash_from_byte_slices, dev, props.multi_processor_count,
-                              clock_hz)
+                              clock_hz, rates)
     print(f"kernels equal their plain versions (compare + timing {time.perf_counter() - t0:.1f} s)",
           flush=True)
     for g, mix in mixes.items():
@@ -531,8 +618,9 @@ def main() -> int:
     drive_main_path(fixtures, pure, hash_from_byte_slices, backend)
     launches = dict(_build.LAUNCHES)
     check(all(launches[k] > 0 for k in _build.KERNELS), f"a kernel was not launched: {launches}")
-    check(launches["ladder"] == 4 and launches["sha256"] == 4,
-          f"expected one ladder launch a batch and two sha256 launches a root: {launches}")
+    check(launches == {"ladder": 4, "decompress": 4, "sha512": 4, "sha256": 4},
+          f"expected one sha512, decompress and ladder launch a batch (4 batches) and two "
+          f"sha256 launches a root (2 roots): {launches}")
     print(f"main path ok; launches {launches}", flush=True)
 
     _, _, pubs, msgs, sigs, leaves = fixtures
@@ -542,19 +630,28 @@ def main() -> int:
                                          backend.merkle_root(leaves))))
     splits = [stage_split(fixtures, dev) for _ in range(3)]
     stages = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    trace = trace_call(lambda: (backend.batch_verify(pubs, msgs, sigs),
+                                backend.merkle_root(leaves)))
     print(json.dumps({
         "metric": "verify_10k_commit_plus_64k_merkle_ms",
         "value": statistics.median(totals), "runs_ms": totals,
         "stages_ms": stages, "device": torch.cuda.get_device_name(0), "card": card,
     }), flush=True)
+    trace["kernels_ms"] = dict(collections.Counter(trace["kernels_ms"]).most_common(12))
+    print(json.dumps({"traced_call": trace,
+                      "device_busy_share_of_untraced_median":
+                          trace["device_ms"] / statistics.median(totals)}), flush=True)
 
     sources = {
         "ladder": ("cometbft_tpu_torch/ops/csrc/ladder.cu", "cometbft_tpu/ops/pallas_ladder.py:218",
                    "pallas_ladder._ladder_kernel + the epilogue of ed25519_kernel._verify_from_words"),
-        "decompress": ("cometbft_tpu_torch/ops/csrc/decompress.cu", "cometbft_tpu/ops/edwards.py:141",
-                       "edwards.decompress"),
-        "sha512": ("cometbft_tpu_torch/ops/csrc/sha512.cu", "cometbft_tpu/ops/sha512_kernel.py:188",
-                   "sha512_kernel.hash_blocks_core"),
+        "decompress": ("cometbft_tpu_torch/ops/csrc/decompress.cu",
+                       "cometbft_tpu/ops/edwards.py:141, cometbft_tpu/ops/unpack.py:66",
+                       "edwards.decompress + unpack.words_to_limbs255"),
+        "sha512": ("cometbft_tpu_torch/ops/csrc/sha512.cu",
+                   "cometbft_tpu/ops/sha512_kernel.py:188, cometbft_tpu/ops/unpack.py:188,182",
+                   "sha512_kernel.hash_blocks_core + unpack.digest_words_to_digits "
+                   "+ unpack.scalar_words_to_digits"),
         "sha256": ("cometbft_tpu_torch/ops/csrc/sha256.cu", "cometbft_tpu/ops/sha256_kernel.py:48",
                    "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core/leaves_to_root_core)"),
     }
@@ -568,7 +665,9 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "match": rec["max_abs_err"] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"],
-            **{k: rec[k] for k in ("threads_per_lane", "ms_by_group") if k in rec},
+            "kernel_ms": rec["kernel_ms"],
+            **{k: rec[k] for k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate")
+               if k in rec},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

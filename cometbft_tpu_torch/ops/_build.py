@@ -10,7 +10,8 @@ raises; nothing falls back to the plain versions.
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels. A source's entries count under its name
+(``challenge_digits`` and ``scalar_digits`` under ``sha512``).
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "cmtpu_ladder_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cmtpu_ladder_config": [_I, _I, _P],
-    "cmtpu_decompress": [_P, _P, _P, _P, _I, _P],
-    "cmtpu_sha512": [_P, _P, _P, _I, _I, _P],
+    "cmtpu_decompress_words": [_P, _P, _P, _P, _I, _P],
+    "cmtpu_challenge_digits": [_P, _P, _I, _P, _P, _P, _I, _P],
+    "cmtpu_scalar_digits": [_P, _P, _P, _P, _I, _P],
     "cmtpu_sha256_leaf": [_P, _P, _P, _I, _I, _P],
     "cmtpu_sha256_inner": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
     "cmtpu_sha256_tree_chunks": [_P, _P, _I, _I, _P, _P],

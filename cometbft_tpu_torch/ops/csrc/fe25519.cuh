@@ -1,14 +1,15 @@
-// GF(2^255-19) arithmetic for one lane per thread: the __device__ field
-// library shared by the ladder and decompress kernels.
+// GF(2^255-19) elements as ten limbs of radix 2^25.5, whole in one
+// thread: the representation shared by the ladder and decompress kernels,
+// whose arithmetic runs on fe25519_group.cuh (limbs spread over a group of
+// threads). This header holds what needs the whole element: constants,
+// the canonical residue and the predicates on it, and the exchange with
+// PyTorch.
 //
 // Representation: ten signed 32-bit limbs of radix 2^25.5 (ref10's layout:
 // limb i sits at bit ceil(25.5 i), even limbs 26 bits wide, odd limbs 25).
 // A product of two limbs fits a 32x32->64 multiply-add (IMAD.WIDE), so a
 // field multiply is 100 of them, against 289 for the reference's 17x15-bit
-// layout. After every operation each limb is non-negative and within its
-// width, except limb 1, which may exceed 2^25 by at most 2^15; that bound
-// keeps every multiply input below 2^31 after the 2x / 19x pre-scaling and
-// every column sum below 2^60.
+// layout.
 //
 // The kernels exchange field elements with PyTorch in the reference's
 // layout (int32[17, N], 15-bit limbs): fe_load17 accepts loose limbs (up to
@@ -54,8 +55,6 @@ __device__ __forceinline__ void fe_carry_into(fe& h, T t[10]) {
   for (int i = 0; i < 10; ++i) h.v[i] = (int32_t)t[i];
 }
 
-__device__ __forceinline__ fe fe_zero() { return fe{{0, 0, 0, 0, 0, 0, 0, 0, 0, 0}}; }
-__device__ __forceinline__ fe fe_one() { return fe{{1, 0, 0, 0, 0, 0, 0, 0, 0, 0}}; }
 __device__ __forceinline__ fe fe_d() {
   return fe{{56195235, 13857412, 51736253, 6949390, 114729, 24766616, 60832955,
              30306712, 48412415, 21499315}};
@@ -67,66 +66,6 @@ __device__ __forceinline__ fe fe_two_d() {
 __device__ __forceinline__ fe fe_sqrt_m1() {
   return fe{{34513072, 25610706, 9377949, 3500415, 12389472, 33281959, 41962654,
              31548777, 326685, 11406482}};
-}
-
-// 4p limb by limb: at least 4(2^25-1) > any limb under the invariant, so
-// f + 4p - g stays non-negative limb-wise.
-__device__ __forceinline__ int32_t fe_four_p(int i) {
-  return i == 0 ? 4 * ((1 << 26) - 19) : 4 * ((1 << fe_width(i)) - 1);
-}
-
-__device__ __forceinline__ void fe_add(fe& h, const fe& f, const fe& g) {
-  int32_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) t[i] = f.v[i] + g.v[i];
-  fe_carry_into(h, t);
-}
-
-__device__ __forceinline__ void fe_sub(fe& h, const fe& f, const fe& g) {
-  int32_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) t[i] = f.v[i] + fe_four_p(i) - g.v[i];
-  fe_carry_into(h, t);
-}
-
-__device__ __forceinline__ void fe_neg(fe& h, const fe& f) {
-  int32_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) t[i] = fe_four_p(i) - f.v[i];
-  fe_carry_into(h, t);
-}
-
-// Schoolbook product: f_i g_j lands in limb (i + j) mod 10, doubled when
-// both i and j are odd (the half bits of radix 2^25.5), times 19 when it
-// wraps past 2^255.
-__device__ __forceinline__ void fe_mul(fe& h, const fe& f, const fe& g) {
-  int32_t f2[10], g19[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    f2[i] = (i & 1) ? 2 * f.v[i] : f.v[i];
-    g19[i] = 19 * g.v[i];
-  }
-  int64_t t[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-#pragma unroll
-    for (int j = 0; j < 10; ++j) {
-      const int32_t a = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
-      const int32_t b = (i + j >= 10) ? g19[j] : g.v[j];
-      t[(i + j) % 10] += (int64_t)a * b;
-    }
-  }
-  fe_carry_into(h, t);
-}
-
-__device__ __forceinline__ void fe_sq(fe& h, const fe& f) { fe_mul(h, f, f); }
-
-__device__ __forceinline__ void fe_sq_n(fe& h, const fe& f, int n) {
-  fe_sq(h, f);
-#pragma unroll 1
-  for (int i = 1; i < n; ++i) fe_sq(h, h);
 }
 
 // Canonical residue in [0, p): two carry chains bring every limb within its
@@ -179,29 +118,6 @@ __device__ __forceinline__ bool fe_parity(const fe& f) {
   return c.v[0] & 1;
 }
 
-__device__ __forceinline__ void fe_select(fe& h, bool take_a, const fe& a, const fe& b) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) h.v[i] = take_a ? a.v[i] : b.v[i];
-}
-
-// z^((p-5)/8) = z^(2^252 - 3): the reference's addition chain
-// (cometbft_tpu/ops/field25519.py fe_pow2523), step for step.
-__device__ __forceinline__ void fe_pow2523(fe& out, const fe& z) {
-  fe t0, t1, t2, s;
-  fe_sq(t0, z);                        // z^2
-  fe_sq_n(s, t0, 2); fe_mul(t1, z, s); // z^9
-  fe_mul(t0, t0, t1);                  // z^11
-  fe_sq(s, t0); fe_mul(t0, t1, s);     // z^31
-  fe_sq_n(s, t0, 5); fe_mul(t0, s, t0);     // 2^10 - 1
-  fe_sq_n(s, t0, 10); fe_mul(t1, s, t0);    // 2^20 - 1
-  fe_sq_n(s, t1, 20); fe_mul(t2, s, t1);    // 2^40 - 1
-  fe_sq_n(s, t2, 10); fe_mul(t1, s, t0);    // 2^50 - 1
-  fe_sq_n(s, t1, 50); fe_mul(t2, s, t1);    // 2^100 - 1
-  fe_sq_n(s, t2, 100); fe_mul(t2, s, t2);   // 2^200 - 1
-  fe_sq_n(s, t2, 50); fe_mul(t1, s, t1);    // 2^250 - 1
-  fe_sq_n(s, t1, 2); fe_mul(out, s, z);     // 2^252 - 3
-}
-
 // int32[17, n] loose 15-bit limbs (each < 2^16) at column `lane` -> fe.
 __device__ __forceinline__ void fe_load17(fe& h, const int32_t* __restrict__ src,
                                           int n, int lane) {
@@ -217,9 +133,10 @@ __device__ __forceinline__ void fe_load17(fe& h, const int32_t* __restrict__ src
   fe_carry_into(h, t);
 }
 
-// fe -> canonical residue as int32[17, n] 15-bit limbs at column `lane`.
+// fe -> canonical residue as int32[17, n] 15-bit limbs at column `lane`:
+// the limbs i = first, first + step, ... (all 17 by default).
 __device__ __forceinline__ void fe_store17(int32_t* __restrict__ dst, const fe& f,
-                                           int n, int lane) {
+                                           int n, int lane, int first = 0, int step = 1) {
   fe c;
   fe_freeze(c, f);
   uint64_t w[4] = {0, 0, 0, 0};
@@ -235,7 +152,7 @@ __device__ __forceinline__ void fe_store17(int32_t* __restrict__ dst, const fe& 
     const int b = 15 * i;
     uint64_t x = w[b / 64] >> (b % 64);
     if (b % 64 > 49 && b / 64 + 1 < 4) x |= w[b / 64 + 1] << (64 - b % 64);
-    dst[(size_t)i * n + lane] = (int32_t)(x & 0x7FFF);
+    if (i % step == first) dst[(size_t)i * n + lane] = (int32_t)(x & 0x7FFF);
   }
 }
 

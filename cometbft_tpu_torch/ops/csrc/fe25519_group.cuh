@@ -1,5 +1,5 @@
 // GF(2^255-19) arithmetic shared by a group of G threads (G = 1, 2 or 5):
-// the __device__ field library of the fused ladder kernel.
+// the __device__ field library of the ladder and decompress kernels.
 //
 // An element is fe25519.cuh's ten limbs of radix 2^25.5, split so that
 // thread t of the group holds limbs t*L .. t*L+L-1 (L = 10/G). The G
@@ -12,10 +12,11 @@
 // gathers g whole, in limb order, and f rotated by its own offset
 // (fr[a] = f[(t*L + a) mod 10]), so that the partner limb of fr[a] in
 // column kk is g[(kk - a) mod 10], an index the compiler knows. The two
-// factors of fe_mul (x2 when both limbs are odd, x19 when i + j wraps past
-// 2^255) go onto fr: a gathered limb (a >= L) wraps in every own column iff
-// t*L + a < 10, one select at gather time; an own limb (a < L) wraps iff
-// a > kk, known at compile time. 100/G multiply-adds a thread.
+// factors of the schoolbook product (x2 when both limbs are odd, x19 when
+// i + j wraps past 2^255) go onto fr: a gathered limb (a >= L) wraps in
+// every own column iff t*L + a < 10, one select at gather time; an own
+// limb (a < L) wraps iff a > kk, known at compile time. 100/G multiply-adds
+// a thread. Squaring (g_sqr, G = 1 or 5) takes 55/G: see there.
 //
 // Carry. Parallel rounds, no chain through the limbs: every limb keeps
 // its low bits and adds the carry out of the limb below, which for a
@@ -204,6 +205,64 @@ __device__ __forceinline__ void g_gather(fe& out, const gfe<G>& x, const grp<G>&
       out.v[j] = __shfl_sync(kFullMask, x.v[j % L], q.base + j / L);
     }
   }
+}
+
+// Dedicated squaring: 55 limb products where g_mul has 100 (10 squares and
+// the 45 cross terms once, doubled). Column k = t*L + kk sums f_i f_j over
+// i + j = k (mod 10). With f rotated by R = t*L/2 (fh[a] = f[(R + a) mod
+// 10]; R = 0 at G = 1, R = t at G = 5, so L must be even) those are the
+// pairs a + b = kk + 10 e, e = 0 or 1: indices the compiler knows, each
+// unordered pair taken once. The factors depend on R:
+//   - x19 when i + j wraps past 2^255. Then i + j = k + 10 (e - wa - wb),
+//     wa = [R + a >= 10], so it wraps iff e = 1 and R + max(a, b) < 10.
+//   - x2 when i and j are both odd. a and b share a parity only when kk is
+//     even, and then both are odd iff R + a is.
+// The larger index's operand takes x19 and the odd x2 (below 2^31), the
+// other the cross term's x2 (below 2^27.1); a column sums at most six
+// products, below 2^60, as g_mul's do, so g_carry_wide applies unchanged.
+template <int G>
+__device__ __forceinline__ void g_sqr(gfe<G>& h, const gfe<G>& f, const grp<G>& q) {
+  constexpr int L = 10 / G;
+  static_assert(L % 2 == 0, "g_sqr rotates by t*L/2: G = 1 or 5");
+  constexpr int kMaxRot = (G - 1) * (L / 2);
+  const int rot = q.t * (L / 2);
+  fe whole;
+  g_gather(whole, f, q);
+  int32_t fh[10];
+#pragma unroll
+  for (int a = 0; a < 10; ++a) fh[a] = whole.v[a];
+  // Rotate left by rot, one conditional shift per bit (none at G = 1).
+#pragma unroll
+  for (int s = 1; s <= kMaxRot; s <<= 1) {
+    const bool take = rot & s;
+    int32_t r[10];
+#pragma unroll
+    for (int a = 0; a < 10; ++a) r[a] = take ? fh[(a + s) % 10] : fh[a];
+#pragma unroll
+    for (int a = 0; a < 10; ++a) fh[a] = r[a];
+  }
+  constexpr int kChains = L < 10 ? 2 : 1;
+  int64_t t[L];
+#pragma unroll
+  for (int kk = 0; kk < L; ++kk) {
+    int64_t s[kChains] = {};
+    int n = 0;
+#pragma unroll
+    for (int a = 0; a < 10; ++a) {
+#pragma unroll
+      for (int b = 0; b <= a; ++b) {
+        if ((a + b) % 10 != kk) continue;
+        const bool wrap = (a + b) >= 10 && rot + a < 10;
+        const bool both_odd = kk % 2 == 0 && ((rot + a) & 1);
+        int32_t x = wrap ? 19 * fh[a] : fh[a];
+        x = both_odd ? 2 * x : x;
+        const int32_t y = a == b ? fh[b] : 2 * fh[b];
+        s[n++ % kChains] += (int64_t)x * y;
+      }
+    }
+    t[kk] = kChains == 2 ? s[0] + s[kChains - 1] : s[0];
+  }
+  g_carry_wide(h, t, q);
 }
 
 // The thread's own limbs of a whole element.

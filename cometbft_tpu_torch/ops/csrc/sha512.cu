@@ -1,32 +1,52 @@
-// sha512: batched multi-block SHA-512 on Hopper (sm_90a).
+// sha512: the challenge scalars of batched Ed25519 verification on Hopper
+// (sm_90a): SHA-512 of R || A || M, k = digest mod L, and the signed
+// radix-16 digits of k and s that the ladder reads.
 //
 // Replaces cometbft_tpu/ops/sha512_kernel.py:hash_blocks_core (its
-// compress, 80 rounds over 64-bit words emulated as hi/lo uint32 pairs)
-// together with the head and tail verify_core wraps around it: the
-// transpose + byte swap of the host pack buffer into big-endian block words
-// (ed25519_kernel.verify_core) and digest_to_le_words. Input: the pack
-// buffer as little-endian uint32 words, row per lane ([N, B*32]), and
-// per-lane block counts; lanes stop after their own count, so a lane with
-// nblocks = 0 (padding) returns the IV. Output: the 16 little-endian digest
-// words per lane, int32[16, N], the layout unpack.digest_words_to_digits
-// reads.
+// compress, 80 rounds over 64-bit words emulated as hi/lo uint32 pairs),
+// the head and tail verify_core wraps around it (the transpose + byte swap
+// of the host pack buffer into big-endian block words, digest_to_le_words),
+// and the scalar half of the unpack stage that follows:
+// cometbft_tpu/ops/unpack.py:digest_words_to_digits (digest mod L, then the
+// recode) and :scalar_words_to_digits (the recode of s). Input: the pack
+// buffer as little-endian uint32 words, row per lane ([N, B*32]), per-lane
+// block counts, and s as int32[8, N] words; lanes stop after their own
+// count, so a lane with nblocks = 0 (padding) reduces the IV. A second
+// entry takes the digests as int32[16, N] words instead (the host-hash
+// program) and skips the hash. Output: s and k digits, int32[64, N] each,
+// in [-8, 7], row w of weight 16^w.
+//
+// The reduction works on the 512-bit digest as eight 64-bit words: three
+// folds by 2^252 = -c (mod L), c = L - 2^252 < 2^125, each computing
+// lo + M - hi*c with M a multiple of L (L << 133, L << 7, L) above hi*c,
+// so nothing goes negative (bounds 2^386, 2^260, 2L), then one conditional
+// subtraction of L. The recode is the add-8s identity: t = v + 0x88..8
+// (below 2^256 for v < 2^253), digit w = nibble w of t minus 8. The value
+// mod L is unique, so the digits equal the reference's bit for bit,
+// whatever the representation.
 //
 // What bounds it: operations. A block is 80 rounds and 64 schedule steps of
-// 64-bit adds, rotates and logic, about 2,840 64-bit operations (some 5,700
-// 32-bit ones: each 64-bit add is an add with carry, each rotate two funnel
-// shifts), against 128 bytes read.
+// 64-bit adds, rotates and logic, about 5,680 32-bit operations; the
+// reduction and the two recodes add about 600 a lane, against 128 bytes a
+// block and 548 a lane in and out.
 //
 // Design: one thread per lane, state and the 16-word schedule window in
 // registers (the 80-round loop fully unrolled so the window indices are
 // static), round constants in __constant__ memory (every lane reads the
-// same one at once).
+// same one at once), the reduction in registers after the last block. The
+// grid is balanced (grid.cuh): one block per SM with ceil(N / SMs) lanes,
+// so every SM has work.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "grid.cuh"
+
+using namespace cmtpu;
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 
 __constant__ uint64_t K512[80] = {
     0x428A2F98D728AE22ull, 0x7137449123EF65CDull, 0xB5C0FBCFEC4D3B2Full, 0xE9B5DBA58189DBBCull,
@@ -84,40 +104,179 @@ __device__ __forceinline__ void compress(uint64_t st[8], uint64_t w[16]) {
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
-__global__ void __launch_bounds__(kThreads)
-sha512_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ nblocks,
-              uint32_t* __restrict__ out, int n, int wpl) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  uint64_t st[8] = {
-      0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull,
-      0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,
-      0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull};
-  const int nb = max(0, min((int)nblocks[lane], wpl / 32));
-  const uint4* row = reinterpret_cast<const uint4*>(words + (size_t)lane * wpl);
-#pragma unroll 1
-  for (int b = 0; b < nb; ++b) {
-    uint64_t w[16];
+__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
+  return ((uint64_t)bswap32((uint32_t)x) << 32) | bswap32((uint32_t)(x >> 32));
+}
+
+// Word i of L (little-endian 64-bit words; zero outside 0..3). Words 0 and
+// 1 are c.
+__host__ __device__ constexpr uint64_t l_word(int i) {
+  return i == 0 ? 0x5812631A5CF5D3EDull : i == 1 ? 0x14DEF9DEA2F79CD6ull
+       : i == 3 ? 0x1000000000000000ull : 0;
+}
+
+// Word i of L << s.
+__host__ __device__ constexpr uint64_t l_shl_word(int s, int i) {
+  return (l_word(i - s / 64) << (s % 64)) |
+         (s % 64 ? l_word(i - s / 64 - 1) >> (64 - s % 64) : 0);
+}
+
+// One fold: r = (a mod 2^252) + (L << kShift) - (a >> 252) * c, with the
+// NH words of a >> 252 (enough for a's bound) and NR words of r.
+template <int NA, int NH, int NR, int kShift>
+__device__ __forceinline__ void fold(uint64_t r[NR], const uint64_t a[NA]) {
+  static_assert(NH + 2 <= NR, "hi * c must fit the result");
+  uint64_t hi[NH];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint4 v = row[b * 8 + q];  // 4 LE words = 2 big-endian 64-bit words
-      w[2 * q] = ((uint64_t)bswap32(v.x) << 32) | bswap32(v.y);
-      w[2 * q + 1] = ((uint64_t)bswap32(v.z) << 32) | bswap32(v.w);
+  for (int i = 0; i < NH; ++i)
+    hi[i] = (a[3 + i] >> 60) | (4 + i < NA ? a[min(4 + i, NA - 1)] << 4 : 0);
+  uint64_t p[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) p[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint64_t lo = hi[i] * l_word(j);
+      uint64_t up = __umul64hi(hi[i], l_word(j));
+      lo += p[i + j];
+      up += lo < p[i + j];
+      lo += carry;
+      up += lo < carry;
+      p[i + j] = lo;
+      carry = up;
     }
-    compress(st, w);
+    p[i + 2] = carry;
+  }
+  uint64_t cy = 0, bw = 0;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const uint64_t lo = i < 3 ? a[i] : i == 3 ? a[3] & ((1ull << 60) - 1) : 0;
+    const uint64_t m = l_shl_word(kShift, i);
+    uint64_t s = lo + m;
+    uint64_t c = s < m;
+    s += cy;
+    c += s < cy;
+    cy = c;
+    const uint64_t d = s - p[i];
+    uint64_t b = s < p[i];
+    r[i] = d - bw;
+    b += d < bw;
+    bw = b;
+  }
+}
+
+// x (eight words, below 2^512) mod L.
+__device__ __forceinline__ void mod_l(uint64_t out[4], const uint64_t x[8]) {
+  uint64_t r1[7], r2[5], r3[4];
+  fold<8, 5, 7, 133>(r1, x);   // < 2^252 + (L << 133) < 2^386
+  fold<7, 3, 5, 7>(r2, r1);    // < 2^252 + (L << 7) < 2^260
+  fold<5, 1, 4, 0>(r3, r2);    // < 2^252 + L < 2L
+  uint64_t d[4], bw = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t l = l_word(i);
+    const uint64_t t = r3[i] - l;
+    uint64_t b = r3[i] < l;
+    d[i] = t - bw;
+    b += t < bw;
+    bw = b;
   }
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    out[(size_t)(2 * t) * n + lane] = bswap32((uint32_t)(st[t] >> 32));
-    out[(size_t)(2 * t + 1) * n + lane] = bswap32((uint32_t)st[t]);
+  for (int i = 0; i < 4; ++i) out[i] = bw == 0 ? d[i] : r3[i];
+}
+
+// Signed radix-16 digits of v (< 2^253) into dst[64, n] at column lane.
+__device__ __forceinline__ void recode(int32_t* __restrict__ dst, const uint64_t v[4], int n,
+                                       int lane) {
+  constexpr uint64_t kEights = 0x8888888888888888ull;
+  uint64_t cy = 0;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint64_t t = v[w] + kEights;
+    uint64_t c = t < kEights;
+    t += cy;
+    c += t < cy;
+    cy = c;
+#pragma unroll
+    for (int d = 0; d < 16; ++d)
+      dst[(size_t)(16 * w + d) * n + lane] = (int32_t)((t >> (4 * d)) & 15) - 8;
   }
+}
+
+// 64-bit word j of a little-endian int32[2k, n] operand at column lane.
+__device__ __forceinline__ uint64_t word64(const uint32_t* __restrict__ src, int j, int n,
+                                           int lane) {
+  return ((uint64_t)src[(size_t)(2 * j + 1) * n + lane] << 32) | src[(size_t)(2 * j) * n + lane];
+}
+
+// kHash: k = SHA-512 of the lane's pack-buffer row; else k from k_words.
+template <bool kHash>
+__global__ void __launch_bounds__(kThreads)
+digits_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ nblocks, int wpl,
+              const uint32_t* __restrict__ k_words, const uint32_t* __restrict__ s_words,
+              int32_t* __restrict__ s_dig, int32_t* __restrict__ k_dig, int n,
+              int lanes_per_block) {
+  const int lane = blockIdx.x * lanes_per_block + threadIdx.x;
+  if (threadIdx.x >= lanes_per_block || lane >= n) return;
+  uint64_t k[8];
+  if constexpr (kHash) {
+    uint64_t st[8] = {
+        0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull,
+        0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,
+        0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull};
+    const int nb = max(0, min((int)nblocks[lane], wpl / 32));
+    const uint4* row = reinterpret_cast<const uint4*>(words + (size_t)lane * wpl);
+#pragma unroll 1
+    for (int b = 0; b < nb; ++b) {
+      uint64_t w[16];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint4 v = row[b * 8 + q];  // 4 LE words = 2 big-endian 64-bit words
+        w[2 * q] = ((uint64_t)bswap32(v.x) << 32) | bswap32(v.y);
+        w[2 * q + 1] = ((uint64_t)bswap32(v.z) << 32) | bswap32(v.w);
+      }
+      compress(st, w);
+    }
+    // The digest is the state words big-endian; k reads it little-endian.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) k[j] = bswap64(st[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) k[j] = word64(k_words, j, n, lane);
+  }
+  uint64_t v[4];
+  mod_l(v, k);
+  recode(k_dig, v, n, lane);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = word64(s_words, j, n, lane);
+  recode(s_dig, v, n, lane);
+}
+
+template <bool kHash>
+int launch(const uint32_t* words, const int32_t* nblocks, int wpl, const uint32_t* k_words,
+           const uint32_t* s_words, int32_t* s_dig, int32_t* k_dig, int n, void* stream) {
+  Grid g;
+  const cudaError_t err = balanced_grid(n, 32, kThreads, &g);
+  if (err != cudaSuccess) return (int)err;
+  digits_kernel<kHash><<<g.blocks, g.threads, 0, (cudaStream_t)stream>>>(
+      words, nblocks, wpl, k_words, s_words, s_dig, k_dig, n, g.lanes_per_block);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int cmtpu_sha512(const uint32_t* words, const int32_t* nblocks, uint32_t* out,
-                            int n, int wpl, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sha512_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(words, nblocks, out, n, wpl);
-  return (int)cudaGetLastError();
+// s and k digits (int32[64, n] each) from the pack buffer words [n, wpl]
+// (wpl a multiple of 32), block counts int32[n] and s words int32[8, n].
+extern "C" int cmtpu_challenge_digits(const uint32_t* words, const int32_t* nblocks, int wpl,
+                                      const uint32_t* s_words, int32_t* s_dig, int32_t* k_dig,
+                                      int n, void* stream) {
+  return launch<true>(words, nblocks, wpl, nullptr, s_words, s_dig, k_dig, n, stream);
+}
+
+// The same from the digests, int32[16, n] little-endian words, unhashed.
+extern "C" int cmtpu_scalar_digits(const uint32_t* k_words, const uint32_t* s_words,
+                                   int32_t* s_dig, int32_t* k_dig, int n, void* stream) {
+  return launch<false>(nullptr, nullptr, 0, k_words, s_words, s_dig, k_dig, n, stream);
 }

@@ -10,21 +10,26 @@ so one call yields the exact per-signature validity bitmap.
 Host side (numpy, no crypto): shape checks, the vectorized s < L check,
 and the challenge messages R || A || M padded into SHA-512 blocks
 (``pack_batch``, held operand-identical to the reference). Device side, in
-pipeline order:
+pipeline order, three launches on CUDA tensors:
 
-  1. SHA-512 of the challenges      ``sha512`` kernel  (sha512_kernel)
-  2. digest mod L, digit recodes,
-     y-limbs and signs              plain PyTorch      (unpack)
-  3. ZIP-215 decoding of A and R,
-     lane-stacked into one 2N pass  ``decompress`` kernel (edwards)
-  4. -A, [s]B + [k](-A), add -R,
-     3 doublings, identity test     ``ladder`` kernel  (ladder)
+  1. SHA-512 of the challenges,
+     k = digest mod L, digit recodes
+     of s and k                     ``sha512`` kernel      (sha512_kernel)
+  2. y and sign of A and R from
+     their words, ZIP-215 decoding,
+     lane-stacked into one 2N pass  ``decompress`` kernel  (edwards)
+  3. -A, [s]B + [k](-A), add -R,
+     3 doublings, identity test     ``ladder`` kernel      (ladder)
+
+CPU tensors take each stage's plain version; ``unpack_stage`` (the
+reference's unpack program in plain PyTorch) is the tests' oracle for the
+work stages 1 and 2 took over from it.
 
 The batch axis is bucketed as in the reference (``BUCKETS``,
 ``BLOCK_BUCKETS``) so bitmaps and packed operands compare lane for lane;
 the mesh width is 1 (multi-GPU is later work). Oversized messages take the
 host-hash program (``verify_core_hosthash``): the host hashes with hashlib
-and the device starts at stage 2.
+and stage 1 starts from the digests (``sha512_kernel.scalar_digits``).
 """
 
 from __future__ import annotations
@@ -73,8 +78,10 @@ def block_bucket_for(b: int) -> int:
 
 
 def unpack_stage(a_words, r_words, s_words, k_words):
-    """Stage 2: (y limbs int32[17, 2N] of A then R, signs bool[2N],
-    s digits int32[64, N], k digits int32[64, N])."""
+    """The reference's unpack program in plain PyTorch: (y limbs
+    int32[17, 2N] of A then R, signs bool[2N], s digits int32[64, N],
+    k digits int32[64, N]). The pipeline does this work inside its
+    ``sha512`` and ``decompress`` stages; tests hold them to it."""
     y_a, sign_a = unpack.words_to_limbs255(a_words)
     y_r, sign_r = unpack.words_to_limbs255(r_words)
     return (
@@ -85,9 +92,8 @@ def unpack_stage(a_words, r_words, s_words, k_words):
     )
 
 
-def _verify_from_words(a_words, r_words, s_words, k_words) -> torch.Tensor:
-    y2, sg2, s_digits, k_digits = unpack_stage(a_words, r_words, s_words, k_words)
-    pt, ok = ed.decompress_stacked(y2, sg2)
+def _verify_from_words(a_words, r_words, s_digits, k_digits) -> torch.Tensor:
+    pt, ok = ed.decompress_words(a_words, r_words)
     return ladder.verify_lanes(s_digits, k_digits, pt, ok)
 
 
@@ -95,14 +101,15 @@ def verify_core(a_words, r_words, s_words, msg_words, msg_nblocks) -> torch.Tens
     """The whole verification on the device: A, R, S as int32[8, N] words,
     the padded challenge buffer as int32[N, B*32] little-endian words and
     int32[N] block counts -> bool[N]."""
-    k_words = s5.hash_blocks_core(msg_words, msg_nblocks)
-    return _verify_from_words(a_words, r_words, s_words, k_words)
+    s_digits, k_digits = s5.challenge_digits(msg_words, msg_nblocks, s_words)
+    return _verify_from_words(a_words, r_words, s_digits, k_digits)
 
 
 def verify_core_hosthash(a_words, r_words, s_words, k_words) -> torch.Tensor:
     """Host-hash variant: the 64-byte challenge digests come from the host
     as int32[16, N] little-endian words."""
-    return _verify_from_words(a_words, r_words, s_words, k_words)
+    s_digits, k_digits = s5.scalar_digits(k_words, s_words)
+    return _verify_from_words(a_words, r_words, s_digits, k_digits)
 
 
 def operands_to_device(operands, device) -> tuple:

@@ -14,9 +14,10 @@ digits in [-8, 8], MSB first): 4 doublings plus one add from the per-lane
 ``windowed_double_base_mult`` here is the plain version of the ``ladder``
 kernel's accumulator (ops/ladder.py).
 
-``decompress`` / ``decompress_stacked`` are the ZIP-215 decoding
-wrappers: the CUDA kernel (``csrc/decompress.cu``) for CUDA tensors,
-``decompress_plain`` for CPU tensors.
+``decompress_words`` is the ZIP-215 decoding wrapper, from the raw
+encodings of A and R: the CUDA kernel (``csrc/decompress.cu``) for CUDA
+tensors, ``decompress_words_plain`` (``unpack.words_to_limbs255`` on both
+operands, then ``decompress_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import field25519 as fe
+from cometbft_tpu_torch.ops import unpack
 
 _P = fe.P_INT
 _D = fe.D_INT
@@ -151,30 +153,39 @@ def decompress_plain(y_limbs: torch.Tensor, sign: torch.Tensor):
     return (x, y, one.expand_as(y).contiguous(), fe.fe_mul(x, y)), ok
 
 
-def decompress_stacked(y_limbs: torch.Tensor, sign: torch.Tensor):
-    """ZIP-215 decoding of int32[17, M] y limbs (bits 0..254 of the
-    encodings) with bool[M] signs -> (int32[4, 17, M] X, Y, Z, T stacked,
-    ok bool[M]): the layout the ``ladder`` kernel reads.
+def decompress_words_plain(a_words: torch.Tensor, r_words: torch.Tensor):
+    """Plain version of ``decompress_words``."""
+    y_a, sign_a = unpack.words_to_limbs255(a_words)
+    y_r, sign_r = unpack.words_to_limbs255(r_words)
+    pt, ok = decompress_plain(torch.cat([y_a, y_r], dim=1), torch.cat([sign_a, sign_r]))
+    return torch.stack(pt), ok
 
-    CPU tensors take ``decompress_plain``. CUDA tensors launch the
-    ``decompress`` kernel, which returns canonical coordinates (equal to
-    the plain version's as residues mod p)."""
-    if y_limbs.device.type == "cpu":
-        pt, ok = decompress_plain(y_limbs, sign)
-        return torch.stack(pt), ok
-    y = y_limbs.to(torch.int32).contiguous()
-    m = y.shape[1]
-    sg = sign.to(torch.int32).contiguous()
-    _build.require_cuda("decompress", y, sg)
-    out = torch.empty((4, fe.LIMBS, m), dtype=torch.int32, device=y.device)
-    ok = torch.empty((m,), dtype=torch.int32, device=y.device)
-    if m:
-        rc = _build.lib().cmtpu_decompress(
-            y.data_ptr(), sg.data_ptr(), out.data_ptr(), ok.data_ptr(), m,
-            _build.stream_of(y),
+
+def decompress_words(a_words: torch.Tensor, r_words: torch.Tensor):
+    """ZIP-215 decoding of A and R from their raw encodings, int32[8, N]
+    little-endian words each (y = bits 0..254, sign = bit 255) ->
+    (int32[4, 17, 2N] X, Y, Z, T of A then R, lane-stacked, ok bool[2N]):
+    the layout the ``ladder`` kernel reads.
+
+    CPU tensors take ``decompress_words_plain``. CUDA tensors launch the
+    ``decompress`` kernel, which returns canonical coordinates (equal to the
+    plain version's as residues mod p)."""
+    if a_words.device.type == "cpu":
+        return decompress_words_plain(a_words, r_words)
+    aw, rw = a_words.contiguous(), r_words.contiguous()
+    _build.require_cuda("decompress", aw, rw)
+    n = aw.shape[1]
+    if aw.shape != (8, n) or rw.shape != (8, n):
+        raise ValueError(f"decompress: bad shapes {aw.shape} {rw.shape}")
+    out = torch.empty((4, fe.LIMBS, 2 * n), dtype=torch.int32, device=aw.device)
+    ok = torch.empty((2 * n,), dtype=torch.bool, device=aw.device)
+    if n:
+        rc = _build.lib().cmtpu_decompress_words(
+            aw.data_ptr(), rw.data_ptr(), out.data_ptr(), ok.data_ptr(), n,
+            _build.stream_of(aw),
         )
         _build.check_launch("decompress", rc)
-    return out, ok.bool()
+    return out, ok
 
 
 # -- precomputed ("cached") point form ---------------------------------------

@@ -63,7 +63,7 @@ def verify_lanes(s_digits, k_digits, pt, ok, *, group: int | None = None,
                  with_acc: bool = False):
     """The per-lane verdict bool[N] for s_digits/k_digits int32[64, N] in
     [-8, 8] (row w of weight 16^w), pt the decoded A then R
-    (``edwards.decompress_stacked``: int32[4, 17, 2N]) and ok bool[2N].
+    (``edwards.decompress_words``: int32[4, 17, 2N]) and ok bool[2N].
     With ``with_acc`` also [s]B + [k](-A) as four int32[17, N].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel once,

@@ -1,23 +1,27 @@
-"""Batched SHA-512 of the Ed25519 challenge R || A || M: host packers, the
-plain PyTorch hash, and the ``sha512`` kernel's wrapper.
+"""Batched SHA-512 of the Ed25519 challenge R || A || M and the challenge
+scalars: host packers, the plain PyTorch hash, and the ``sha512`` kernel's
+wrappers.
 
 Counterpart of ``cometbft_tpu/ops/sha512_kernel.py``. The host packers
 (``blocks_for``, ``write_padding``, ``pack_messages512``) are held
-byte-identical to the reference. The device function is
-``hash_blocks_core``: it takes the host pack buffer itself (``[N, B*128]``
+byte-identical to the reference. The device entry is
+``challenge_digits``: it takes the host pack buffer itself (``[N, B*128]``
 bytes viewed as little-endian uint32 words, the form
-``ed25519_kernel.pack_batch`` ships) and per-lane block counts, and returns
-the 16 little-endian digest words per lane that
-``unpack.digest_words_to_digits`` reads. So it covers what the reference's
-``verify_core`` does around its ``hash_blocks_core``: the transpose and
-byte swap of the buffer into big-endian block words on the way in, and
-``digest_to_le_words`` on the way out. Lanes stop after their own block
-count; a lane with 0 blocks (padding) returns the IV.
+``ed25519_kernel.pack_batch`` ships), per-lane block counts and the s
+words, and returns the signed radix-16 digits of s and of k = digest mod L
+that the ladder reads. So it covers what the reference's ``verify_core``
+does around its ``hash_blocks_core`` (the transpose and byte swap of the
+buffer into big-endian block words, ``digest_to_le_words``) and the scalar
+half of its unpack stage (``unpack.digest_words_to_digits``,
+``unpack.scalar_words_to_digits``). Lanes stop after their own block count;
+a lane with 0 blocks (padding) hashes to the IV. ``scalar_digits`` does the
+same from digests the host hashed (the host-hash program).
 
-CPU tensors take ``hash_blocks_plain``, which keeps 64-bit words in int64
-(two's-complement wrap is addition mod 2^64; logical right shifts are
-masked arithmetic shifts). CUDA tensors launch the kernel
-(``csrc/sha512.cu``).
+CPU tensors take the plain versions (``challenge_digits_plain``,
+``scalar_digits_plain``): ``hash_blocks_plain``, which keeps 64-bit words in
+int64 (two's-complement wrap is addition mod 2^64; logical right shifts are
+masked arithmetic shifts), then ``unpack``'s reduction and recodes. CUDA
+tensors launch the kernel (``csrc/sha512.cu``), one launch a call.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch.ops import _build
+from cometbft_tpu_torch.ops import unpack
 from cometbft_tpu_torch.ops.sha256_kernel import to_i32, to_u32
 
 # -- constants (FIPS 180-4) --------------------------------------------------
@@ -106,7 +111,7 @@ def _bswap32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_blocks_plain(msg_words: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
-    """Plain version of the ``sha512`` kernel: int32[N, B*32] pack-buffer
+    """The hash half of ``challenge_digits_plain``: int32[N, B*32] pack-buffer
     words + int32[N] block counts -> int32[16, N] little-endian digest words."""
     n, wpl = msg_words.shape
     bmax = wpl // 32
@@ -133,26 +138,66 @@ def digest_to_le_words(state: list) -> torch.Tensor:
     return to_i32(torch.stack(out))
 
 
-def hash_blocks_core(msg_words: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
-    """SHA-512 of N pre-padded messages: int32[N, B*32] pack-buffer words
-    (little-endian uint32 bit patterns) + int32[N] block counts ->
-    int32[16, N] little-endian digest words. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+def challenge_digits_plain(msg_words, nblocks, s_words):
+    """Plain version of ``challenge_digits``."""
+    return scalar_digits_plain(hash_blocks_plain(msg_words, nblocks), s_words)
+
+
+def scalar_digits_plain(k_words, s_words):
+    """Plain version of ``scalar_digits``."""
+    return unpack.scalar_words_to_digits(s_words), unpack.digest_words_to_digits(k_words)
+
+
+def challenge_digits(msg_words: torch.Tensor, nblocks: torch.Tensor, s_words: torch.Tensor):
+    """The challenge scalars of N signatures: int32[N, B*32] pack-buffer
+    words (little-endian uint32 bit patterns) + int32[N] block counts +
+    int32[8, N] words of s -> (s digits, k digits), int32[64, N] each, in
+    [-8, 7], with k = SHA-512(R || A || M) mod L. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     if msg_words.device.type == "cpu":
-        return hash_blocks_plain(msg_words, nblocks)
+        return challenge_digits_plain(msg_words, nblocks, s_words)
     words = msg_words.contiguous()
     nb = nblocks.to(torch.int32).contiguous()
-    _build.require_cuda("sha512", words, nb)
+    sw = s_words.contiguous()
+    _build.require_cuda("sha512", words, nb, sw)
     n, wpl = words.shape
     if wpl % 32 or words.data_ptr() % 16:
         raise ValueError("sha512: rows must be whole 128-byte blocks, 16-byte aligned")
-    out = torch.empty((16, n), dtype=torch.int32, device=words.device)
+    if nb.shape != (n,) or sw.shape != (8, n):
+        raise ValueError(f"sha512: bad shapes {words.shape} {nb.shape} {sw.shape}")
+    s_dig, k_dig = _digit_outputs(n, words.device)
     if n:
-        rc = _build.lib().cmtpu_sha512(
-            words.data_ptr(), nb.data_ptr(), out.data_ptr(), n, wpl, _build.stream_of(words)
+        rc = _build.lib().cmtpu_challenge_digits(
+            words.data_ptr(), nb.data_ptr(), wpl, sw.data_ptr(), s_dig.data_ptr(),
+            k_dig.data_ptr(), n, _build.stream_of(words),
         )
         _build.check_launch("sha512", rc)
-    return out
+    return s_dig, k_dig
+
+
+def scalar_digits(k_words: torch.Tensor, s_words: torch.Tensor):
+    """``challenge_digits`` from digests hashed on the host: int32[16, N]
+    little-endian words of the 64-byte digests + int32[8, N] words of s ->
+    (s digits, k digits), int32[64, N] each."""
+    if k_words.device.type == "cpu":
+        return scalar_digits_plain(k_words, s_words)
+    kw, sw = k_words.contiguous(), s_words.contiguous()
+    _build.require_cuda("sha512", kw, sw)
+    n = kw.shape[1]
+    if kw.shape != (16, n) or sw.shape != (8, n):
+        raise ValueError(f"sha512: bad shapes {kw.shape} {sw.shape}")
+    s_dig, k_dig = _digit_outputs(n, kw.device)
+    if n:
+        rc = _build.lib().cmtpu_scalar_digits(
+            kw.data_ptr(), sw.data_ptr(), s_dig.data_ptr(), k_dig.data_ptr(), n,
+            _build.stream_of(kw),
+        )
+        _build.check_launch("sha512", rc)
+    return s_dig, k_dig
+
+
+def _digit_outputs(n: int, device):
+    return tuple(torch.empty((64, n), dtype=torch.int32, device=device) for _ in range(2))
 
 
 # -- host packers (held byte-identical to the reference) ---------------------

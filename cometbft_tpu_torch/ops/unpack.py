@@ -2,11 +2,16 @@
 
 Counterpart of ``cometbft_tpu/ops/unpack.py``. The verify path takes the
 raw encodings (A, R, S as 8 little-endian uint32 words per 32-byte string;
-the 64-byte SHA-512 challenge as 16 words) and computes on the device:
+the 64-byte SHA-512 challenge as 16 words) and computes:
 
   - point y-limbs + sign bit        (words_to_limbs255)
   - s -> signed 4-bit window digits (scalar_words_to_digits)
   - k = digest mod L -> digits      (digest_words_to_digits)
+
+On the card that work is done inside two kernels: the recodes and the
+reduction in ``sha512`` (``sha512_kernel.challenge_digits``), the y-limbs
+and signs in ``decompress`` (``edwards.decompress_words``). This module is
+their plain side: the CPU path and the tests' oracle run it.
 
 Words arrive as int32 tensors holding the uint32 bit pattern; they are
 widened to int64 and masked, because this PyTorch does not implement

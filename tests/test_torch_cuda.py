@@ -1,9 +1,12 @@
 """Kernel-against-plain tests of the port on a CUDA device. Each hand
-kernel (ladder at every group width, decompress, sha512, sha256 with its
-leaf, inner and tree entries) is held to its plain PyTorch version on the
-same card, exactly, at small shapes; the launch counters must count each
-launch once (one ladder launch a call, two sha256 launches a root). Without a CUDA device every test here skips
-(by the ``cuda`` fixture) with its reason.
+kernel (ladder at every group width, decompress from raw words, sha512's
+challenge_digits and scalar_digits, sha256 with its leaf, inner and tree
+entries) is held to its plain PyTorch version on the same card, exactly,
+at small shapes and on the ZIP-215 and scalar edge inputs; the launch
+counters must count each launch once (one launch a call, two sha256
+launches a root, and one sha512, decompress and ladder launch a verify
+batch). Without a CUDA device every test here skips (by the ``cuda``
+fixture) with its reason.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 GPU host without them (tests/conftest.py imports jax, hence
@@ -28,6 +31,7 @@ from cometbft_tpu_torch.ops import ladder
 from cometbft_tpu_torch.ops import merkle_kernel as mk
 from cometbft_tpu_torch.ops import sha256_kernel as sha
 from cometbft_tpu_torch.ops import sha512_kernel as s5
+from cometbft_tpu_torch.ops import unpack
 from cometbft_tpu_torch.sidecar.backend import TorchBackend
 
 pytestmark = pytest.mark.torch_port
@@ -41,31 +45,58 @@ def cuda():
     return torch.device("cuda")
 
 
-def _encodings(m, seed):
+def _le(v: int, nbytes: int) -> bytes:
+    return v.to_bytes(nbytes, "little")
+
+
+P = fe.P_INT
+L = ek.L
+# ZIP-215 edge encodings: the identity y = 1 and its alias 1 + p, y = p - 1,
+# y = p (an alias of y = 0), y = 2^255 - 1, x = 0 with sign 1, y = 0 with
+# sign 1, an all-zero padded lane.
+EDGE_ENCODINGS = [_le(1, 32), _le(1 + P, 32), _le(P - 1, 32), _le(P, 32),
+                  _le((1 << 255) - 1, 32), _le(1 | 1 << 255, 32), _le(1 << 255, 32), bytes(32)]
+EDGE_DIGESTS = [0, 2**512 - 1, L - 1, L, L + 1, 2**252, 7 * L]
+EDGE_SCALARS = [0, L - 1, 1, 2**252]
+
+
+def _encoding_words(m, seed):
+    """int32[8, m] words of m encodings: the edge cases, then random bytes."""
     rng = np.random.default_rng(seed)
-    P = fe.P_INT
-    encs = [(1).to_bytes(32, "little"), (1 + P).to_bytes(32, "little"),
-            (P - 1).to_bytes(32, "little"), ((1 << 255) - 1).to_bytes(32, "little"),
-            (1 | 1 << 255).to_bytes(32, "little"), bytes(32)]
-    encs += [rng.bytes(32) for _ in range(m - len(encs))]
-    enc = np.stack([np.frombuffer(e, np.uint8) for e in encs])
-    return torch.from_numpy(fe.fe_from_bytes_le(enc)), torch.from_numpy((enc[:, 31] >> 7).astype(bool))
+    encs = EDGE_ENCODINGS + [rng.bytes(32) for _ in range(max(0, m - len(EDGE_ENCODINGS)))]
+    encs = encs[:m]
+    return torch.from_numpy(unpack.bytes_to_words(np.stack([np.frombuffer(e, np.uint8) for e in encs])))
+
+
+def _int_words(values, nbytes):
+    raw = np.stack([np.frombuffer(_le(v, nbytes), np.uint8) for v in values])
+    return torch.from_numpy(unpack.bytes_to_words(raw))
+
+
+def _digits_value(digits, lane):
+    return sum(int(d) << (4 * i) for i, d in enumerate(digits[:, lane].tolist()))
 
 
 def _canon(pt):
     return torch.stack(ed.point_freeze(tuple(c.cpu() for c in pt)))
 
 
-def test_decompress_kernel_matches_plain(cuda):
-    y, sign = _encodings(300, 1)
+@pytest.mark.parametrize("n", [1, 5, 150, 1000])
+def test_decompress_kernel_matches_plain(cuda, n):
+    """Raw A and R words in, the edge encodings among the A lanes (R
+    lanes at n = 1), the rest random; failed decodings included."""
+    w = _encoding_words(2 * n, n)
+    a, r = w[:, :n], w[:, n:]
     before = _build.LAUNCHES["decompress"]
-    pt_k, ok_k = ed.decompress_stacked(y.to(cuda), sign.to(cuda))
+    pt_k, ok_k = ed.decompress_words(a.to(cuda), r.to(cuda))
     torch.cuda.synchronize()
     assert _build.LAUNCHES["decompress"] == before + 1
-    pt_p, ok_p = ed.decompress_plain(y, sign)
+    pt_p, ok_p = ed.decompress_words_plain(a, r)
     assert torch.equal(ok_k.cpu(), ok_p)
     assert torch.equal(_canon(pt_k), _canon(pt_p))
-    assert ok_p[:4].all() and not ok_p[4]
+    if n >= 8:
+        want = [pure.point_decompress_zip215(e) is not None for e in EDGE_ENCODINGS]
+        assert ok_p[: len(want)].tolist() == want and not want[5]
 
 
 def _digits(n, seed):
@@ -83,8 +114,8 @@ def test_ladder_kernel_matches_plain(cuda, group):
     over A and R encodings of which about half fail to decode (those lanes
     must run through without fault and verify false)."""
     n = 70
-    y, sign = _encodings(2 * n, 2)
-    pt, ok = ed.decompress_stacked(y.to(cuda), sign.to(cuda))
+    w = _encoding_words(2 * n, 2).to(cuda)
+    pt, ok = ed.decompress_words(w[:, :n], w[:, n:])
     s_dig, k_dig = (d.to(cuda) for d in _digits(n, 3))
     before = _build.LAUNCHES["ladder"]
     got, acc = ladder.verify_lanes(s_dig, k_dig, pt, ok, group=group, with_acc=True)
@@ -108,25 +139,58 @@ def test_ladder_verdicts_of_a_signed_batch(cuda, group):
     sigs[2] = sigs[2][:40] + bytes([sigs[2][40] ^ 2]) + sigs[2][41:]
     operands, host_ok = ek.pack_batch(pubs, msgs, sigs)
     a_w, r_w, s_w, msg_w, msg_nb = ek.operands_to_device(operands, cuda)
-    y2, sg2, s_dig, k_dig = ek.unpack_stage(a_w, r_w, s_w, s5.hash_blocks_core(msg_w, msg_nb))
-    pt, ok = ed.decompress_stacked(y2, sg2)
+    s_dig, k_dig = s5.challenge_digits(msg_w, msg_nb, s_w)
+    pt, ok = ed.decompress_words(a_w, r_w)
     got = ladder.verify_lanes(s_dig, k_dig, pt, ok, group=group)
     want, _ = ladder.verify_lanes_plain(s_dig, k_dig, pt, ok)
     assert got.tolist() == want.tolist() == [True, True, False] + [True] * 5
     assert host_ok.tolist() == [True] * 5 + [False] * 3
+    cpu = [t.cpu() for t in (a_w, r_w, s_w)]
+    y2, sg2, s_p, k_p = ek.unpack_stage(*cpu, s5.hash_blocks_plain(msg_w.cpu(), msg_nb.cpu()))
+    assert torch.equal(s_dig.cpu(), s_p) and torch.equal(k_dig.cpu(), k_p)
+    assert torch.equal(_canon(pt), _canon(ed.decompress_plain(y2, sg2)[0]))
 
 
 def test_sha512_kernel_matches_plain_and_hashlib(cuda):
+    """challenge_digits on a ragged batch up to 32 blocks with a zero-block
+    (padding) lane and the edge scalars: equal to the plain version, and k
+    equal to hashlib's digest mod L (the IV's at the padding lane)."""
     rng = np.random.default_rng(4)
     lens = [0, 111, 112, 113, 240, 32 * 128 - 17] + list(rng.integers(0, 1500, 40))
     msgs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes() for n in lens]
     buf, nb = s5.pack_buffer512(msgs)
     nb[2] = 0
     words = torch.from_numpy(buf.view("<u4").view(np.int32))
-    got = s5.hash_blocks_core(words.to(cuda), torch.from_numpy(nb).to(cuda)).cpu()
-    assert torch.equal(got, s5.hash_blocks_plain(words, torch.from_numpy(nb)))
-    digests = s5.digest_words_to_bytes(got.numpy())
-    assert all(digests[i] == hashlib.sha512(m).digest() for i, m in enumerate(msgs) if i != 2)
+    nbt = torch.from_numpy(nb)
+    scalars = EDGE_SCALARS + [int(rng.integers(0, 2**62)) * 2**190 % L for _ in lens[4:]]
+    s_words = _int_words(scalars, 32)
+    before = _build.LAUNCHES["sha512"]
+    s_dig, k_dig = s5.challenge_digits(words.to(cuda), nbt.to(cuda), s_words.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sha512"] == before + 1
+    s_p, k_p = s5.challenge_digits_plain(words, nbt, s_words)
+    assert torch.equal(s_dig.cpu(), s_p) and torch.equal(k_dig.cpu(), k_p)
+    iv = b"".join(v.to_bytes(8, "big") for v in s5._IV)
+    for i, m in enumerate(msgs):
+        digest = iv if i == 2 else hashlib.sha512(m).digest()
+        assert _digits_value(k_p, i) == int.from_bytes(digest, "little") % L
+        assert _digits_value(s_p, i) == scalars[i]
+
+
+def test_scalar_digits_kernel_matches_plain(cuda):
+    """scalar_digits (the host-hash program's entry) on the edge digests
+    (zero, all ones, around multiples of L) and scalars."""
+    rng = np.random.default_rng(5)
+    digests = EDGE_DIGESTS + [int.from_bytes(rng.bytes(64), "little") for _ in range(57)]
+    scalars = (EDGE_SCALARS * 16)[: len(digests)]
+    k_words, s_words = _int_words(digests, 64), _int_words(scalars, 32)
+    before = _build.LAUNCHES["sha512"]
+    s_dig, k_dig = s5.scalar_digits(k_words.to(cuda), s_words.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sha512"] == before + 1
+    s_p, k_p = s5.scalar_digits_plain(k_words, s_words)
+    assert torch.equal(s_dig.cpu(), s_p) and torch.equal(k_dig.cpu(), k_p)
+    assert [_digits_value(k_p, i) for i in range(len(digests))] == [d % L for d in digests]
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 1000, 1024])
@@ -164,6 +228,23 @@ def test_sha256_tree_entry_matches_plain_and_hashlib(cuda, n, chunk):
     want = mk.tree_root_plain(flat, offsets, chunk)
     assert torch.equal(got.cpu(), want.cpu())
     assert sha.digest_words_to_bytes(got.cpu().numpy()) == [hash_from_byte_slices(leaves)]
+
+
+@pytest.mark.parametrize("oversized", [False, True])
+def test_batch_verify_is_three_launches(cuda, oversized):
+    """One verify batch on the card: one sha512, one decompress and one
+    ladder launch, nothing in between (the host-hash program too)."""
+    seeds = [hashlib.sha256(b"launch-key-%d" % i).digest() for i in range(5)]
+    pubs = [pure.public_key(s) for s in seeds]
+    msgs = [b"launch-vote-%d" % i for i in range(5)]
+    if oversized:
+        msgs[3] = b"x" * 5000  # past BLOCK_BUCKETS[-1]: host-hash program
+    sigs = [pure.sign(s, p, m) for s, p, m in zip(seeds, pubs, msgs)]
+    sigs[1] = sigs[1][:40] + bytes([sigs[1][40] ^ 2]) + sigs[1][41:]
+    before = dict(_build.LAUNCHES)
+    assert TorchBackend().batch_verify(pubs, msgs, sigs) == (False, [True, False, True, True, True])
+    delta = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert delta == {"sha512": 1, "decompress": 1, "ladder": 1, "sha256": 0}
 
 
 def test_torch_backend_defaults_to_cuda(cuda):

@@ -59,8 +59,7 @@ def encodings():
 @pytest.fixture(scope="module")
 def decoded(encodings):
     _, y, sign = encodings
-    t_pt, t_ok = ted.decompress_stacked(torch.from_numpy(y), torch.from_numpy(sign))
-    t_pt = tuple(t_pt)
+    t_pt, t_ok = ted.decompress_plain(torch.from_numpy(y), torch.from_numpy(sign))
     j_pt, j_ok = jed.decompress(jnp.asarray(y), jnp.asarray(sign))
     return t_pt, t_ok, j_pt, j_ok
 

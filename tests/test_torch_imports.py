@@ -79,13 +79,17 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         ladder.verify_lanes(digits, digits, torch.stack(point).repeat(1, 1, 2),
                             torch.zeros(8, dtype=torch.bool, device=meta))
+    words = torch.zeros((8, 4), dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
-        ted.decompress_stacked(point[0], torch.zeros(4, dtype=torch.bool, device=meta))
+        ted.decompress_words(words, words)
     with pytest.raises(ValueError, match="CUDA"):
-        ts5.hash_blocks_core(
+        ts5.challenge_digits(
             torch.zeros((4, 64), dtype=torch.int32, device=meta),
             torch.zeros(4, dtype=torch.int32, device=meta),
+            words,
         )
+    with pytest.raises(ValueError, match="CUDA"):
+        ts5.scalar_digits(torch.zeros((16, 4), dtype=torch.int32, device=meta), words)
     with pytest.raises(ValueError, match="CUDA"):
         tmk.leaf_core(
             torch.zeros((1, 16, 4), dtype=torch.int32, device=meta),

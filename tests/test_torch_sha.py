@@ -48,7 +48,7 @@ def test_sha512_matches_jax_and_hashlib(messages):
     nblocks = nblocks.copy()
     nblocks[3] = 0
     words = torch.from_numpy(buf.view("<u4").view(np.int32))
-    got = ts5.hash_blocks_core(words, torch.from_numpy(nblocks)).numpy()
+    got = ts5.hash_blocks_plain(words, torch.from_numpy(nblocks)).numpy()
 
     blocks, _ = js5.pack_messages512(messages)
     state = jax.jit(js5.hash_blocks_core)(jnp.asarray(blocks), jnp.asarray(nblocks))

@@ -16,8 +16,8 @@ from cometbft_tpu.ops import ed25519_kernel as jek
 from cometbft_tpu.sidecar.backend import TpuBackend
 from cometbft_tpu_torch.ops import ed25519_kernel as tek
 from cometbft_tpu_torch.ops import edwards as ted
-from cometbft_tpu_torch.ops import field25519 as tfe
 from cometbft_tpu_torch.ops import ladder
+from cometbft_tpu_torch.ops import unpack
 from cometbft_tpu_torch.sidecar.backend import TorchBackend
 
 pytestmark = pytest.mark.torch_port
@@ -112,9 +112,8 @@ def test_failed_decodings_run_through_and_verify_false():
     rng = np.random.default_rng(11)
     n = 12
     enc = rng.integers(0, 256, (2 * n, 32), dtype=np.uint8)
-    y = torch.from_numpy(tfe.fe_from_bytes_le(enc))
-    sign = torch.from_numpy((enc[:, 31] >> 7).astype(bool))
-    pt, ok = ted.decompress_stacked(y, sign)
+    words = torch.from_numpy(unpack.bytes_to_words(enc))
+    pt, ok = ted.decompress_words(words[:, :n], words[:, n:])
     assert not ok.all() and ok.any()
     digits = torch.from_numpy(rng.integers(-8, 9, (2, 64, n)).astype(np.int32))
     verdict, acc = ladder.verify_lanes(digits[0], digits[1], pt, ok, with_acc=True)
