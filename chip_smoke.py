@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the ``VerifyBackend`` contract through
-``TorchBackend()``, at the repo's headline size: one 10,240-signature
-commit (vote-shaped challenges) plus the RFC-6962 root of a 65,536-leaf
-block. In order:
+Drives the port's two paths at the repo's headline sizes. The Ed25519 /
+Merkle path is the ``VerifyBackend`` contract through ``TorchBackend()``:
+one 10,240-signature commit (vote-shaped challenges) plus the RFC-6962
+root of a 65,536-leaf block. The BN254 path is the aggregate-commit
+contract through ``Bn254DeviceBackend()``: one 10,240-validator aggregate
+commit (README "Aggregate BLS commits") and a 16-vote bitmap batch. In
+order:
 
   1. prints the PyTorch version and the card (name, power limit);
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``;
   3. makes the fixtures from fixed seeds (keys, signatures, leaves);
   4. holds each kernel against its plain PyTorch version on the card at the
-     main path's shapes (exact equality), and times both (the kernel by
-     CUDA events over back-to-back launches and by its own device time in
-     a torch.profiler trace, ``kernel_ms``): sha512's
+     main path's shapes (exact equality; bn254 equal mod P), and times both
+     (the kernel by CUDA events over back-to-back launches and by its own
+     device time in a torch.profiler trace, ``kernel_ms``): sha512's
      ``challenge_digits`` on the commit and on a ragged batch up to 32
      blocks with a zero-block lane (k also against hashlib), and its
      ``scalar_digits`` with the all-ones and zero digests, s = L - 1 and
@@ -22,19 +25,28 @@ block. In order:
      cofactored epilogue) at every group width it is built for, timed in
      turns, verdict and accumulator; the sha256 tree entry at the 65,536-
      and 10,000-leaf roots, and its leaf and inner entries level by level;
-     prints ptxas's registers and spills, the ladder's launch shape and,
-     where cuobjdump exists, its SASS instruction mix, the measured issue
-     rates of the instructions it runs on (``cometbft_tpu_torch/probe``)
-     and the issue-time estimate they give;
-  5. runs the main path (launch counters zeroed just before): the valid
-     commit, the commit with localized corruptions, the ZIP-215 edge batch,
-     an oversized message (host-hash program), the 65,536- and
+     the bn254 Miller loop at 8,192 lanes (``MAX_LANES``, the first chunk
+     of the 10,240-validator aggregate) with edge lanes (the padding lane,
+     coordinates 0, 1 and P - 1, off-curve field elements); prints
+     ptxas's registers and spills, the ladder's and bn254's launch shapes
+     and, where cuobjdump exists, the ladder's SASS instruction mix, the
+     measured issue rates of the instructions it runs on
+     (``cometbft_tpu_torch/probe``) and the issue-time estimate they give;
+  5. runs the Ed25519 / Merkle path (launch counters zeroed just before):
+     the valid commit, the commit with localized corruptions, the ZIP-215
+     edge batch, an oversized message (host-hash program), the 65,536- and
      10,000-leaf roots, each against its expected answer, and asserts one
      sha512, one decompress and one ladder launch a batch and two sha256
      launches a root; then times ``verify_10k_commit_plus_64k_merkle_ms``
      and its stage split, and traces one such call (``torch.profiler``:
      each kernel's device time, and the device's busy time over the call);
-  6. prints the ``kernels`` line, the card line and, last, the result line.
+  6. runs the BN254 path (counters zeroed just before): the 10,240-validator
+     aggregate accepts, the aggregate with one signer's share left out
+     rejects, each in two bn254 launches (8,192 lanes + a bucket of 4,096),
+     and the 16-vote batch with one bad signature gives the exact bitmap in
+     one launch; then the aggregate's stage split (parse and decompress,
+     hash, pack, kernel, unpack, Fp12 product, final exponentiation);
+  7. prints the ``kernels`` line, the card line and, last, the result line.
 
 Any failure raises and exits nonzero. Without CUDA it exits nonzero before
 printing any result. It imports nothing of JAX or of ``cometbft_tpu``.
@@ -90,6 +102,18 @@ SHA512_BLOCK_OPS = 2 * (80 * 25 + 64 * 13 + 8)  # 64-bit ops, two 32-bit ops eac
 # each, and 64 digits of shift, mask and subtract).
 SCALAR_LANE_OPS = 18 * 8 + 9 * 6 + 16 * 16 + 4 * 14 + 2 * (4 * 8 + 64 * 3)
 SHA256_BLOCK_OPS = 64 * 25 + 48 * 13 + 8
+# BN254 Miller loop, a lane (csrc/bn254.cu): 64 doubling steps of 157 Fp
+# multiplies (f^2 63, the doubling 40, its line 54), 38 addition steps of
+# 97 (the addition 43, its line 54) and 26 conversions into and out of
+# Montgomery form; 136 32x32->64 products a multiply (CIOS over eight
+# words: 64 for a*b, 8 quotient words, 64 for m*p). Bytes: P, Q, pi(Q),
+# -pi^2(Q) in and the Fp12 value out, 13 float64 limbs an Fp element.
+BN254_FP_MULS = 64 * 157 + 38 * 97 + 26
+BN254_FP_MUL_OPS = 136
+BN254_LANE_BYTES = (2 + 3 * 4 + 12) * 13 * 8
+N_VALIDATORS = 10_240
+N_VOTES = 16
+BAD_VOTE = 9
 
 
 def fail(msg: str) -> None:
@@ -561,14 +585,162 @@ def stage_split(fixtures, dev):
     return st
 
 
+# -- the BN254 path ------------------------------------------------------------
+
+
+def bn254_lanes(bn, n: int):
+    """n Miller lanes: the padding lane (G1, G2), coordinates 0, 1 and P - 1
+    and off-curve field elements first (the formulas are polynomials, so
+    kernel and plain version must agree on them too), then multiples of a
+    seeded (P, Q) by repeated addition."""
+    p_ = bn.P
+    rng = np.random.default_rng(SEED)
+
+    def fe():
+        return int.from_bytes(rng.bytes(32), "little") % p_
+
+    lanes = [(bn.G1, bn.G2), ((0, 0), ((0, 0), (0, 0))), ((1, 1), ((1, 1), (1, 1))),
+             ((p_ - 1, p_ - 1), ((p_ - 1, p_ - 1), (p_ - 1, p_ - 1))),
+             ((0, 1), ((p_ - 1, 0), (1, p_ - 1))),
+             ((fe(), fe()), ((fe(), fe()), (fe(), fe()))), ((fe(), fe()), bn.G2)]
+    pt = bn._g1_mul(SEED, bn.G1)
+    q = bn._g2_mul(SEED + 1, bn.G2)
+    while len(lanes) < n:
+        lanes.append((pt, q))
+        pt, q = bn._g1_add(pt, bn.G1), bn._g2_add(q, bn.G2)
+    return lanes[:n]
+
+
+def bn254_fixtures(bn):
+    """The 10,240-validator aggregate commit: sk_i = s0 + i, so pk_i is one
+    G1 addition from pk_(i-1), and the aggregate is one G2 multiply by the
+    sum of the sk_i; every validator signs one shared message (the cut:
+    distinct sign bytes would cost the host 10,240 hash-to-G2 runs); the
+    poisoned aggregate leaves one signer's share out. Then 16 distinct
+    signed votes, vote BAD_VOTE signed over another message."""
+    s0 = int.from_bytes(hashlib.sha256(b"chip-smoke-bn254-%d" % SEED).digest(), "big") % (bn.R // 2)
+    pk, pubs = bn._g1_mul(s0, bn.G1), []
+    for _ in range(N_VALIDATORS):
+        pubs.append(bn.g1_compress(pk))
+        pk = bn._g1_add(pk, bn.G1)
+    msg = b"chip-smoke-commit-%d" % SEED
+    hm = bn._hash_to_g2_cached(msg)
+    total = sum(s0 + i for i in range(N_VALIDATORS)) % bn.R
+    left_out = N_VALIDATORS // 3
+    v_sks = [s0 + 2 * N_VALIDATORS + i for i in range(N_VOTES)]
+    v_msgs = [b"chip-smoke-vote-%d" % i for i in range(N_VOTES)]
+    v_sigs = [bn.sign(sk, m) for sk, m in zip(v_sks, v_msgs)]
+    v_sigs[BAD_VOTE] = bn.sign(v_sks[BAD_VOTE], b"chip-smoke-vote-other")
+    return {
+        "pubs": pubs, "msgs": [msg] * N_VALIDATORS,
+        "agg": bn.g2_compress(bn._g2_mul(total, hm)),
+        "poisoned": bn.g2_compress(bn._g2_mul((total - (s0 + left_out)) % bn.R, hm)),
+        "votes": ([bn.public_key(sk) for sk in v_sks], v_msgs, v_sigs),
+    }
+
+
+def compare_bn254(bn, dev, sms, clock_hz, rates):
+    """Phase 4 for bn254: the kernel against its plain version at 8,192
+    lanes (MAX_LANES), every lane equal mod P; returns its record."""
+    from cometbft_tpu_torch.ops import bn254_kernel as bk
+
+    n = bk.MAX_LANES
+    ops = bk.operands_to_device(bk._pack(bn254_lanes(bn, n), n), dev)
+    got = bk.miller_values(*ops)
+    want = bk.miller_values_plain(*ops)
+    torch.cuda.synchronize()
+    check(bool(((got >= 0) & (got < 2**21) & (got == got.floor())).all()),
+          "bn254 kernel: output limbs are not canonical 21-bit limbs")
+    k, p = bk.limbs_to_ints(got.cpu().numpy()), bk.limbs_to_ints(want.cpu().numpy())
+    err = max(abs(int(a) - int(b)) for a, b in zip(k.ravel(), p.ravel()))
+    check(err == 0, f"bn254 kernel != plain mod P on {int((k != p).any(axis=(1, 2)).sum())} lanes")
+    cfg = bk.launch_config(n)
+    print(f"bn254 launch at {n} lanes: {cfg}", flush=True)
+    products = n * BN254_FP_MULS * BN254_FP_MUL_OPS
+    t_b = bound_ms(products, n * BN254_LANE_BYTES, sms, clock_hz)
+    return dict(
+        max_abs_err=err,
+        ms=time_cuda(lambda: bk.miller_values(*ops), 5),
+        kernel_ms=kernel_ms(lambda: bk.miller_values(*ops), reps=5),
+        plain_ms=time_cuda(lambda: bk.miller_values_plain(*ops), 1, warmup=0),
+        bound_ms=t_b[0], bound_by=t_b[1],
+        bound_ms_at_imad_wide_rate=products / (rates["IMAD.WIDE"]["rate"] * sms * clock_hz) * 1e3,
+        shape=f"{n} lanes x 102 steps, 1 thread a lane ({cfg['blocks']} blocks of "
+              f"{cfg['lanes_per_block']} lanes; {cfg['registers']} registers, "
+              f"{cfg['local_bytes']} local bytes a thread)",
+    )
+
+
+def drive_bn254_path(fix, backend) -> dict:
+    """Phase 6: the aggregate accepts, the poisoned aggregate rejects, two
+    bn254 launches each; the vote batch's bitmap is exact, one launch."""
+    from cometbft_tpu_torch.ops import _build
+
+    times = {}
+
+    def run(name, fn, launches):
+        before = _build.LAUNCHES["bn254"]
+        t0 = time.perf_counter()
+        out = fn()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        got = _build.LAUNCHES["bn254"] - before
+        check(got == launches, f"{name}: {got} bn254 launches, expected {launches}")
+        return out
+
+    ok = run("aggregate_accept", lambda: backend.aggregate_verify(fix["pubs"], fix["msgs"], fix["agg"]), 2)
+    check(ok is True, "the 10,240-validator aggregate did not verify")
+    ok = run("aggregate_poisoned",
+             lambda: backend.aggregate_verify(fix["pubs"], fix["msgs"], fix["poisoned"]), 2)
+    check(ok is False, "the aggregate with one share left out verified")
+    ok, bits = run("batch_16_votes", lambda: backend.batch_verify(*fix["votes"]), 1)
+    want = [i != BAD_VOTE for i in range(N_VOTES)]
+    check(not ok and bits == want, f"16-vote batch bitmap {bits} != {want}")
+    return times
+
+
+def bn254_stage_split(fix, bn, dev) -> dict:
+    """One 10,240-validator aggregate check, stage by stage (each ended by
+    a synchronize); the hash cache is emptied first, so the one shared
+    message is hashed once."""
+    from cometbft_tpu_torch.ops import bn254_kernel as bk
+
+    st, box = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box[name] = fn()
+        torch.cuda.synchronize()
+        st[name] = (time.perf_counter() - t0) * 1e3
+        return box[name]
+
+    bn._HM_CACHE.clear()
+    s, pks = run("parse_decompress", lambda: (bn.g2_unmarshal(fix["agg"]),
+                                              [bn.g1_decompress(pk) for pk in fix["pubs"]]))
+    hms = run("hash", lambda: [bn._hash_to_g2_cached(m) for m in fix["msgs"]])
+    pairs = [((pk[0], (bn.P - pk[1]) % bn.P), hm) for pk, hm in zip(pks, hms)] + [(bn.G1, s)]
+    chunks = [pairs[i: i + bk.MAX_LANES] for i in range(0, len(pairs), bk.MAX_LANES)]
+    ops = run("pack", lambda: [bk.operands_to_device(bk._pack(c, bk.bucket_for(len(c))), dev)
+                               for c in chunks])
+    outs = run("kernel", lambda: [bk.miller_values(*o) for o in ops])
+    vals = run("unpack", lambda: [v for c, o in zip(chunks, outs)
+                                  for v in bk.unpack_values(o.cpu().numpy()[: len(c)])])
+    f = run("f12_product", lambda: bk.f12_product(vals))
+    ok = run("final_exponentiation", lambda: bn.final_exponentiation_fast(f) == bn.F12_ONE)
+    check(ok, "stage-split aggregate did not verify")
+    return st
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a GPU",
               file=sys.stderr)
         return 2
+    from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
     from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops.bn254_kernel import Bn254DeviceBackend
     from cometbft_tpu_torch.sidecar.backend import TorchBackend
 
     card = card_line()
@@ -602,10 +774,15 @@ def main() -> int:
     fixtures = make_fixtures(pure, N_SIGS, N_LEAVES)
     print(f"fixtures: {N_SIGS} signatures, {N_LEAVES} leaves in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    bn_fix = bn254_fixtures(bn)
+    print(f"fixtures: {N_VALIDATORS}-validator BN254 aggregate and {N_VOTES} votes in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     records = compare_kernels(fixtures, hash_from_byte_slices, dev, props.multi_processor_count,
                               clock_hz, rates)
+    records["bn254"] = compare_bn254(bn, dev, props.multi_processor_count, clock_hz, rates)
     print(f"kernels equal their plain versions (compare + timing {time.perf_counter() - t0:.1f} s)",
           flush=True)
     for g, mix in mixes.items():
@@ -617,11 +794,10 @@ def main() -> int:
     _build.reset_launches()
     drive_main_path(fixtures, pure, hash_from_byte_slices, backend)
     launches = dict(_build.LAUNCHES)
-    check(all(launches[k] > 0 for k in _build.KERNELS), f"a kernel was not launched: {launches}")
-    check(launches == {"ladder": 4, "decompress": 4, "sha512": 4, "sha256": 4},
+    check(launches == {"ladder": 4, "decompress": 4, "sha512": 4, "sha256": 4, "bn254": 0},
           f"expected one sha512, decompress and ladder launch a batch (4 batches) and two "
           f"sha256 launches a root (2 roots): {launches}")
-    print(f"main path ok; launches {launches}", flush=True)
+    print(f"Ed25519 / Merkle path ok; launches {launches}", flush=True)
 
     _, _, pubs, msgs, sigs, leaves = fixtures
     totals = []
@@ -642,6 +818,26 @@ def main() -> int:
                       "device_busy_share_of_untraced_median":
                           trace["device_ms"] / statistics.median(totals)}), flush=True)
 
+    bn_backend = Bn254DeviceBackend()
+    _build.reset_launches()
+    bn_times = drive_bn254_path(bn_fix, bn_backend)
+    bn_launches = dict(_build.LAUNCHES)
+    check(bn_launches == {"ladder": 0, "decompress": 0, "sha512": 0, "sha256": 0, "bn254": 5},
+          f"expected two bn254 launches an aggregate (2 aggregates) and one for the vote "
+          f"batch: {bn_launches}")
+    launches["bn254"] = bn_launches["bn254"]
+    cut = ("every validator signs one shared message: distinct per-validator sign bytes would "
+           "cost 10,240 runs of the host's pure-Python hash-to-G2; the device work a lane is "
+           "the same either way")
+    print(f"BN254 path ok; launches {bn_launches}; cut: {cut}", flush=True)
+    bn_splits = [bn254_stage_split(bn_fix, bn, dev) for _ in range(2)]
+    print(json.dumps({
+        "metric": "aggregate_verify_10k_ms", "value": bn_times["aggregate_accept"],
+        "runs_ms": bn_times, "stages_ms": bn_splits, "validators": N_VALIDATORS,
+        "lanes": N_VALIDATORS + 1, "cut": cut, "device": torch.cuda.get_device_name(0),
+        "card": card,
+    }), flush=True)
+
     sources = {
         "ladder": ("cometbft_tpu_torch/ops/csrc/ladder.cu", "cometbft_tpu/ops/pallas_ladder.py:218",
                    "pallas_ladder._ladder_kernel + the epilogue of ed25519_kernel._verify_from_words"),
@@ -654,6 +850,9 @@ def main() -> int:
                    "+ unpack.scalar_words_to_digits"),
         "sha256": ("cometbft_tpu_torch/ops/csrc/sha256.cu", "cometbft_tpu/ops/sha256_kernel.py:48",
                    "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core/leaves_to_root_core)"),
+        "bn254": ("cometbft_tpu_torch/ops/csrc/bn254.cu", "cometbft_tpu/ops/bn254_kernel.py:352",
+                  "bn254_kernel._build_program.run over _fp_mul :215, _f2_mul_many :239, "
+                  "_f12_sqr :277, _f12_sparse :295, _dbl_and_line :320, _add_and_line :335"),
     }
     kernels = []
     for name in _build.KERNELS:

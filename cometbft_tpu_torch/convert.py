@@ -3,8 +3,10 @@ tensors (this system's counterpart of converting weights).
 
 The reference keeps its constants and packed operands as numpy arrays
 (``int32[17, N]`` field limbs, ``int32[9, 4, 17, 1]`` for the fixed-base
-table, the 4- or 5-tuple ``pack_batch`` returns). These helpers turn them
-into the port's int32 tensors and back, so the tests can hand one input to
+table, the 4- or 5-tuple ``pack_batch`` returns; for BN254 the float64
+operands ``p1``, ``qa``, ``q1a``, ``q2a`` of its ``_pack`` and the
+``(n, 6, 2, 13)`` Miller values its program returns). These helpers turn
+them into the port's tensors and back, so the tests can hand one input to
 both implementations. They take numpy arrays and import nothing of the
 reference.
 """
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from cometbft_tpu_torch.ops import bn254_kernel
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -47,3 +51,35 @@ def table_b_from_jax(table, device="cpu") -> torch.Tensor:
     if tuple(t.shape) != (9, 4, 17, 1):
         raise ValueError(f"expected a [9, 4, 17, 1] table, got {tuple(t.shape)}")
     return t.to(torch.int32)
+
+
+def bn254_operands_from_jax(operands, device="cpu") -> tuple:
+    """The reference's BN254 ``_pack`` operands: p1 float64 (n, 2, 13) and
+    qa, q1a, q2a float64 (n, 2, 2, 13) -> float64 tensors."""
+    if len(operands) != 4:
+        raise ValueError(f"expected 4 operands (p1, qa, q1a, q2a), got {len(operands)}")
+    p1, *qs = (torch.from_numpy(np.ascontiguousarray(o, dtype=np.float64)).to(device)
+               for o in operands)
+    n = p1.shape[0]
+    if tuple(p1.shape) != (n, 2, 13) or any(tuple(q.shape) != (n, 2, 2, 13) for q in qs):
+        raise ValueError(f"bad BN254 operand shapes {[tuple(o.shape) for o in (p1, *qs)]}")
+    return (p1, *qs)
+
+
+def bn254_values_from_jax(out) -> list:
+    """(n, 6, 2, 13) Miller values (loose float64 limbs, the reference's
+    program output, or the port's) -> n Fp12 values as host ints mod P."""
+    if isinstance(out, torch.Tensor):
+        out = out.detach().cpu().numpy()
+    return bn254_kernel.unpack_values(np.asarray(out, dtype=np.float64))
+
+
+def bn254_values_to_jax(values) -> np.ndarray:
+    """n Fp12 values (6 pairs of ints) -> (n, 6, 2, 13) float64 canonical
+    limbs, the layout of the reference's program output."""
+    out = np.zeros((len(values), 6, 2, 13), dtype=np.float64)
+    for lane, v in enumerate(values):
+        for k in range(6):
+            for c in range(2):
+                out[lane, k, c] = bn254_kernel.to_limbs(v[k][c] % bn254_kernel.P)
+    return out

@@ -32,7 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 FALLBACK_NVCC = "/usr/local/cuda/bin/nvcc"
-KERNELS = ("ladder", "decompress", "sha512", "sha256")
+KERNELS = ("ladder", "decompress", "sha512", "sha256", "bn254")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "cmtpu_sha256_inner": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
     "cmtpu_sha256_tree_chunks": [_P, _P, _I, _I, _P, _P],
     "cmtpu_sha256_tree_roots": [_P, _I, _I, _P],
+    "cmtpu_bn254_miller": [_P, _P, _P, _P, _P, _I, _P],
+    "cmtpu_bn254_config": [_I, _P],
 }
 
 

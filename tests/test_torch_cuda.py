@@ -1,12 +1,13 @@
 """Kernel-against-plain tests of the port on a CUDA device. Each hand
 kernel (ladder at every group width, decompress from raw words, sha512's
 challenge_digits and scalar_digits, sha256 with its leaf, inner and tree
-entries) is held to its plain PyTorch version on the same card, exactly,
-at small shapes and on the ZIP-215 and scalar edge inputs; the launch
-counters must count each launch once (one launch a call, two sha256
-launches a root, and one sha512, decompress and ladder launch a verify
-batch). Without a CUDA device every test here skips (by the ``cuda``
-fixture) with its reason.
+entries, the bn254 Miller loop) is held to its plain PyTorch version on the
+same card, exactly (bn254: equal mod P), at small shapes and on the ZIP-215,
+scalar and field edge inputs, bn254 also at its 8,192-lane chunk; the
+launch counters must count each launch once (one launch a call, two sha256
+launches a root, one sha512, decompress and ladder launch a verify batch,
+one bn254 launch a chunk of an aggregate). Without a CUDA device every
+test here skips (by the ``cuda`` fixture) with its reason.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 GPU host without them (tests/conftest.py imports jax, hence
@@ -21,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from cometbft_tpu_torch.crypto import bn254_pure as bn
 from cometbft_tpu_torch.crypto import ed25519_pure as pure
 from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
 from cometbft_tpu_torch.ops import _build
+from cometbft_tpu_torch.ops import bn254_kernel as bk
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.ops import edwards as ed
 from cometbft_tpu_torch.ops import field25519 as fe
@@ -244,7 +247,7 @@ def test_batch_verify_is_three_launches(cuda, oversized):
     before = dict(_build.LAUNCHES)
     assert TorchBackend().batch_verify(pubs, msgs, sigs) == (False, [True, False, True, True, True])
     delta = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert delta == {"sha512": 1, "decompress": 1, "ladder": 1, "sha256": 0}
+    assert delta == {"sha512": 1, "decompress": 1, "ladder": 1, "sha256": 0, "bn254": 0}
 
 
 def test_torch_backend_defaults_to_cuda(cuda):
@@ -256,3 +259,74 @@ def test_torch_backend_defaults_to_cuda(cuda):
     sigs = [pure.sign(s, p, m) for s, p, m in zip(seeds, pubs, msgs)]
     sigs[6] = sigs[6][:33] + bytes([sigs[6][33] ^ 4]) + sigs[6][34:]
     assert be.batch_verify(pubs, msgs, sigs) == (False, [True] * 6 + [False, True])
+
+
+def _bn254_lanes(n):
+    """n lanes: the padding lane (G1, G2), coordinates 0, 1 and P - 1, and
+    off-curve field elements first, then multiples of a seeded (P, Q) by
+    repeated addition (the Miller formulas are polynomials, so kernel and
+    plain version must agree on every lane)."""
+    p_ = bn.P
+    rng = np.random.default_rng(n)
+
+    def fe():
+        return int.from_bytes(rng.bytes(32), "little") % p_
+
+    edge = [(bn.G1, bn.G2), ((0, 0), ((0, 0), (0, 0))), ((1, 1), ((1, 1), (1, 1))),
+            ((p_ - 1, p_ - 1), ((p_ - 1, p_ - 1), (p_ - 1, p_ - 1))),
+            ((0, 1), ((p_ - 1, 0), (1, p_ - 1))),
+            ((fe(), fe()), ((fe(), fe()), (fe(), fe()))), ((fe(), fe()), bn.G2)]
+    lanes = edge[:n]
+    pt, q = bn._g1_mul(3, bn.G1), bn._g2_mul(5, bn.G2)
+    while len(lanes) < n:
+        lanes.append((pt, q))
+        pt, q = bn._g1_add(pt, bn.G1), bn._g2_add(q, bn.G2)
+    return lanes
+
+
+@pytest.mark.parametrize("n", [8, 8192])
+def test_bn254_kernel_matches_plain(cuda, n):
+    """At bucket 8 and at the 8,192-lane chunk (MAX_LANES), edge lanes
+    first: every lane equal mod P, the kernel's limbs canonical."""
+    ops = bk.operands_to_device(bk._pack(_bn254_lanes(n), n), cuda)
+    before = _build.LAUNCHES["bn254"]
+    got = bk.miller_values(*ops)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bn254"] == before + 1
+    want = bk.miller_values_plain(*ops)
+    assert got.shape == want.shape == (n, 6, 2, 13)
+    assert bool(((got >= 0) & (got < 2**21) & (got == got.floor())).all())
+    k, p = bk.limbs_to_ints(got.cpu().numpy()), bk.limbs_to_ints(want.cpu().numpy())
+    assert (k == p).all()
+
+
+def _bn254_signers(m):
+    sks = [int.from_bytes(hashlib.sha256(b"cuda-bn254-%d" % i).digest(), "big") % bn.R
+           for i in range(m)]
+    msgs = [b"cuda-bn254-vote-%d" % i for i in range(m)]
+    return sks, [bn.public_key(sk) for sk in sks], msgs, [bn.sign(sk, x) for sk, x in zip(sks, msgs)]
+
+
+def test_bn254_aggregate_is_one_launch_a_chunk(cuda, monkeypatch):
+    sks, pubs, msgs, sigs = _bn254_signers(7)
+    total = None
+    for s in sigs:
+        total = bn._g2_add(total, bn.g2_unmarshal(s))
+    agg = bn.g2_compress(total)
+    be = bk.Bn254DeviceBackend()
+    before = _build.LAUNCHES["bn254"]
+    assert be.aggregate_verify(pubs, msgs, agg) is True
+    assert _build.LAUNCHES["bn254"] == before + 1
+    monkeypatch.setattr(bk, "MAX_LANES", 3)  # 8 lanes in chunks of 3
+    assert be.aggregate_verify(pubs, list(reversed(msgs)), agg) is False
+    assert _build.LAUNCHES["bn254"] == before + 1 + 3
+
+
+def test_bn254_backend_defaults_to_cuda(cuda):
+    be = bk.Bn254DeviceBackend()
+    assert be.device.type == "cuda" and be.ping()
+    sks, pubs, msgs, sigs = _bn254_signers(4)
+    sigs[1] = bn.sign(sks[1], b"another-vote")
+    before = _build.LAUNCHES["bn254"]
+    assert be.batch_verify(pubs, msgs, sigs) == (False, [True, False, True, True])
+    assert _build.LAUNCHES["bn254"] == before + 1

@@ -12,7 +12,9 @@ import torch
 
 import cometbft_tpu_torch
 from cometbft_tpu_torch import device
+from cometbft_tpu_torch.crypto import bn254_pure
 from cometbft_tpu_torch.ops import _build
+from cometbft_tpu_torch.ops import bn254_kernel as tbk
 from cometbft_tpu_torch.ops import edwards as ted
 from cometbft_tpu_torch.ops import ladder
 from cometbft_tpu_torch.ops import merkle_kernel as tmk
@@ -33,7 +35,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "cometbft_tpu_torch.ops.ladder" in mods and len(mods) >= 18
+    assert "cometbft_tpu_torch.ops.ladder" in mods and len(mods) >= 20
+    assert {"cometbft_tpu_torch.ops.bn254_kernel", "cometbft_tpu_torch.crypto.bn254_pure"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -55,7 +58,12 @@ def test_cuda_request_raises_without_a_card():
         device.resolve(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbk.Bn254DeviceBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbk.multi_miller_values([(bn254_pure.G1, bn254_pure.G2)])
     assert TorchBackend(device="cpu").device.type == "cpu"
+    assert tbk.Bn254DeviceBackend(device="cpu").device.type == "cpu"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -100,18 +108,45 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         tmk.tree_root(torch.zeros(4, dtype=torch.uint8, device=meta),
                       torch.arange(5, dtype=torch.int64, device=meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbk.miller_values(torch.zeros((8, 2, 13), dtype=torch.float64, device=meta),
+                          *(torch.zeros((8, 2, 2, 13), dtype=torch.float64, device=meta)
+                            for _ in range(3)))
     assert _build.LAUNCHES == before
+
+
+def test_bn254_cuda_request_without_a_built_library_raises(monkeypatch, tmp_path):
+    """With CUDA reported and no nvcc, the backend's ping says the kernel
+    library cannot load, and a CUDA dispatch raises (here at the copy to
+    the card this CPU build of PyTorch cannot make) instead of taking the
+    plain version: no dispatch is counted and no launch."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "FALLBACK_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    backend = tbk.Bn254DeviceBackend()
+    assert backend.device.type == "cuda"
+    assert backend.ping() is False
+    before, counts = dict(_build.LAUNCHES), tbk.counters()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tbk.multi_miller_values([(bn254_pure.G1, bn254_pure.G2)], device="cuda")
+    assert _build.LAUNCHES == before and tbk.counters() == counts
 
 
 def test_cpu_wrappers_count_no_launches():
     before = dict(_build.LAUNCHES)
     tmk.merkle_root([b"a", b"b", b"c", b"d"], device="cpu")
     assert _build.LAUNCHES == before
-    assert set(_build.LAUNCHES) == {"ladder", "decompress", "sha512", "sha256"}
+    tbk.miller_values(*tbk.operands_to_device(tbk._pack([(bn254_pure.G1, bn254_pure.G2)], 1), "cpu"))
+    assert _build.LAUNCHES == before
+    assert set(_build.LAUNCHES) == {"ladder", "decompress", "sha512", "sha256", "bn254"}
 
 
 def test_every_kernel_source_is_built():
     srcs = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
-    assert srcs == ["decompress", "ladder", "sha256", "sha512"]
+    assert srcs == ["bn254", "decompress", "ladder", "sha256", "sha512"]
     text = (_build.SRC_DIR / "ladder.cu").read_text()
     assert "cometbft_tpu/ops/pallas_ladder.py:_ladder_kernel" in text
+    assert "cometbft_tpu/ops/bn254_kernel.py:352" in (_build.SRC_DIR / "bn254.cu").read_text()
