@@ -2,17 +2,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the repo's headline sizes. The Ed25519 /
-Merkle path is the ``VerifyBackend`` contract through ``TorchBackend()``:
-one 10,240-signature commit (vote-shaped challenges) plus the RFC-6962
-root of a 65,536-leaf block. The BN254 path is the aggregate-commit
-contract through ``Bn254DeviceBackend()``: one 10,240-validator aggregate
-commit (README "Aggregate BLS commits") and a 16-vote bitmap batch. In
-order:
+Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
+path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
+10,240-signature commit (vote-shaped challenges) plus the RFC-6962 root of
+a 65,536-leaf block. The proofs path is ``proofs_from_byte_slices_device``
+(one inclusion proof a transaction or block part) at that block, at 10,000
+leaves and at a 21 MiB block's 336 parts of 64 KiB. The sidecar path is the
+port's entry point, ``SidecarServer`` over a local socket. The BN254 path is
+the aggregate-commit contract through ``Bn254DeviceBackend()``: one
+10,240-validator aggregate commit (README "Aggregate BLS commits") and a
+16-vote bitmap batch. In order:
 
   1. prints the PyTorch version and the card (name, power limit);
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``;
-  3. makes the fixtures from fixed seeds (keys, signatures, leaves);
+  3. makes the fixtures from fixed seeds (keys, signatures, leaves, parts);
   4. holds each kernel against its plain PyTorch version on the card at the
      main path's shapes (exact equality; bn254 equal mod P), and times both
      (the kernel by CUDA events over back-to-back launches and by its own
@@ -24,14 +27,16 @@ order:
      ZIP-215 edge encodings mixed in; the ladder (fused with the
      cofactored epilogue) at every group width it is built for, timed in
      turns, verdict and accumulator; the sha256 tree entry at the 65,536-
-     and 10,000-leaf roots, and its leaf and inner entries level by level;
-     the bn254 Miller loop at 8,192 lanes (``MAX_LANES``, the first chunk
-     of the 10,240-validator aggregate) with edge lanes (the padding lane,
-     coordinates 0, 1 and P - 1, off-curve field elements); prints
-     ptxas's registers and spills, the ladder's and bn254's launch shapes
-     and, where cuobjdump exists, the ladder's SASS instruction mix, the
-     measured issue rates of the instructions it runs on
-     (``cometbft_tpu_torch/probe``) and the issue-time estimate they give;
+     and 10,000-leaf roots, its leaf and inner entries level by level, and
+     its levels entry (every tree level, what the proofs run) at 65,536 and
+     10,000 leaves and at the part set; the bn254 Miller loop at 8,192
+     lanes (``MAX_LANES``, the first chunk of the 10,240-validator
+     aggregate) with edge lanes (the padding lane, coordinates 0, 1 and
+     P - 1, off-curve field elements); prints ptxas's registers and spills,
+     the ladder's and bn254's launch shapes and, where cuobjdump exists,
+     the ladder's SASS instruction mix, the measured issue rates of the
+     instructions it runs on (``cometbft_tpu_torch/probe``) and the
+     issue-time estimate they give;
   5. runs the Ed25519 / Merkle path (launch counters zeroed just before):
      the valid commit, the commit with localized corruptions, the ZIP-215
      edge batch, an oversized message (host-hash program), the 65,536- and
@@ -40,13 +45,26 @@ order:
      launches a root; then times ``verify_10k_commit_plus_64k_merkle_ms``
      and its stage split, and traces one such call (``torch.profiler``:
      each kernel's device time, and the device's busy time over the call);
-  6. runs the BN254 path (counters zeroed just before): the 10,240-validator
+  6. runs the proofs path (counters zeroed just before): at each size the
+     root and every proof equal the host's ``proofs_from_byte_slices``,
+     every 97th proof and the last verify, two sha256 launches a proof set;
+     then times ``proofs_64k_ms``, its stage split and the host's time;
+  7. runs the sidecar path: ``SidecarServer`` on 127.0.0.1:0 in this
+     process serving ``TorchBackend()``, warmed; the port's ``GrpcBackend``
+     sends every request of step 5 through the socket (the commit streamed
+     in chunks) and the commit once more unary, each answer held as in step
+     5, three launches a verify dispatch and two a root; then times
+     ``sidecar_verify_10k_commit_plus_64k_merkle_ms`` beside the in-process
+     headline, with the warm-up's seconds and the scheduler's counters; the
+     server's and client's threads end at shutdown;
+  8. runs the BN254 path (counters zeroed just before): the 10,240-validator
      aggregate accepts, the aggregate with one signer's share left out
      rejects, each in two bn254 launches (8,192 lanes + a bucket of 4,096),
      and the 16-vote batch with one bad signature gives the exact bitmap in
      one launch; then the aggregate's stage split (parse and decompress,
      hash, pack, kernel, unpack, Fp12 product, final exponentiation);
-  7. prints the ``kernels`` line, the card line and, last, the result line.
+  9. prints the ``kernels`` line (launches summed over the paths, and by
+     path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero. Without CUDA it exits nonzero before
 printing any result. It imports nothing of JAX or of ``cometbft_tpu``.
@@ -62,6 +80,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -71,6 +90,10 @@ N_SIGS = 10_240
 N_LEAVES = 65_536
 N_RAGGED_LEAVES = 10_000
 SEED = 20_260_417
+# A block cut into parts of BLOCK_PART_SIZE_BYTES (the reference's
+# types/block.py:26): 336 parts of 64 KiB, a 21 MiB block.
+N_PARTS = 336
+PART_BYTES = 65_536
 
 # Hopper's 32-bit integer add / multiply-add / logic / shift rate per SM
 # per clock (CUDA C Programming Guide, arithmetic throughput, cc 9.0).
@@ -191,7 +214,9 @@ def make_fixtures(pure, n_sigs: int, n_leaves: int):
     msgs = [b"commit-vote-%d" % i for i in range(n_sigs)]
     pubs, sigs = sign_batch(pure, fb, seeds, msgs)
     leaves = [b"bench-tx-%08d" % i for i in range(n_leaves)]
-    return fb, seeds, pubs, msgs, sigs, leaves
+    block = np.random.default_rng(SEED).bytes(N_PARTS * PART_BYTES)
+    parts = [block[i * PART_BYTES : (i + 1) * PART_BYTES] for i in range(N_PARTS)]
+    return fb, seeds, pubs, msgs, sigs, leaves, parts
 
 
 def _enc_int(y: int, sign: int = 0) -> bytes:
@@ -337,7 +362,7 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
 
     L = ek.L
 
-    _, _, pubs, msgs, sigs, leaves = fixtures
+    _, _, pubs, msgs, sigs, leaves, parts = fixtures
     records = {}
     operands, host_ok = ek.pack_batch(pubs, msgs, sigs)
     check(host_ok[: len(pubs)].all(), "fixture batch fails host checks")
@@ -479,17 +504,74 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
     records["sha256"] = dict(
         max_abs_err=err,
         ms=time_cuda(lambda: mk.tree_root(flat, offsets), 50),
-        kernel_ms=kernel_ms(lambda: mk.tree_root(flat, offsets)),
+        kernel_ms=kernel_ms(lambda: mk.tree_root(flat, offsets), launches=2),
         plain_ms=time_cuda(lambda: mk.tree_root_plain(flat, offsets), 1, warmup=0),
         bound_ms=t_b[0], bound_by=t_b[1],
         shape=f"{nl} leaves, 2 launches ({-(-nl // mk.CHUNK)} chunks of {mk.CHUNK})",
     )
+    rec = records["sha256"]
+    rec.update(compare_levels(leaves, parts, dev, sms, clock_hz))
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec["levels_max_abs_err"])
     return records
+
+
+def levels_bound(mk, flat, offsets, sms, clock_hz):
+    """The levels entry's bound: every compression (each leaf's blocks of
+    0x00 || leaf, two an inner node) at SHA256_BLOCK_OPS; the leaves and
+    offsets read once, every level's 32-byte nodes written once."""
+    n = offsets.shape[0] - 1
+    lens = np.diff(offsets.cpu().numpy())
+    compressions = int(((lens + 1 + 8) // 64 + 1).sum()) + 2 * (n - 1)
+    total = mk.level_rows(n)[-1][0] + 1
+    return bound_ms(compressions * SHA256_BLOCK_OPS, flat.numel() + 8 * (n + 1) + 32 * total,
+                    sms, clock_hz)
+
+
+def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
+    """The sha256 kernel's levels entry (the counterpart of
+    merkle_kernel._leaves_to_levels_core) against tree_levels_raw_plain,
+    every word, at the 65,536-leaf block, the 10,000-leaf ragged count and
+    the part set; times at 65,536 leaves and at the part set. The plain
+    version runs on the card, but for the part set on the CPU, on copies of
+    the same inputs: its 1,025 compressions a part run one after another,
+    each ~2,600 tiny tensor operations, which cost ~66 ms a compression on
+    the card (launch-bound; 68 s for the part set) against a few ms on the
+    CPU."""
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    out, err = {}, 0
+    for name, items in (("64k", leaves), ("10k", leaves[:N_RAGGED_LEAVES]), ("partset", parts)):
+        flat, offsets = mk.pack_leaves(items, dev)
+        got = mk.tree_levels_raw(flat, offsets)
+        plain_dev = "cpu" if name == "partset" else dev
+        t0 = time.perf_counter()
+        want = mk.tree_levels_raw_plain(flat.to(plain_dev), offsets.to(plain_dev))
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err = max(err, max_abs_err(got.cpu(), want.cpu()))
+        check(got.shape == want.shape == (mk.level_rows(len(items))[-1][0] + 1, 8),
+              f"sha256 levels entry: {name} levels have shape {tuple(got.shape)}")
+        if name == "10k":
+            continue
+        t_b = levels_bound(mk, flat, offsets, sms, clock_hz)
+        key = "levels" if name == "64k" else "levels_partset"
+        out.update({
+            f"{key}_ms": time_cuda(lambda: mk.tree_levels_raw(flat, offsets), 50 if name == "64k" else 5),
+            f"{key}_kernel_ms": kernel_ms(lambda: mk.tree_levels_raw(flat, offsets),
+                                          20 if name == "64k" else 5, launches=2),
+            f"{key}_plain_ms": plain, f"{key}_plain_device": str(plain_dev),
+            f"{key}_bound_ms": t_b[0], f"{key}_bound_by": t_b[1],
+            f"{key}_shape": f"{len(items)} leaves of {len(items[0])} bytes, 2 launches, "
+                            f"{got.shape[0]} nodes out",
+        })
+    check(err == 0, f"sha256 levels entry != plain (max abs err {err})")
+    out["levels_max_abs_err"] = err
+    return out
 
 
 def drive_main_path(fixtures, pure, merkle_oracle, backend):
     """Phase 5: the requests a user sends, each held to its expected answer."""
-    fb, seeds, pubs, msgs, sigs, leaves = fixtures
+    fb, seeds, pubs, msgs, sigs, leaves, _ = fixtures
     n = len(pubs)
 
     ok, bits = backend.batch_verify(pubs, msgs, sigs)
@@ -534,24 +616,31 @@ def trace_call(fn) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = time_host(fn)
-    device = collections.Counter()
+    device, counts = collections.Counter(), collections.Counter()
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
         if t > 0 and e.device_type.name == "CUDA":
             device[e.key] += t / 1e3
+            counts[e.key] += e.count
     return {"wall_ms": wall, "device_ms": sum(device.values()),
-            "kernels_ms": dict(device.most_common())}
+            "kernels_ms": dict(device.most_common()), "counts": dict(counts)}
 
 
-def kernel_ms(fn, reps: int = 20):
+def kernel_ms(fn, reps: int = 20, launches: int = 1):
     """Mean device time of fn's kernels a call (torch.profiler, CUPTI): the
     kernels' own time, without the gaps that the host's enqueue leaves
     between launches and that CUDA events around back-to-back launches
-    count. None when the profiler saw no kernel."""
+    count. None when the trace does not hold every launch (reps x
+    launches kernel records): the profiler has been seen to drop some."""
     fn()
-    t = trace_call(lambda: [fn() for _ in range(reps)])["kernels_ms"]
-    ms = sum(v for k, v in t.items() if not k.startswith(("Memcpy", "Memset"))) / reps
-    return ms or None
+    tr = trace_call(lambda: [fn() for _ in range(reps)])
+    kernels = [k for k in tr["kernels_ms"] if not k.startswith(("Memcpy", "Memset"))]
+    seen = sum(tr["counts"][k] for k in kernels)
+    if seen != reps * launches:
+        print(f"kernel_ms: the trace holds {seen} of {reps * launches} launches: not measured",
+              flush=True)
+        return None
+    return sum(tr["kernels_ms"][k] for k in kernels) / reps
 
 
 def stage_split(fixtures, dev):
@@ -562,7 +651,7 @@ def stage_split(fixtures, dev):
     from cometbft_tpu_torch.ops import merkle_kernel as mk
     from cometbft_tpu_torch.ops import sha512_kernel as s5
 
-    _, _, pubs, msgs, sigs, leaves = fixtures
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
     st, box = {}, {}
 
     def run(name, fn):
@@ -583,6 +672,133 @@ def stage_split(fixtures, dev):
     run("merkle_tree", lambda: mk.tree_root(*box["merkle_pack"]).cpu())
     check(bool(box["ladder_epilogue"].all()), "stage-split verify failed")
     return st
+
+
+# -- the proofs path -----------------------------------------------------------
+
+
+def proof_sets(fixtures) -> dict:
+    _, _, _, _, _, leaves, parts = fixtures
+    return {"64k": leaves, "10k": leaves[:N_RAGGED_LEAVES], "partset": parts}
+
+
+def drive_proofs(fixtures, host) -> None:
+    """The proofs path: proofs_from_byte_slices_device (on the card by
+    default) at the three sizes, each root and every proof's total, index,
+    leaf hash and aunts equal to the host's proofs_from_byte_slices; every
+    97th proof and the last verify against the root; two sha256 launches a
+    proof set."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    for name, items in proof_sets(fixtures).items():
+        before = _build.LAUNCHES["sha256"]
+        root, proofs = mk.proofs_from_byte_slices_device(items)
+        check(_build.LAUNCHES["sha256"] - before == 2, f"{name} proofs: not two sha256 launches")
+        root_h, proofs_h = host.proofs_from_byte_slices(items)
+        check(root == root_h and len(proofs) == len(proofs_h) == len(items),
+              f"{name} proofs: root or count differs from the host's")
+        for i, (pd, ph) in enumerate(zip(proofs, proofs_h)):
+            if (pd.total, pd.index, pd.leaf_hash, pd.aunts) != (ph.total, ph.index, ph.leaf_hash,
+                                                                ph.aunts):
+                fail(f"{name} proofs: proof {i} differs from the host's")
+        for i in list(range(0, len(items), 97)) + [len(items) - 1]:
+            proofs[i].verify(root, items[i])
+
+
+def proofs_stage_split(leaves, dev) -> dict:
+    """One 65,536-leaf proof set, stage by stage (each ended by a
+    synchronize): pack, the two launches, the levels' device-to-host copy,
+    the aunt gather, DeviceProofs."""
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    st, box = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box[name] = fn()
+        torch.cuda.synchronize()
+        st[name] = (time.perf_counter() - t0) * 1e3
+        return box[name]
+
+    flat, offsets = run("pack", lambda: mk.pack_leaves(leaves, dev))
+    levels = run("levels_launches", lambda: mk.tree_levels_raw(flat, offsets))
+    digests = run("levels_d2h", lambda: mk.levels_to_digests(levels))
+    split = mk.split_levels(digests, len(leaves))
+    aunts, counts = run("aunt_gather", lambda: mk.gather_aunts(split))
+    run("device_proofs", lambda: mk.DeviceProofs(bytes(split[-1][0]), split[0], aunts, counts))
+    return st
+
+
+def proofs_metrics(fixtures, host, dev) -> dict:
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    leaves = fixtures[5]
+    runs = [time_host(lambda: mk.proofs_from_byte_slices_device(leaves)) for _ in range(5)]
+    oracle = [time_host(lambda: host.proofs_from_byte_slices(leaves)) for _ in range(3)]
+    splits = [proofs_stage_split(leaves, dev) for _ in range(3)]
+    return {
+        "metric": "proofs_64k_ms", "value": statistics.median(runs), "runs_ms": runs,
+        "stages_ms": {k: statistics.median(sp[k] for sp in splits) for k in splits[0]},
+        "host_oracle_ms": statistics.median(oracle), "host_oracle_runs_ms": oracle,
+        "parts": {"count": N_PARTS, "bytes": PART_BYTES},
+    }
+
+
+# -- the sidecar path ----------------------------------------------------------
+
+
+def drive_sidecar(fixtures, pure, merkle_oracle) -> dict:
+    """The port's entry point: SidecarServer in this process on
+    127.0.0.1:0, serving TorchBackend() on the card, warmed; the port's
+    GrpcBackend drives every request of drive_main_path through the socket
+    (the commit streamed in chunks), then the commit unary. Three launches a
+    verify dispatch and two a root; then the headline through the socket."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+    from cometbft_tpu_torch.sidecar.service import GrpcBackend, SidecarServer
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    t0 = time.perf_counter()
+    server = SidecarServer("127.0.0.1:0", backend=TorchBackend())
+    server.warmup()
+    warm_s = time.perf_counter() - t0
+    server.start()
+    client = GrpcBackend(server.bound_addr, timeout_s=600)
+    try:
+        _build.reset_launches()
+        d0 = server.scheduler_counters()["dispatches"]
+        drive_main_path(fixtures, pure, merkle_oracle, client)
+        os.environ["CMTPU_SIDECAR_CHUNK"] = str(N_SIGS)
+        try:
+            ok, bits = client.batch_verify(pubs, msgs, sigs)
+        finally:
+            del os.environ["CMTPU_SIDECAR_CHUNK"]
+        check(ok and all(bits) and len(bits) == N_SIGS, "sidecar: the unary commit did not verify")
+        launches = dict(_build.LAUNCHES)
+        dispatches = server.scheduler_counters()["dispatches"] - d0
+        c = client.counters()
+        check(c["streamed_calls"] >= 2 and c["unary_calls"] >= 3,
+              f"sidecar: expected streamed and unary verifies, client counters {c}")
+        check(launches == {"ladder": dispatches, "decompress": dispatches, "sha512": dispatches,
+                           "sha256": 4, "bn254": 0},
+              f"sidecar: expected three launches a verify dispatch ({dispatches}) and two a "
+              f"root (2 roots): {launches}")
+        totals = [time_host(lambda: (client.batch_verify(pubs, msgs, sigs),
+                                     client.merkle_root(leaves))) for _ in range(5)]
+        counters = server.scheduler_counters()
+    finally:
+        client.close()
+        server.shutdown()
+    ours = [t for t in threading.enumerate()
+            if t.name in ("verify-engine", "sidecar-reader") or "process_request" in t.name]
+    for t in ours:
+        t.join(timeout=30)
+    left = [t.name for t in ours if t.is_alive()]
+    check(not left, f"sidecar: threads left after shutdown: {left}")
+    return {"launches": launches, "dispatches": dispatches, "warmup_s": warm_s, "totals": totals,
+            "client": c, "scheduler": counters}
 
 
 # -- the BN254 path ------------------------------------------------------------
@@ -738,6 +954,7 @@ def main() -> int:
         return 2
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.crypto import merkle as host
     from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops.bn254_kernel import Bn254DeviceBackend
@@ -772,8 +989,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     fixtures = make_fixtures(pure, N_SIGS, N_LEAVES)
-    print(f"fixtures: {N_SIGS} signatures, {N_LEAVES} leaves in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"fixtures: {N_SIGS} signatures, {N_LEAVES} leaves, {N_PARTS} parts of {PART_BYTES} "
+          f"bytes in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     bn_fix = bn254_fixtures(bn)
     print(f"fixtures: {N_VALIDATORS}-validator BN254 aggregate and {N_VOTES} votes in "
@@ -798,8 +1015,9 @@ def main() -> int:
           f"expected one sha512, decompress and ladder launch a batch (4 batches) and two "
           f"sha256 launches a root (2 roots): {launches}")
     print(f"Ed25519 / Merkle path ok; launches {launches}", flush=True)
+    by_path = {"verify_root": launches}
 
-    _, _, pubs, msgs, sigs, leaves = fixtures
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
     totals = []
     for _ in range(5):
         totals.append(time_host(lambda: (backend.batch_verify(pubs, msgs, sigs),
@@ -814,9 +1032,36 @@ def main() -> int:
         "stages_ms": stages, "device": torch.cuda.get_device_name(0), "card": card,
     }), flush=True)
     trace["kernels_ms"] = dict(collections.Counter(trace["kernels_ms"]).most_common(12))
-    print(json.dumps({"traced_call": trace,
+    # A busy share only from a trace that saw every kernel of the call: the
+    # verify's launch from the device-owner thread, the tree's from this one.
+    seen = " ".join(trace["kernels_ms"])
+    complete = all(k in seen for k in ("digits_kernel", "decompress_kernel", "ladder_verify_kernel",
+                                       "tree_chunks_kernel", "tree_roots_kernel"))
+    print(json.dumps({"traced_call": trace, "trace_saw_every_kernel": complete,
                       "device_busy_share_of_untraced_median":
-                          trace["device_ms"] / statistics.median(totals)}), flush=True)
+                          trace["device_ms"] / statistics.median(totals) if complete else None}),
+          flush=True)
+
+    _build.reset_launches()
+    drive_proofs(fixtures, host)
+    by_path["proofs"] = dict(_build.LAUNCHES)
+    check(by_path["proofs"] == {"ladder": 0, "decompress": 0, "sha512": 0, "sha256": 6, "bn254": 0},
+          f"expected two sha256 launches a proof set (3 sets): {by_path['proofs']}")
+    print(f"proofs path ok (65,536, 10,000 and {N_PARTS} x {PART_BYTES}-byte leaves equal the "
+          f"host's proofs); launches {by_path['proofs']}", flush=True)
+    print(json.dumps({**proofs_metrics(fixtures, host, dev), "device": torch.cuda.get_device_name(0),
+                      "card": card}), flush=True)
+
+    sc = drive_sidecar(fixtures, pure, hash_from_byte_slices)
+    by_path["sidecar"] = sc["launches"]
+    print(f"sidecar path ok through the socket ({sc['dispatches']} verify dispatches); launches "
+          f"{sc['launches']}; client {sc['client']}", flush=True)
+    print(json.dumps({
+        "metric": "sidecar_verify_10k_commit_plus_64k_merkle_ms",
+        "value": statistics.median(sc["totals"]), "runs_ms": sc["totals"],
+        "in_process_ms": statistics.median(totals), "warmup_s": sc["warmup_s"],
+        "scheduler": sc["scheduler"], "device": torch.cuda.get_device_name(0), "card": card,
+    }), flush=True)
 
     bn_backend = Bn254DeviceBackend()
     _build.reset_launches()
@@ -825,12 +1070,12 @@ def main() -> int:
     check(bn_launches == {"ladder": 0, "decompress": 0, "sha512": 0, "sha256": 0, "bn254": 5},
           f"expected two bn254 launches an aggregate (2 aggregates) and one for the vote "
           f"batch: {bn_launches}")
-    launches["bn254"] = bn_launches["bn254"]
+    by_path["bn254"] = bn_launches
     cut = ("every validator signs one shared message: distinct per-validator sign bytes would "
            "cost 10,240 runs of the host's pure-Python hash-to-G2; the device work a lane is "
            "the same either way")
     print(f"BN254 path ok; launches {bn_launches}; cut: {cut}", flush=True)
-    bn_splits = [bn254_stage_split(bn_fix, bn, dev) for _ in range(2)]
+    bn_splits = [bn254_stage_split(bn_fix, bn, dev)]
     print(json.dumps({
         "metric": "aggregate_verify_10k_ms", "value": bn_times["aggregate_accept"],
         "runs_ms": bn_times, "stages_ms": bn_splits, "validators": N_VALIDATORS,
@@ -848,8 +1093,10 @@ def main() -> int:
                    "cometbft_tpu/ops/sha512_kernel.py:188, cometbft_tpu/ops/unpack.py:188,182",
                    "sha512_kernel.hash_blocks_core + unpack.digest_words_to_digits "
                    "+ unpack.scalar_words_to_digits"),
-        "sha256": ("cometbft_tpu_torch/ops/csrc/sha256.cu", "cometbft_tpu/ops/sha256_kernel.py:48",
-                   "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core/leaves_to_root_core)"),
+        "sha256": ("cometbft_tpu_torch/ops/csrc/sha256.cu",
+                   "cometbft_tpu/ops/sha256_kernel.py:48, cometbft_tpu/ops/merkle_kernel.py:235",
+                   "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core/leaves_to_root_core)"
+                   " + merkle_kernel._leaves_to_levels_core (the levels entry)"),
         "bn254": ("cometbft_tpu_torch/ops/csrc/bn254.cu", "cometbft_tpu/ops/bn254_kernel.py:352",
                   "bn254_kernel._build_program.run over _fp_mul :215, _f2_mul_many :239, "
                   "_f12_sqr :277, _f12_sparse :295, _dbl_and_line :320, _add_and_line :335"),
@@ -860,13 +1107,15 @@ def main() -> int:
         rec = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "replaces_function": fn, "launches": launches[name],
+            "replaces_function": fn, "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
             "max_abs_err": rec["max_abs_err"], "match": rec["max_abs_err"] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"],
             "kernel_ms": rec["kernel_ms"],
-            **{k: rec[k] for k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate")
-               if k in rec},
+            **{k: v for k, v in rec.items()
+               if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate")
+               or k.startswith("levels")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

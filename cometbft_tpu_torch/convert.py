@@ -5,7 +5,9 @@ The reference keeps its constants and packed operands as numpy arrays
 (``int32[17, N]`` field limbs, ``int32[9, 4, 17, 1]`` for the fixed-base
 table, the 4- or 5-tuple ``pack_batch`` returns; for BN254 the float64
 operands ``p1``, ``qa``, ``q1a``, ``q2a`` of its ``_pack`` and the
-``(n, 6, 2, 13)`` Miller values its program returns). These helpers turn
+``(n, 6, 2, 13)`` Miller values its program returns; for Merkle proofs the
+tuple of ``uint32[8, m]`` tree levels of ``_leaves_to_levels_core``). These
+helpers turn
 them into the port's tensors and back, so the tests can hand one input to
 both implementations. They take numpy arrays and import nothing of the
 reference.
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cometbft_tpu_torch.ops import bn254_kernel
+from cometbft_tpu_torch.ops import bn254_kernel, merkle_kernel
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -83,3 +85,26 @@ def bn254_values_to_jax(values) -> np.ndarray:
             for c in range(2):
                 out[lane, k, c] = bn254_kernel.to_limbs(v[k][c] % bn254_kernel.P)
     return out
+
+
+def levels_from_jax(levels, device="cpu") -> torch.Tensor:
+    """The reference's tree levels, a sequence of uint32[8, m] arrays
+    (leaves first) -> int32[total, 8], the levels entry's layout."""
+    levels = [np.asarray(lv) for lv in levels]
+    rows = merkle_kernel.level_rows(levels[0].shape[1]) if levels else []
+    if [lv.shape for lv in levels] != [(8, count) for _, count in rows]:
+        raise ValueError(f"not the levels of one tree: {[lv.shape for lv in levels]}")
+    return _tensor(np.concatenate([lv.T for lv in levels]), device)
+
+
+def levels_to_jax(levels) -> tuple:
+    """int32[total, 8] levels -> the reference's tuple of uint32[8, m]
+    arrays, leaves first (the leaf count follows from total)."""
+    arr = np.ascontiguousarray(levels.detach().cpu().numpy()).view(np.uint32)
+    total, n = arr.shape[0], max(1, (arr.shape[0] - 64) // 2)
+    while merkle_kernel.level_rows(n)[-1][0] + 1 < total:
+        n += 1
+    rows = merkle_kernel.level_rows(n)
+    if rows[-1][0] + 1 != total or arr.shape[1:] != (8,):
+        raise ValueError(f"{tuple(arr.shape)} is not the levels of any tree")
+    return tuple(np.ascontiguousarray(arr[base : base + count].T) for base, count in rows)

@@ -52,6 +52,10 @@ L = 2**252 + 27742317777372353535851937790883648493
 
 BUCKETS = (8, 32, 128, 512, 1024, 2048, 4096, 6144, 8192, 10240, 16384, 32768)
 BLOCK_BUCKETS = (2, 4, 8, 32)
+# What ``warmup`` runs by default: commit-sized verify buckets and block-sized
+# leaf counts.
+WARM_BUCKETS = (128, 1024, 6144, 10240)
+WARM_LEAVES = (1024, 65536)
 
 
 def mesh_width() -> int:
@@ -65,6 +69,15 @@ def bucket_for(n: int) -> int:
         if n <= b:
             return b
     return int(2 ** np.ceil(np.log2(n)))
+
+
+def preferred_stream_chunk() -> int:
+    """Chunk size the sidecar advertises to streaming clients (field 4 of
+    its Ping reply): the smallest commit-sized batch bucket that is a
+    multiple of the mesh width, so a streamed chunk needs no padding."""
+    w = mesh_width()
+    b = bucket_for(max(1024, 128 * w))
+    return b + (w - b % w) % w
 
 
 def block_bucket_for(b: int) -> int:
@@ -302,3 +315,27 @@ def batch_verify(pubs, msgs, sigs, device=None) -> tuple[bool, list]:
     if len(pubs) == 0:
         return False, []
     return batch_verify_submit(pubs, msgs, sigs, device)()
+
+
+def warmup(buckets=None, merkle_leaves=None, device=None) -> None:
+    """Make the first real commit pay no kernel build and no first launch:
+    build the CUDA library, run one verify batch at each bucket (vote-sized
+    challenges, two blocks, the three launches) and the tree entry, root and
+    levels, at each leaf count. CPU tensors take the plain versions, which
+    have nothing to build: there it returns at once."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    dev = resolve(device)
+    if dev.type != "cuda":
+        return
+    _build.lib()
+    msg = b"\x00" * 120  # 64 + 120 bytes: two SHA-512 blocks, as a vote
+    for b in buckets or WARM_BUCKETS:
+        operands, _ = pack_batch([b"\x00" * 32] * b, [msg] * b, [b"\x00" * 64] * b)
+        verify_operands(operands_to_device(operands, dev))
+    for n in merkle_leaves or WARM_LEAVES:
+        flat, offsets = mk.pack_leaves([b"\x00"] * n, dev)
+        mk.tree_root(flat, offsets)
+        mk.tree_levels_raw(flat, offsets)
+    torch.cuda.synchronize(dev)

@@ -16,11 +16,17 @@ versions for CPU tensors and launch the kernel for CUDA tensors:
   ``tree_root``   raw leaves (one flat byte buffer + offsets) to the root in
                   two launches; what ``merkle_root`` runs (plain version
                   ``tree_root_plain``);
+  ``tree_levels_raw``  the same two launches storing every level as
+                  int32[total, 8] (the levels entry, counterpart of the
+                  reference's ``_leaves_to_levels_core``); what the proofs
+                  run (plain version ``tree_levels_raw_plain``);
   ``leaf_core``   pre-padded leaf blocks to leaf digests, and
-  ``inner_core``  one level's sibling pairs to the next level: every level
-                  (``tree_levels``), as the proofs need (the reference's
-                  ``_leaf_core`` and ``_inner_core`` over
-                  ``sha256_kernel.compress``).
+  ``inner_core``  one level's sibling pairs to the next level, a launch a
+                  level (``tree_levels``; the reference's ``_leaf_core``
+                  and ``_inner_core`` over ``sha256_kernel.compress``).
+
+The proofs (``proofs_from_byte_slices_device``) copy the levels to the
+host once and gather each leaf's aunts there.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import hashlib
 import numpy as np
 import torch
 
+from cometbft_tpu_torch.crypto import merkle as host
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import sha256_kernel as sha
@@ -172,32 +179,207 @@ def tree_root_plain(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = 256)
     return nodes
 
 
-def tree_root(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
-    """RFC-6962 root of n >= 1 raw leaves (``pack_leaves``): int32[8, 1].
-    CPU tensors take ``tree_root_plain``; CUDA tensors launch the ``sha256``
-    kernel's tree entry twice (chunks of ``chunk`` leaves, then the chunk
-    roots)."""
+def _check_tree(offsets: torch.Tensor, chunk: int, what: str) -> int:
     n = offsets.shape[0] - 1
     if n < 1:
-        raise ValueError("tree_root: needs at least one leaf")
+        raise ValueError(f"{what}: needs at least one leaf")
     if chunk < 2 or chunk > 1024 or chunk & (chunk - 1):
-        raise ValueError(f"tree_root: chunk must be a power of two in [2, 1024], got {chunk}")
-    if flat.device.type == "cpu":
-        return tree_root_plain(flat, offsets, chunk)
+        raise ValueError(f"{what}: chunk must be a power of two in [2, 1024], got {chunk}")
+    return n
+
+
+def _launch_tree(flat, offsets, n: int, chunk: int, levels: torch.Tensor | None) -> torch.Tensor:
+    """The tree entry's two launches; ``levels`` None for the root alone.
+    Returns the chunk-root scratch, the root in row 0."""
     _build.require_cuda("sha256", flat, dtype=torch.uint8)
     _build.require_cuda("sha256", offsets, dtype=torch.int64)
     if flat.device != offsets.device:
         raise ValueError("sha256: flat and offsets on different devices")
     nc = -(-n // chunk)
     roots = torch.empty((nc, 8), dtype=torch.int32, device=flat.device)
+    lv = 0 if levels is None else levels.data_ptr()
     lib, stream = _build.lib(), _build.stream_of(flat)
     rc = lib.cmtpu_sha256_tree_chunks(
-        flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), stream
+        flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), lv, stream
     )
     _build.check_launch("sha256", rc)
-    rc = lib.cmtpu_sha256_tree_roots(roots.data_ptr(), nc, chunk, stream)
+    rc = lib.cmtpu_sha256_tree_roots(roots.data_ptr(), nc, chunk, lv, n, stream)
     _build.check_launch("sha256", rc)
-    return roots[0].reshape(8, 1)
+    return roots
+
+
+def tree_root(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """RFC-6962 root of n >= 1 raw leaves (``pack_leaves``): int32[8, 1].
+    CPU tensors take ``tree_root_plain``; CUDA tensors launch the ``sha256``
+    kernel's tree entry twice (chunks of ``chunk`` leaves, then the chunk
+    roots)."""
+    n = _check_tree(offsets, chunk, "tree_root")
+    if flat.device.type == "cpu":
+        return tree_root_plain(flat, offsets, chunk)
+    return _launch_tree(flat, offsets, n, chunk, None)[0].reshape(8, 1)
+
+
+# -- every level: the proofs' device program ------------------------------------
+
+
+def level_rows(n: int) -> list[tuple[int, int]]:
+    """(first row, node count) of each level of an n-leaf tree, leaves
+    first, in the levels layout: level l has ceil(n / 2^l) nodes and they
+    follow the levels below it. The last level is the root's."""
+    rows, base, count = [(0, n)], 0, n
+    while count > 1:
+        base, count = base + count, (count + 1) // 2
+        rows.append((base, count))
+    return rows
+
+
+def tree_levels_raw_plain(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """Plain version of the levels entry: the same (flat, offsets, chunk) ->
+    int32[total, 8], every level of the tree, each node's 8 big-endian words
+    on its row. Built as the kernel builds it: the leaf hashes, then passes
+    that reduce every aligned run of ``chunk`` nodes by up to log2(chunk)
+    levels, the full runs together and the ragged last run on its own (its
+    root promoted unchanged once it is done), each level stored at its
+    rows."""
+    n = _check_tree(offsets, chunk, "tree_levels_raw")
+    fl, off = flat.cpu().numpy(), offsets.cpu().numpy()
+    items = [b"\x00" + fl[off[i] : off[i + 1]].tobytes() for i in range(n)]
+    blocks, nblocks = sha.pack_messages(items)
+    dev = flat.device
+    nodes = leaf_core_plain(
+        torch.from_numpy(blocks.view(np.int32)).to(dev), torch.from_numpy(nblocks).to(dev)
+    )
+    rows = level_rows(n)
+    out = torch.empty((rows[-1][0] + 1, 8), dtype=torch.int32, device=dev)
+    out[:n] = nodes.T
+    level = 0
+    while nodes.shape[1] > 1:
+        full = nodes.shape[1] // chunk * chunk
+        parts = [nodes[:, :full], nodes[:, full:]]
+        for _ in range(chunk.bit_length() - 1):
+            if level == len(rows) - 1:
+                break
+            parts = [_level_up(p, inner_core_plain) if p.shape[1] > 1 else p for p in parts]
+            level += 1
+            nodes = torch.cat(parts, dim=1)
+            base, count = rows[level]
+            out[base : base + count] = nodes.T
+    return out
+
+
+def tree_levels_raw(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """Every level of the RFC-6962 tree over n >= 1 raw leaves
+    (``pack_leaves``): int32[total, 8] in the ``level_rows`` layout. CPU
+    tensors take ``tree_levels_raw_plain``; CUDA tensors launch the
+    ``sha256`` kernel's tree entry twice with its levels output."""
+    n = _check_tree(offsets, chunk, "tree_levels_raw")
+    if flat.device.type == "cpu":
+        return tree_levels_raw_plain(flat, offsets, chunk)
+    rows = level_rows(n)
+    levels = torch.empty((rows[-1][0] + 1, 8), dtype=torch.int32, device=flat.device)
+    _launch_tree(flat, offsets, n, chunk, levels)
+    return levels
+
+
+def levels_to_digests(levels: torch.Tensor) -> np.ndarray:
+    """int32[total, 8] levels -> uint8[total, 32] digests on the host, in
+    one device-to-host copy."""
+    words = levels.cpu().numpy().view(np.uint32).astype(">u4")
+    return words.view(np.uint8).reshape(-1, 32)
+
+
+def split_levels(digests: np.ndarray, n: int) -> list[np.ndarray]:
+    """uint8[total, 32] -> one uint8[m, 32] view a level, leaves first."""
+    return [digests[base : base + count] for base, count in level_rows(n)]
+
+
+def proof_levels_device(items: list[bytes], device=None) -> list[np.ndarray]:
+    """Every tree level as uint8[m, 32] digests, bottom-up: the levels
+    entry (two launches on the card) and one device-to-host copy."""
+    levels = tree_levels_raw(*pack_leaves(items, device))
+    return split_levels(levels_to_digests(levels), len(items))
+
+
+def merkle_levels_bytes(leaves: list[bytes], device=None) -> list[list[bytes]]:
+    """Every level as byte digests, bottom-up (the proof-building form of
+    crypto/merkle's ProofsFromByteSlices)."""
+    if len(leaves) == 0:
+        return [[]]
+    return [[bytes(d) for d in lv] for lv in proof_levels_device(leaves, device)]
+
+
+def gather_aunts(levels: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    """Each leaf's aunts from the levels: (uint8[n, depth, 32] packed to the
+    left, int32[n] counts). The aunt of leaf i on level l is node
+    (i >> l) ^ 1, absent (skipped: odd promotion) past the level's end."""
+    n, depth = levels[0].shape[0], len(levels) - 1
+    aunts = np.zeros((n, depth, 32), np.uint8)
+    counts = np.zeros(n, np.int32)
+    idx = np.arange(n)
+    for lvl in range(depth):
+        level = levels[lvl]
+        a = (idx >> lvl) ^ 1
+        have = a < level.shape[0]
+        rows = idx[have]
+        aunts[rows, counts[rows]] = level[a[have]]
+        counts[rows] += 1
+    return aunts, counts
+
+
+def proofs_aunts_device(items: list[bytes], device=None):
+    """Inclusion proofs for every item in vectorized form: (root bytes,
+    leaf hashes uint8[n, 32], aunts uint8[n, depth, 32], aunt counts
+    int32[n]); the same aunts as the host's ``proofs_from_byte_slices``."""
+    if len(items) == 0:
+        raise ValueError(
+            "proofs_aunts_device: the empty tree has no proofs "
+            "(proofs_from_byte_slices_device answers it)"
+        )
+    levels = proof_levels_device(items, device)
+    aunts, counts = gather_aunts(levels)
+    return bytes(levels[-1][0]), levels[0], aunts, counts
+
+
+class DeviceProofs:
+    """Lazy sequence of ``Proof`` over the vectorized proof data: building
+    every Proof object up front costs more than the hashing, and callers
+    usually need a few."""
+
+    def __init__(self, root, leaf_hashes, aunts, counts):
+        self.root = root
+        self._leaf = leaf_hashes
+        self._aunts = aunts
+        self._counts = counts
+
+    def __len__(self):
+        return self._leaf.shape[0]
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        return host.Proof(
+            total=len(self),
+            index=i,
+            leaf_hash=bytes(self._leaf[i]),
+            aunts=[bytes(a) for a in self._aunts[i, : self._counts[i]]],
+        )
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+def proofs_from_byte_slices_device(items: list[bytes], device=None):
+    """Counterpart of crypto/merkle's ``proofs_from_byte_slices`` on the
+    card: (root bytes, DeviceProofs). The empty tree takes the host answer."""
+    if len(items) == 0:
+        return host.proofs_from_byte_slices(items)
+    root, leaf_hashes, aunts, counts = proofs_aunts_device(items, device)
+    return root, DeviceProofs(root, leaf_hashes, aunts, counts)
 
 
 def _root_bytes(digest: torch.Tensor) -> bytes:

@@ -1,13 +1,13 @@
 """Kernel-against-plain tests of the port on a CUDA device. Each hand
 kernel (ladder at every group width, decompress from raw words, sha512's
-challenge_digits and scalar_digits, sha256 with its leaf, inner and tree
-entries, the bn254 Miller loop) is held to its plain PyTorch version on the
-same card, exactly (bn254: equal mod P), at small shapes and on the ZIP-215,
-scalar and field edge inputs, bn254 also at its 8,192-lane chunk; the
-launch counters must count each launch once (one launch a call, two sha256
-launches a root, one sha512, decompress and ladder launch a verify batch,
-one bn254 launch a chunk of an aggregate). Without a CUDA device every
-test here skips (by the ``cuda`` fixture) with its reason.
+challenge_digits and scalar_digits, sha256 with its leaf, inner, tree and
+levels entries, the bn254 Miller loop) is held to its plain PyTorch version
+on the same card, exactly (bn254: equal mod P), at small shapes and on the
+ZIP-215, scalar and field edge inputs, bn254 also at its 8,192-lane chunk;
+the launch counters must count each launch once (one launch a call, two
+sha256 launches a root and a proof set, one sha512, decompress and ladder
+launch a verify batch, one bn254 launch a chunk of an aggregate). Without a
+CUDA device every test here skips (by the ``cuda`` fixture) with its reason.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 GPU host without them (tests/conftest.py imports jax, hence
@@ -24,7 +24,7 @@ import torch
 
 from cometbft_tpu_torch.crypto import bn254_pure as bn
 from cometbft_tpu_torch.crypto import ed25519_pure as pure
-from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
+from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices, proofs_from_byte_slices
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import bn254_kernel as bk
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -231,6 +231,38 @@ def test_sha256_tree_entry_matches_plain_and_hashlib(cuda, n, chunk):
     want = mk.tree_root_plain(flat, offsets, chunk)
     assert torch.equal(got.cpu(), want.cpu())
     assert sha.digest_words_to_bytes(got.cpu().numpy()) == [hash_from_byte_slices(leaves)]
+
+
+@pytest.mark.parametrize("chunk", [4, 256])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 255, 256, 257, 1000, 1025, 10_000])
+def test_sha256_levels_entry_matches_plain(cuda, n, chunk):
+    """The levels entry at ragged counts (a ragged last chunk, one chunk,
+    n = 2^k + 1): every word of every level equal to the plain version,
+    the last level the root, two launches."""
+    rng = np.random.default_rng(n * 11 + chunk)
+    leaves = [rng.bytes(TREE_LEAF_LENGTHS[(i + n) % len(TREE_LEAF_LENGTHS)]) for i in range(n)]
+    flat, offsets = mk.pack_leaves(leaves, cuda)
+    before = _build.LAUNCHES["sha256"]
+    got = mk.tree_levels_raw(flat, offsets, chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sha256"] == before + 2
+    assert got.shape == (mk.level_rows(n)[-1][0] + 1, 8)
+    assert torch.equal(got.cpu(), mk.tree_levels_raw_plain(flat, offsets, chunk).cpu())
+    assert bytes(mk.levels_to_digests(got)[-1]) == hash_from_byte_slices(leaves)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 100, 1000])
+def test_proofs_on_cuda_equal_host(cuda, n):
+    items = [b"cuda-proof-%d" % i * (1 + i % 3) for i in range(n)]
+    root_h, proofs_h = proofs_from_byte_slices(items)
+    before = _build.LAUNCHES["sha256"]
+    root_d, proofs_d = mk.proofs_from_byte_slices_device(items)
+    assert _build.LAUNCHES["sha256"] == before + 2
+    assert root_d == root_h and len(proofs_d) == n
+    for i in range(n):
+        ph, pd = proofs_h[i], proofs_d[i]
+        assert (pd.total, pd.index, pd.leaf_hash, pd.aunts) == (ph.total, ph.index, ph.leaf_hash, ph.aunts)
+        assert pd.verify(root_d, items[i]) is None
 
 
 @pytest.mark.parametrize("oversized", [False, True])

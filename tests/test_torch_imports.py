@@ -19,7 +19,7 @@ from cometbft_tpu_torch.ops import edwards as ted
 from cometbft_tpu_torch.ops import ladder
 from cometbft_tpu_torch.ops import merkle_kernel as tmk
 from cometbft_tpu_torch.ops import sha512_kernel as ts5
-from cometbft_tpu_torch.sidecar.backend import TorchBackend
+from cometbft_tpu_torch.sidecar.backend import TorchBackend, device_backend
 
 pytestmark = pytest.mark.torch_port
 
@@ -37,6 +37,12 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cometbft_tpu_torch.ops.ladder" in mods and len(mods) >= 20
     assert {"cometbft_tpu_torch.ops.bn254_kernel", "cometbft_tpu_torch.crypto.bn254_pure"} <= set(mods)
+    assert {
+        "cometbft_tpu_torch.wire.proto",
+        "cometbft_tpu_torch.sidecar.engine",
+        "cometbft_tpu_torch.sidecar.scheduler",
+        "cometbft_tpu_torch.sidecar.service",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -62,6 +68,10 @@ def test_cuda_request_raises_without_a_card():
         tbk.Bn254DeviceBackend()
     with pytest.raises(RuntimeError, match="CUDA"):
         tbk.multi_miller_values([(bn254_pure.G1, bn254_pure.G2)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmk.proofs_from_byte_slices_device([b"a", b"b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_backend()
     assert TorchBackend(device="cpu").device.type == "cpu"
     assert tbk.Bn254DeviceBackend(device="cpu").device.type == "cpu"
 
@@ -109,6 +119,9 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
         tmk.tree_root(torch.zeros(4, dtype=torch.uint8, device=meta),
                       torch.arange(5, dtype=torch.int64, device=meta))
     with pytest.raises(ValueError, match="CUDA"):
+        tmk.tree_levels_raw(torch.zeros(4, dtype=torch.uint8, device=meta),
+                            torch.arange(5, dtype=torch.int64, device=meta))
+    with pytest.raises(ValueError, match="CUDA"):
         tbk.miller_values(torch.zeros((8, 2, 13), dtype=torch.float64, device=meta),
                           *(torch.zeros((8, 2, 2, 13), dtype=torch.float64, device=meta)
                             for _ in range(3)))
@@ -138,6 +151,7 @@ def test_bn254_cuda_request_without_a_built_library_raises(monkeypatch, tmp_path
 def test_cpu_wrappers_count_no_launches():
     before = dict(_build.LAUNCHES)
     tmk.merkle_root([b"a", b"b", b"c", b"d"], device="cpu")
+    tmk.proofs_from_byte_slices_device([b"a", b"b", b"c"], device="cpu")
     assert _build.LAUNCHES == before
     tbk.miller_values(*tbk.operands_to_device(tbk._pack([(bn254_pure.G1, bn254_pure.G2)], 1), "cpu"))
     assert _build.LAUNCHES == before
@@ -150,3 +164,4 @@ def test_every_kernel_source_is_built():
     text = (_build.SRC_DIR / "ladder.cu").read_text()
     assert "cometbft_tpu/ops/pallas_ladder.py:_ladder_kernel" in text
     assert "cometbft_tpu/ops/bn254_kernel.py:352" in (_build.SRC_DIR / "bn254.cu").read_text()
+    assert "cometbft_tpu/ops/merkle_kernel.py:235" in (_build.SRC_DIR / "sha256.cu").read_text()
