@@ -63,7 +63,20 @@ the aggregate-commit contract through ``Bn254DeviceBackend()``: one
      and the 16-vote batch with one bad signature gives the exact bitmap in
      one launch; then the aggregate's stage split (parse and decompress,
      hash, pack, kernel, unpack, Fp12 product, final exponentiation);
-  9. prints the ``kernels`` line (launches summed over the paths, and by
+  9. runs the mesh path (the lane-split programs) on two virtual shards of
+     the card: first the sha256 digests entry against its plain version on
+     every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
+     (timed beside its bound), then, counters zeroed, TorchBackend and
+     Bn254DeviceBackend routed over the mesh (the commit, the corrupted
+     commit, the 65,536-leaf root, the 10,240-validator aggregate and the
+     one with a share left out), the sharded and replicated verify, the
+     digest forest, the fused leaves-to-root and the commit step called
+     directly, and multihost_commit_step, multihost_verify and
+     MultihostShardBackend on a one-rank NCCL group: each bitmap equal to
+     TorchBackend's on one device, each root the host's, each step's
+     launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
+     shards on one card, not a multi-GPU figure);
+ 10. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero. Without CUDA it exits nonzero before
@@ -73,6 +86,7 @@ printing any result. It imports nothing of JAX or of ``cometbft_tpu``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -254,6 +268,25 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_queued(fn, reps: int) -> float:
+    """Mean ms of fn() over reps calls queued behind a sleep kernel, by CUDA
+    events: the host enqueues every call while the device sleeps, so the
+    kernels run back to back, without the gaps a host slower than them
+    leaves (the device time of a short kernel that the profiler's trace
+    does not hold whole)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at 2 GHz, longer than the enqueue
     start.record()
     for _ in range(reps):
         fn()
@@ -569,14 +602,11 @@ def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
     return out
 
 
-def drive_main_path(fixtures, pure, merkle_oracle, backend):
-    """Phase 5: the requests a user sends, each held to its expected answer."""
-    fb, seeds, pubs, msgs, sigs, leaves, _ = fixtures
-    n = len(pubs)
-
-    ok, bits = backend.batch_verify(pubs, msgs, sigs)
-    check(ok and len(bits) == n and all(bits), "valid commit did not verify")
-
+def corrupted_commit(pure, msgs, sigs):
+    """The commit with 5 localized corruptions: three signatures with a bit
+    flipped, one s >= L, one tampered message. Returns (msgs, sigs, the
+    sorted bad indices)."""
+    n = len(sigs)
     bad_sigs, bad_msgs = list(sigs), list(msgs)
     flipped = [17, n // 2 + 3, n - 1]
     for i in flipped:
@@ -586,8 +616,19 @@ def drive_main_path(fixtures, pure, merkle_oracle, backend):
     s_ge_l, wrong_msg = n // 5, n * 7 // 8
     bad_sigs[s_ge_l] = bad_sigs[s_ge_l][:32] + (pure.L + 3).to_bytes(32, "little")
     bad_msgs[wrong_msg] = b"commit-vote-tampered"
+    return bad_msgs, bad_sigs, sorted(flipped + [s_ge_l, wrong_msg])
+
+
+def drive_main_path(fixtures, pure, merkle_oracle, backend):
+    """Phase 5: the requests a user sends, each held to its expected answer."""
+    fb, seeds, pubs, msgs, sigs, leaves, _ = fixtures
+    n = len(pubs)
+
+    ok, bits = backend.batch_verify(pubs, msgs, sigs)
+    check(ok and len(bits) == n and all(bits), "valid commit did not verify")
+
+    bad_msgs, bad_sigs, want_bad = corrupted_commit(pure, msgs, sigs)
     ok, bits = backend.batch_verify(pubs, bad_msgs, bad_sigs)
-    want_bad = sorted(flipped + [s_ge_l, wrong_msg])
     check(not ok and [i for i, b in enumerate(bits) if not b] == want_bad,
           "corrupted commit: bitmap does not localize exactly the bad signatures")
 
@@ -947,6 +988,211 @@ def bn254_stage_split(fix, bn, dev) -> dict:
     return st
 
 
+# -- the mesh path -------------------------------------------------------------
+
+# Virtual shards of the one card the mesh phase runs on: NCCL puts no two
+# ranks on one card, so the split is held on repeats of one device.
+N_SHARDS = 2
+
+
+def compare_digests(leaves, merkle_oracle, dev, sms, clock_hz):
+    """The sha256 kernel's digests entry (counterpart of merkle_kernel.
+    merkle_root_pow2) against digest_tree_root_plain on every word at the
+    block's 65,536 leaf digests and at 10,000, 3 and 1 of them, and
+    merkle_root_pow2 against the host tree; times at 65,536. Returns the
+    record and the leaf digests (int32[8, n] on the card)."""
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+    from cometbft_tpu_torch.ops import sha256_kernel as sha
+
+    blocks, nblocks = sha.pack_messages([b"\x00" + t for t in leaves])
+    digests = mk.leaf_core(torch.from_numpy(blocks.view(np.int32)).to(dev),
+                           torch.from_numpy(nblocks).to(dev))
+    err = 0
+    for m in (len(leaves), N_RAGGED_LEAVES, 3, 1):
+        part = digests[:, :m]
+        got = mk.digest_tree_root(part)
+        err = max(err, max_abs_err(got, mk.digest_tree_root_plain(part)))
+        check(mk._root_bytes(got) == merkle_oracle(leaves[:m]),
+              f"sha256 digests entry: {m}-digest root != hash_from_byte_slices")
+    check(err == 0, f"sha256 digests entry != plain (max abs err {err})")
+    check(mk.merkle_root_pow2(digests) == merkle_oracle(leaves),
+          "merkle_root_pow2 != hash_from_byte_slices at 65,536 digests")
+    n = digests.shape[1]
+    t_b = bound_ms(2 * (n - 1) * SHA256_BLOCK_OPS, 32 * n + 32, sms, clock_hz)
+    rec = {
+        "shape": f"{n} leaf digests, 2 launches ({-(-n // mk.CHUNK)} chunks of {mk.CHUNK})",
+        "ms": time_cuda(lambda: mk.digest_tree_root(digests), 50),
+        # the profiler has dropped records of this pair of launches: up to
+        # three traces, the first that holds every launch
+        "kernel_ms": next((t for t in (kernel_ms(lambda: mk.digest_tree_root(digests), launches=2)
+                                       for _ in range(3)) if t is not None), None),
+        "queued_ms": time_queued(lambda: mk.digest_tree_root(digests), 50),
+        "plain_ms": time_cuda(lambda: mk.digest_tree_root_plain(digests), 1, warmup=0),
+        "bound_ms": t_b[0], "bound_by": t_b[1], "max_abs_err": err,
+        "replaces": "cometbft_tpu/ops/merkle_kernel.py:214",
+    }
+    return rec, digests
+
+
+@contextlib.contextmanager
+def virtual_width(dev, width: int):
+    """Route as a host with ``width`` cards would, on ``width`` virtual
+    shards of ``dev``: ed25519_kernel's mesh_width and local_devices, which
+    merkle_kernel and bn254_kernel read too, replaced inside the block."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    saved = ek.mesh_width, ek.local_devices
+    ek.mesh_width = lambda device=None: width
+    ek.local_devices = lambda dev_type, w: [dev] * w
+    try:
+        yield
+    finally:
+        ek.mesh_width, ek.local_devices = saved
+
+
+def drive_mesh_path(fixtures, bn_fix, pure, merkle_oracle, dev, digests) -> dict:
+    """The lane-split programs on N_SHARDS virtual shards of ``dev``, each
+    step's launches checked exactly: TorchBackend routed over the mesh (K1
+    for the commit, K2 for the root) and Bn254DeviceBackend (K7, the
+    aggregate and the one with a share left out); K1 sharded and
+    replicated, K3, K2 and K4 called directly; K5 on a one-rank group
+    (``nccl`` on the card) over one shard and over N_SHARDS, and
+    MultihostShardBackend. Bitmaps equal TorchBackend's on one device, roots
+    the host's. Returns the launches and the mesh and bn254 counters'
+    steps."""
+    import torch.distributed as dist
+
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import bn254_kernel as bk
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+    from cometbft_tpu_torch.ops import multihost, sharded
+    from cometbft_tpu_torch.ops import sha256_kernel as sha
+    from cometbft_tpu_torch.ops.bn254_kernel import Bn254DeviceBackend
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    n = len(pubs)
+    bad_msgs, bad_sigs, want_bad = corrupted_commit(pure, msgs, sigs)
+    one_ok, one_bits = TorchBackend(device=dev).batch_verify(pubs, bad_msgs, bad_sigs)
+    check(not one_ok and [i for i, b in enumerate(one_bits) if not b] == want_bad,
+          "mesh phase: the one-device bitmap of the corrupted commit is wrong")
+    root = merkle_oracle(leaves)
+    good_ops, good_mask = ek.pack_batch(pubs, msgs, sigs, 1)
+    bad_ops, bad_mask = ek.pack_batch(pubs, bad_msgs, bad_sigs, 1)
+    blocks, nblocks = sha.pack_messages([b"\x00" + t for t in leaves])
+    mesh = sharded.make_mesh([dev] * N_SHARDS)
+
+    def bits_of(mask, dev_ok):
+        return [bool(m and d) for m, d in zip(mask[:n], np.asarray(dev_ok)[:n])]
+
+    def step(name, fn, verifies=0, **want):
+        before = dict(_build.LAUNCHES)
+        out = fn()
+        got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        full = {k: want.get(k, 0) for k in before}
+        for k in ("sha512", "decompress", "ladder"):
+            full[k] = verifies
+        check(got == full, f"mesh path, {name}: launches {got}, expected {full}")
+        return out
+
+    mc0, bc0 = ek.mesh_counters(), bk.counters()
+    _build.reset_launches()
+    with virtual_width(dev, N_SHARDS):
+        backend = TorchBackend(device=dev)
+        check(backend.mesh_width() == N_SHARDS, "mesh phase: TorchBackend's routing width")
+        ok, bits = step("TorchBackend, commit", lambda: backend.batch_verify(pubs, msgs, sigs),
+                        N_SHARDS)
+        check(ok and all(bits) and len(bits) == n, "mesh phase: the commit did not verify")
+        ok, bits = step("TorchBackend, corrupted commit",
+                        lambda: backend.batch_verify(pubs, bad_msgs, bad_sigs), N_SHARDS)
+        check(bits == one_bits, "mesh phase: K1 bitmap != TorchBackend's on one device")
+        check(step("TorchBackend, root (K2)", lambda: backend.merkle_root(leaves),
+                   sha256=3 * N_SHARDS + 2) == root, "mesh phase: K2 root != the host's")
+        agg = Bn254DeviceBackend(device=dev)
+        check(step("K7 aggregate", lambda: agg.aggregate_verify(bn_fix["pubs"], bn_fix["msgs"],
+                                                                bn_fix["agg"]), bn254=2 * N_SHARDS)
+              is True, "mesh phase: the aggregate did not verify over the lane mesh")
+        check(step("K7 aggregate, a share left out",
+                   lambda: agg.aggregate_verify(bn_fix["pubs"], bn_fix["msgs"], bn_fix["poisoned"]),
+                   bn254=2 * N_SHARDS) is False,
+              "mesh phase: the aggregate with a share left out verified over the lane mesh")
+    mc, bc = ek.mesh_counters(), bk.counters()
+    counters = {k: mc[k] - mc0[k] for k in ("sharded_dispatches", "padded_lanes",
+                                            "merkle_sharded_dispatches")}
+    counters["bn254_sharded_dispatches"] = bc["sharded_dispatches"] - bc0["sharded_dispatches"]
+    pad = 2 * (ek.bucket_for(n, N_SHARDS) - n)
+    check(counters == {"sharded_dispatches": 2, "padded_lanes": pad, "merkle_sharded_dispatches": 1,
+                       "bn254_sharded_dispatches": 4}, f"mesh phase: counters stepped {counters}")
+
+    dev_ok = step("K1", lambda: sharded.sharded_verify_fn(mesh)(*bad_ops).cpu().numpy(), N_SHARDS)
+    rep_ok = step("K1 replicated",
+                  lambda: sharded.sharded_verify_replicated_fn(mesh)(*bad_ops).cpu().numpy(),
+                  N_SHARDS)
+    check((dev_ok == rep_ok).all() and bits_of(bad_mask, dev_ok) == one_bits,
+          "mesh phase: K1 sharded and replicated bitmaps differ or != TorchBackend's")
+    check(mk._root_bytes(step("K3", lambda: sharded.sharded_merkle_fn(mesh)(digests),
+                              sha256=2 * N_SHARDS + 2)) == root, "mesh phase: K3 root")
+    check(mk._root_bytes(step("K2", lambda: sharded.sharded_leaves_to_root_fn(mesh)(blocks, nblocks),
+                              sha256=3 * N_SHARDS + 2)) == root, "mesh phase: K2 root")
+    commit_step = sharded.sharded_commit_step_fn(mesh)
+    for ops, mask, valid, want in ((good_ops, good_mask, True, [True] * n),
+                                   (bad_ops, bad_mask, False, one_bits)):
+        ok_t, all_valid, r = step("K4", lambda: commit_step(*ops, digests), N_SHARDS,
+                                  sha256=2 * N_SHARDS + 2)
+        check(bool(all_valid) is valid and mk._root_bytes(r) == root
+              and bits_of(mask, ok_t.cpu().numpy()) == want,
+              f"mesh phase: K4 step (all_valid {bool(all_valid)}, expected {valid})")
+
+    kind = "nccl" if dev.type == "cuda" else "gloo"
+    one_rank = multihost.distributed_init(dist.HashStore(), 1, 0,
+                                          local_devices=None if dev.type == "cuda" else 1)
+    try:
+        check(dist.get_backend() == kind and one_rank.width == 1, "mesh phase: the one-rank group")
+        wide = sharded.make_mesh([dev] * N_SHARDS, group=dist.group.WORLD)
+        for m in (one_rank, wide):
+            k = m.local_width
+            ok_np, all_valid, r = step(f"K5 commit step, {k} shards",
+                                       lambda: multihost.multihost_commit_step(m, bad_ops, digests),
+                                       k, sha256=2 * k + 2)
+            check(all_valid is False and sha.digest_words_to_bytes(r)[0] == root
+                  and bits_of(bad_mask, ok_np) == one_bits, "mesh phase: K5 commit step")
+            _, bits = step(f"K5 verify, {k} shards",
+                           lambda: multihost.multihost_verify(m, pubs, bad_msgs, bad_sigs), k)
+            check(bits == one_bits, "mesh phase: K5 verify bitmap != TorchBackend's")
+        shard = multihost.MultihostShardBackend(wide, [])
+        _, bits = step("MultihostShardBackend", lambda: shard.batch_verify(pubs, bad_msgs, bad_sigs),
+                       N_SHARDS)
+        check(bits == one_bits and shard.mesh_width() == N_SHARDS,
+              "mesh phase: MultihostShardBackend")
+    finally:
+        dist.destroy_process_group()
+    launches = dict(_build.LAUNCHES)
+    check(all(launches.values()), f"mesh phase: a kernel of the path was not launched: {launches}")
+    return {"launches": launches, "counters": counters, "good_ops": good_ops,
+            "commit_step": commit_step}
+
+
+def mesh_metrics(mesh_out, digests) -> dict:
+    """mesh_commit_step_10k_64k_ms: one K4 step over N_SHARDS virtual shards,
+    the commit's packed host operands in, the bitmap, all-valid bit and root
+    back on the host; median of 5, and one traced step (the device's busy
+    time and each kernel's and copy's)."""
+    step, ops = mesh_out["commit_step"], mesh_out["good_ops"]
+
+    def run():
+        ok, all_valid, root = step(*ops, digests)
+        return ok.cpu(), bool(all_valid), root.cpu()
+
+    runs = [time_host(run) for _ in range(5)]
+    trace = trace_call(run)
+    trace["kernels_ms"] = dict(collections.Counter(trace["kernels_ms"]).most_common(8))
+    return {"metric": "mesh_commit_step_10k_64k_ms", "value": statistics.median(runs),
+            "runs_ms": runs, "shards": N_SHARDS,
+            "label": "two virtual shards on one card, not a multi-GPU figure",
+            "traced_step": trace}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a GPU",
@@ -1083,6 +1329,18 @@ def main() -> int:
         "card": card,
     }), flush=True)
 
+    mesh_start = time.perf_counter()
+    records["sha256"]["digests"], digests = compare_digests(
+        fixtures[5], hash_from_byte_slices, dev, props.multi_processor_count, clock_hz)
+    records["sha256"]["max_abs_err"] = max(records["sha256"]["max_abs_err"],
+                                           records["sha256"]["digests"]["max_abs_err"])
+    mesh_out = drive_mesh_path(fixtures, bn_fix, pure, hash_from_byte_slices, dev, digests)
+    by_path["mesh"] = mesh_out["launches"]
+    print(f"mesh path ok on {N_SHARDS} virtual shards of one card (K1-K7); launches "
+          f"{mesh_out['launches']}; counters {mesh_out['counters']}", flush=True)
+    print(json.dumps({**mesh_metrics(mesh_out, digests), "device": torch.cuda.get_device_name(0),
+                      "card": card, "phase_s": time.perf_counter() - mesh_start}), flush=True)
+
     sources = {
         "ladder": ("cometbft_tpu_torch/ops/csrc/ladder.cu", "cometbft_tpu/ops/pallas_ladder.py:218",
                    "pallas_ladder._ladder_kernel + the epilogue of ed25519_kernel._verify_from_words"),
@@ -1094,9 +1352,11 @@ def main() -> int:
                    "sha512_kernel.hash_blocks_core + unpack.digest_words_to_digits "
                    "+ unpack.scalar_words_to_digits"),
         "sha256": ("cometbft_tpu_torch/ops/csrc/sha256.cu",
-                   "cometbft_tpu/ops/sha256_kernel.py:48, cometbft_tpu/ops/merkle_kernel.py:235",
+                   "cometbft_tpu/ops/sha256_kernel.py:48, cometbft_tpu/ops/merkle_kernel.py:235, "
+                   "cometbft_tpu/ops/merkle_kernel.py:214",
                    "sha256_kernel.compress (merkle_kernel._leaf_core/_inner_core/leaves_to_root_core)"
-                   " + merkle_kernel._leaves_to_levels_core (the levels entry)"),
+                   " + merkle_kernel._leaves_to_levels_core (the levels entry)"
+                   " + merkle_kernel.merkle_root_pow2 (the digests entry)"),
         "bn254": ("cometbft_tpu_torch/ops/csrc/bn254.cu", "cometbft_tpu/ops/bn254_kernel.py:352",
                   "bn254_kernel._build_program.run over _fp_mul :215, _f2_mul_many :239, "
                   "_f12_sqr :277, _f12_sparse :295, _dbl_and_line :320, _add_and_line :335"),
@@ -1114,7 +1374,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"],
             "kernel_ms": rec["kernel_ms"],
             **{k: v for k, v in rec.items()
-               if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate")
+               if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate", "digests")
                or k.startswith("levels")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

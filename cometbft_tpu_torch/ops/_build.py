@@ -12,6 +12,11 @@ raises; nothing falls back to the plain versions.
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels. A source's entries count under its name
 (``challenge_digits`` and ``scalar_digits`` under ``sha512``).
+
+Every launch goes through ``launch``, which makes the tensors' device the
+thread's current CUDA device for the call: the C entries launch on the
+current device, and some size their grid or raise their shared-memory
+ceiling from ``cudaGetDevice()``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ _SIGNATURES = {
     "cmtpu_sha256_inner": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
     "cmtpu_sha256_tree_chunks": [_P, _P, _I, _I, _P, _P, _P],
     "cmtpu_sha256_tree_roots": [_P, _I, _I, _P, _I, _P],
+    "cmtpu_sha256_digest_tree": [_P, _I, _I, _P, _P],
     "cmtpu_bn254_miller": [_P, _P, _P, _P, _P, _I, _P],
     "cmtpu_bn254_config": [_I, _P],
 }
@@ -155,8 +161,13 @@ def check_launch(kernel: str, rc: int) -> None:
     LAUNCHES[kernel] += 1
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` and the current stream of
+    ``device`` last, with ``device`` the calling thread's current CUDA
+    device; raise on its error code, else count one launch of ``kernel``."""
+    with torch.cuda.device(device):
+        rc = getattr(lib(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check_launch(kernel, rc)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.int32) -> None:

@@ -6,7 +6,10 @@ constant optimal-ate ladder (6t + 2, 64 bits below its top one), so all
 lanes run in lockstep. Per-lane Miller values f_{6t+2,Q}(P), with the two
 Frobenius lines, come back to the host, which multiplies the real lanes
 (padding is skipped), runs one shared final exponentiation and compares
-against F12_ONE.
+against F12_ONE. On a host with several cards a chunk's lanes split over
+them (a 1-D ``lane`` mesh, one launch a card, counted as
+``sharded_dispatches``) once its bucket, rounded to the width, is at or
+above the mesh floor, as the reference's routing does.
 
 On a CUDA tensor the loop is one launch of the hand-written ``bn254``
 kernel (``csrc/bn254.cu``: eight 32-bit words in Montgomery form, one
@@ -37,6 +40,7 @@ from cometbft_tpu_torch.crypto import bn254_pure as _b
 from cometbft_tpu_torch.crypto import merkle as _merkle
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.ops import _build
+from cometbft_tpu_torch.ops import ed25519_kernel as _ek
 
 BASE = 1 << 21
 NLIMB = 13
@@ -49,7 +53,7 @@ _BITS = [1 if c == "1" else 0 for c in bin(_b._ATE_LOOP)[3:]]
 _LADDER = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192]
 MAX_LANES = _LADDER[-1]
 
-_counters = {"dispatches": 0, "lanes": 0}
+_counters = {"dispatches": 0, "lanes": 0, "sharded_dispatches": 0}
 _counters_lock = threading.Lock()
 
 
@@ -85,15 +89,26 @@ _C26 = to_limbs(pow(2, 21 * NCOL, P))
 _K13 = to_limbs(pow(2, 21 * NLIMB, P))
 
 
-def mesh_width() -> int:
-    """Devices one dispatch spreads over: one card in this port."""
-    return 1
+def mesh_width(device=None) -> int:
+    """Devices one dispatch spreads over: ``ed25519_kernel.mesh_width``
+    (this process's CUDA devices; 1 for the CPU)."""
+    return _ek.mesh_width(device)
 
 
-def bucket_for(n: int) -> int:
-    """The reference's lane ladder at mesh width 1."""
+def _mesh_floor(width: int | None = None) -> int:
+    return _ek.mesh_floor(width)
+
+
+def bucket_for(n: int, width: int | None = None) -> int:
+    """The lane ladder, rounded up to a multiple of the mesh width
+    (``width``, or ``mesh_width()`` when None) at or above the mesh floor:
+    the shape of ``ed25519_kernel.bucket_for``."""
     n = max(1, int(n))
-    return next((x for x in _LADDER if x >= n), MAX_LANES)
+    b = next((x for x in _LADDER if x >= n), MAX_LANES)
+    w = mesh_width() if width is None else width
+    if w > 1 and b >= _mesh_floor(w):
+        b = ((b + w - 1) // w) * w
+    return b
 
 
 def counters() -> dict:
@@ -310,11 +325,8 @@ def miller_values(p1, q, q1, q2) -> torch.Tensor:
         raise ValueError(f"bn254: bad shapes {p1.shape} {q.shape} {q1.shape} {q2.shape}")
     out = torch.empty((n, 6, 2, NLIMB), dtype=torch.float64, device=p1.device)
     if n:
-        rc = _build.lib().cmtpu_bn254_miller(
-            p1.data_ptr(), q.data_ptr(), q1.data_ptr(), q2.data_ptr(), out.data_ptr(), n,
-            _build.stream_of(p1),
-        )
-        _build.check_launch("bn254", rc)
+        _build.launch("bn254", "cmtpu_bn254_miller", p1.device,
+                      p1.data_ptr(), q.data_ptr(), q1.data_ptr(), q2.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -366,13 +378,26 @@ def operands_to_device(arrays, device) -> tuple:
 
 
 def _dispatch(pairs, device) -> list:
-    """One chunk of lanes through one launch; exact per-lane Fp12 Miller
-    values back as host ints."""
-    arrays = _pack(pairs, bucket_for(len(pairs)))
-    out = miller_values(*operands_to_device(arrays, device)).cpu().numpy()
+    """One chunk of lanes: one launch, or, on a mesh, one launch a device
+    over its contiguous lanes; exact per-lane Fp12 Miller values back as
+    host ints."""
+    w = mesh_width(device)
+    bucket = bucket_for(len(pairs), w)
+    arrays = _pack(pairs, bucket)
+    split = w > 1 and bucket % w == 0 and bucket >= _mesh_floor(w)
+    if split:
+        from cometbft_tpu_torch.ops import sharded
+
+        mesh = sharded.make_mesh(_ek.local_devices(device.type, w), axis="lane")
+        shards = zip(*(sharded.split_lanes(mesh, a, 0) for a in arrays))
+        outs = [miller_values(*ops) for ops in shards]
+        out = torch.cat([o.cpu() for o in outs]).numpy()
+    else:
+        out = miller_values(*operands_to_device(arrays, device)).cpu().numpy()
     with _counters_lock:
         _counters["dispatches"] += 1
         _counters["lanes"] += len(pairs)
+        _counters["sharded_dispatches"] += int(split)
     return unpack_values(out[: len(pairs)])
 
 
@@ -491,7 +516,7 @@ class Bn254DeviceBackend:
         return _merkle.hash_from_byte_slices(list(leaves))
 
     def mesh_width(self) -> int:
-        return mesh_width()
+        return mesh_width(self.device)
 
     def ping(self) -> bool:
         """True when the device can serve: on CUDA, the kernel library loads."""

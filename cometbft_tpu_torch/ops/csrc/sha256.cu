@@ -37,6 +37,17 @@
 // registers and from 0.0476 to 0.0534 ms (a traced headline call on an
 // H100 80GB HBM3 at 700 W, chip_smoke.py).
 //
+// The digests entry (replaces cometbft_tpu/ops/merkle_kernel.py:214
+// merkle_root_pow2 over _tree_root_jit :200, and the subtree and top
+// reductions of cometbft_tpu/ops/sharded.py) is the same two launches from
+// leaf digests instead of raw leaves: under the second template flag
+// (kDigests) a thread of launch 1 loads its leaf's 8 big-endian words from
+// int32[8, n] (word-major, so neighbouring threads read neighbouring words)
+// instead of hashing a leaf; launch 2 is the root path's, unchanged. Any
+// n >= 1, an odd node promoted as the raw-leaf tree does. Bound at 65,536
+// digests: 65,535 inner nodes of two compressions, 2 MiB read:
+// operations.
+//
 // Why two launches give the RFC-6962 root: pairing level by level with the
 // odd node promoted makes node j of level h the root of leaves
 // [j 2^h, min((j+1) 2^h, n)) (the reference's recursive split at the
@@ -268,16 +279,25 @@ __device__ void reduce_nodes(uint32_t* nodes, int m, Levels lv, int steps) {
 // Launch 1: block b hashes leaves [b C, min((b+1) C, n)) and writes their
 // subtree root to roots[b] (8 big-endian words); with kLevels, also levels
 // 0..c of its chunk.
-template <bool kLevels>
+// With kDigests, block b loads digests [b C, min((b+1) C, n)) from
+// digests[8, n] instead (flat and offsets unused; kLevels is never set with
+// it).
+template <bool kLevels, bool kDigests>
 __global__ void tree_chunks_kernel(const uint8_t* __restrict__ flat,
                                    const long long* __restrict__ offsets, int n,
-                                   uint32_t* __restrict__ roots, uint32_t* __restrict__ levels) {
+                                   uint32_t* __restrict__ roots, uint32_t* __restrict__ levels,
+                                   const uint32_t* __restrict__ digests) {
   extern __shared__ uint32_t nodes[];
   const int C = blockDim.x, i = threadIdx.x;
   const long long first = (long long)blockIdx.x * C;
   const int m = (int)min((long long)C, n - first);
   const Levels lv{levels, 0, n, first};
-  if (i < m) {
+  if (kDigests) {
+    if (i < m) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) nodes[w * C + i] = digests[(size_t)w * n + first + i];
+    }
+  } else if (i < m) {
     const long long off = offsets[first + i];
     uint32_t st[8];
     leaf_hash(st, flat + off, offsets[first + i + 1] - off);
@@ -353,12 +373,24 @@ extern "C" int cmtpu_sha256_tree_chunks(const uint8_t* flat, const long long* of
   const int nc = (n + chunk - 1) / chunk;
   const size_t smem = (size_t)chunk * 32;
   if (levels) {
-    tree_chunks_kernel<true><<<nc, chunk, smem, (cudaStream_t)stream>>>(flat, offsets, n, roots,
-                                                                         levels);
+    tree_chunks_kernel<true, false><<<nc, chunk, smem, (cudaStream_t)stream>>>(
+        flat, offsets, n, roots, levels, nullptr);
   } else {
-    tree_chunks_kernel<false><<<nc, chunk, smem, (cudaStream_t)stream>>>(flat, offsets, n, roots,
-                                                                          nullptr);
+    tree_chunks_kernel<false, false><<<nc, chunk, smem, (cudaStream_t)stream>>>(
+        flat, offsets, n, roots, nullptr, nullptr);
   }
+  return (int)cudaGetLastError();
+}
+
+// Launch 1 of a root of n >= 1 leaf digests (int32[8, n], big-endian words)
+// in chunks of C; roots as for the tree entry, whose launch 2
+// (cmtpu_sha256_tree_roots with null levels) finishes the root.
+extern "C" int cmtpu_sha256_digest_tree(const uint32_t* digests, int n, int chunk,
+                                        uint32_t* roots, void* stream) {
+  const int nc = (n + chunk - 1) / chunk;
+  const size_t smem = (size_t)chunk * 32;
+  tree_chunks_kernel<false, true><<<nc, chunk, smem, (cudaStream_t)stream>>>(
+      nullptr, nullptr, n, roots, nullptr, digests);
   return (int)cudaGetLastError();
 }
 

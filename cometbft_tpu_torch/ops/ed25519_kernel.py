@@ -26,18 +26,28 @@ reference's unpack program in plain PyTorch) is the tests' oracle for the
 work stages 1 and 2 took over from it.
 
 The batch axis is bucketed as in the reference (``BUCKETS``,
-``BLOCK_BUCKETS``) so bitmaps and packed operands compare lane for lane;
-the mesh width is 1 (multi-GPU is later work). Oversized messages take the
-host-hash program (``verify_core_hosthash``): the host hashes with hashlib
-and stage 1 starts from the digests (``sha512_kernel.scalar_digits``).
+``BLOCK_BUCKETS``) so bitmaps and packed operands compare lane for lane.
+Oversized messages take the host-hash program (``verify_core_hosthash``):
+the host hashes with hashlib and stage 1 starts from the digests
+(``sha512_kernel.scalar_digits``).
+
+On a host with several cards a dispatch spreads over all of them, as the
+reference's routing does: ``mesh_width`` is this process's CUDA device
+count, buckets at or above ``mesh_floor`` (``CMTPU_MESH_FLOOR``, default
+the width) are rounded to a multiple of it, and such a bucket runs
+``sharded.sharded_verify_fn`` (each card its contiguous lanes, the same
+three launches, no collective). The host-hash program never shards. The
+CPU's width is 1.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import queue
 import threading
 from concurrent.futures import Future
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -58,26 +68,96 @@ WARM_BUCKETS = (128, 1024, 6144, 10240)
 WARM_LEAVES = (1024, 65536)
 
 
-def mesh_width() -> int:
-    """Devices one verify dispatch spreads over: one card in this port."""
-    return 1
+_probed_width = 0  # mesh_width()'s last answer for CUDA; 0 = never probed
 
 
-def bucket_for(n: int) -> int:
-    """Batch bucket for n signatures (the reference's ladder at mesh width 1)."""
+def mesh_width(device=None) -> int:
+    """Devices one verify dispatch spreads over (the 1-D ``sig`` mesh of
+    ``ops/sharded``): this process's CUDA devices for a CUDA request
+    (``device`` None means ``cuda``; at least 1), and 1 for the CPU."""
+    global _probed_width
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        return 1
+    _probed_width = _cuda_device_count()
+    return _probed_width
+
+
+@lru_cache(maxsize=1)
+def _cuda_device_count() -> int:
+    return max(1, torch.cuda.device_count())
+
+
+def known_mesh_width() -> int:
+    """The last CUDA ``mesh_width()`` answer, or 0 when nothing probed it:
+    for readers that must not touch the device (Ping, metrics)."""
+    return _probed_width
+
+
+def mesh_floor(width: int | None = None) -> int:
+    """Smallest batch bucket worth spreading over the mesh:
+    ``CMTPU_MESH_FLOOR`` when set, else the mesh width itself (``width``,
+    or ``mesh_width()`` when None)."""
+    env = os.environ.get("CMTPU_MESH_FLOOR", "")
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    return mesh_width() if width is None else width
+
+
+def bucket_for(n: int, width: int | None = None) -> int:
+    """Batch bucket for n signatures, rounded up to a multiple of the mesh
+    width (``width``, or ``mesh_width()`` when None) at or above the floor,
+    so a bucket the router shards splits evenly over the devices."""
     for b in BUCKETS:
         if n <= b:
-            return b
-    return int(2 ** np.ceil(np.log2(n)))
+            break
+    else:
+        b = int(2 ** np.ceil(np.log2(n)))
+    w = mesh_width() if width is None else width
+    if w > 1 and b >= mesh_floor(w) and b % w:
+        b += w - b % w
+    return b
 
 
 def preferred_stream_chunk() -> int:
     """Chunk size the sidecar advertises to streaming clients (field 4 of
     its Ping reply): the smallest commit-sized batch bucket that is a
-    multiple of the mesh width, so a streamed chunk needs no padding."""
-    w = mesh_width()
-    b = bucket_for(max(1024, 128 * w))
+    multiple of the mesh width, so a streamed chunk needs no padding. Reads
+    the width passively (``known_mesh_width``)."""
+    w = known_mesh_width() or 1
+    b = bucket_for(max(1024, 128 * w), w)
     return b + (w - b % w) % w
+
+
+def local_devices(dev_type: str, width: int) -> list[torch.device]:
+    """The devices of a ``width``-wide mesh in this process: the first
+    ``width`` cards for ``cuda``; ``width`` virtual shards of the CPU."""
+    if dev_type == "cuda":
+        return [torch.device("cuda", i) for i in range(width)]
+    return [torch.device(dev_type)] * width
+
+
+_mesh_lock = threading.Lock()
+_mesh_counters = {
+    "sharded_dispatches": 0,  # verify dispatches routed to the mesh program
+    "padded_lanes": 0,  # bucket-padding lanes shipped on those
+    "merkle_sharded_dispatches": 0,  # fused roots through the subtree program
+}
+
+
+def mesh_counters() -> dict:
+    """The mesh routing counters and the (passively read) device count."""
+    with _mesh_lock:
+        out = dict(_mesh_counters)
+    out["devices"] = known_mesh_width()
+    return out
+
+
+def _mesh_count(key: str, delta: int = 1) -> None:
+    with _mesh_lock:
+        _mesh_counters[key] += delta
 
 
 def block_bucket_for(b: int) -> int:
@@ -139,15 +219,54 @@ def verify_operands(dev_operands) -> torch.Tensor:
     return verify_core_hosthash(*dev_operands)
 
 
+def _bucket_key(operands) -> tuple[int, int]:
+    """(batch bucket, block bucket); block bucket 0 is the host-hash
+    program (4 operands)."""
+    bmax = operands[3].shape[1] // 32 if len(operands) == 5 else 0
+    return operands[0].shape[1], bmax
+
+
+def _sharded_verify(device):
+    """(width, the lane-split verify over this process's devices of
+    ``device``'s type) when the width is above 1, else None."""
+    w = mesh_width(device)
+    if w <= 1:
+        return None
+    from cometbft_tpu_torch.ops import sharded
+
+    mesh = sharded.make_mesh(local_devices(torch.device(device).type, w))
+    return w, sharded.sharded_verify_fn(mesh)
+
+
+def _route_for(operands, device):
+    """(program, sharded?) for pack_batch's numpy operands: the lane-split
+    program when this process has several devices and the bucket is at or
+    above the floor and divides over them, else the one-device program
+    (operands copied to ``device``). The host-hash program never shards."""
+    dev = resolve(device)
+    key = _bucket_key(operands)
+    if key[1] != 0:
+        sh = _sharded_verify(dev)
+        if sh is not None and key[0] >= mesh_floor(sh[0]) and key[0] % sh[0] == 0:
+            return sh[1], True
+    return (lambda *ops: verify_operands(operands_to_device(ops, dev))), False
+
+
+def clear_compiled_caches() -> None:
+    """Drop the cached device count, so that the next dispatch sees a
+    changed device set (there is no compiled program to drop: the mesh
+    programs are built a dispatch, which costs nothing beside it)."""
+    _cuda_device_count.cache_clear()
+
+
 # -- host packing ------------------------------------------------------------
 
 
-def _host_checks(pubs, sigs):
+def _host_checks(pubs, sigs, nb: int):
     """Shared host-side packing: shape checks, byte matrices, vectorized
     s < L. Returns (a_enc, r_enc, s_le, pubs_c, sigs_c, shape_ok,
-    s_in_range) with nb = bucket_for(n) rows."""
+    s_in_range) with nb rows."""
     n = len(pubs)
-    nb = bucket_for(n)
     zero_pub, zero_sig = b"\x00" * 32, b"\x00" * 64
     shape_ok = [len(pubs[i]) == 32 and len(sigs[i]) == 64 for i in range(n)]
     pubs_c = [pubs[i] if shape_ok[i] else zero_pub for i in range(n)]
@@ -177,17 +296,18 @@ def _host_checks(pubs, sigs):
     return a_enc, r_enc, s_le, pubs_c, sigs_c, shape_ok, s_in_range
 
 
-def pack_batch(pubs, msgs, sigs):
+def pack_batch(pubs, msgs, sigs, width: int | None = None):
     """Host-side packing of one verification batch, no crypto: shape checks,
     the s < L check, raw bytes as words, and the challenges R || A || M
-    padded into SHA-512 blocks. Returns (operands, host_ok): 5 numpy
-    operands (A, R, S words int32[8, nb], the pack buffer uint32[nb, B*32],
-    block counts int32[nb]), or 4 with host-hashed digests int32[16, nb]
-    when a message is past the largest block bucket. Invalid entries are
-    packed as zeros: lanes the device evaluates but the host mask vetoes."""
+    padded into SHA-512 blocks, nb = bucket_for(n, width) lanes. Returns
+    (operands, host_ok): 5 numpy operands (A, R, S words int32[8, nb], the
+    pack buffer uint32[nb, B*32], block counts int32[nb]), or 4 with
+    host-hashed digests int32[16, nb] when a message is past the largest
+    block bucket. Invalid entries are packed as zeros: lanes the device
+    evaluates but the host mask vetoes."""
     n = len(pubs)
-    nb = bucket_for(n)
-    a_enc, r_enc, s_le, pubs_c, sigs_c, shape_ok, s_in_range = _host_checks(pubs, sigs)
+    nb = bucket_for(n, width)
+    a_enc, r_enc, s_le, pubs_c, sigs_c, shape_ok, s_in_range = _host_checks(pubs, sigs, nb)
     host_ok = np.zeros(nb, bool)
     if n:
         mlens = np.fromiter(
@@ -292,13 +412,18 @@ def _pool() -> _DeviceOwner:
 
 def batch_verify_submit(pubs, msgs, sigs, device=None):
     """Pack on the calling thread, dispatch on the device-owner thread,
-    return a collect() -> (ok, bitmap) closure."""
+    return a collect() -> (ok, bitmap) closure. A dispatch routed to the
+    mesh is counted (``sharded_dispatches``, ``padded_lanes``)."""
     dev = resolve(device)
     n = len(pubs)
-    operands, host_ok = pack_batch(pubs, msgs, sigs)
+    operands, host_ok = pack_batch(pubs, msgs, sigs, mesh_width(dev))
+    fn, sharded = _route_for(operands, dev)
+    if sharded:
+        _mesh_count("sharded_dispatches")
+        _mesh_count("padded_lanes", _bucket_key(operands)[0] - n)
 
     def run():
-        return verify_operands(operands_to_device(operands, dev)).cpu().numpy()
+        return fn(*operands).cpu().numpy()
 
     fut = _pool().submit(run)
 
@@ -332,8 +457,9 @@ def warmup(buckets=None, merkle_leaves=None, device=None) -> None:
     _build.lib()
     msg = b"\x00" * 120  # 64 + 120 bytes: two SHA-512 blocks, as a vote
     for b in buckets or WARM_BUCKETS:
-        operands, _ = pack_batch([b"\x00" * 32] * b, [msg] * b, [b"\x00" * 64] * b)
-        verify_operands(operands_to_device(operands, dev))
+        operands, _ = pack_batch([b"\x00" * 32] * b, [msg] * b, [b"\x00" * 64] * b,
+                                 mesh_width(dev))
+        _route_for(operands, dev)[0](*operands)
     for n in merkle_leaves or WARM_LEAVES:
         flat, offsets = mk.pack_leaves([b"\x00"] * n, dev)
         mk.tree_root(flat, offsets)

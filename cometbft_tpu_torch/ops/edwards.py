@@ -180,11 +180,8 @@ def decompress_words(a_words: torch.Tensor, r_words: torch.Tensor):
     out = torch.empty((4, fe.LIMBS, 2 * n), dtype=torch.int32, device=aw.device)
     ok = torch.empty((2 * n,), dtype=torch.bool, device=aw.device)
     if n:
-        rc = _build.lib().cmtpu_decompress_words(
-            aw.data_ptr(), rw.data_ptr(), out.data_ptr(), ok.data_ptr(), n,
-            _build.stream_of(aw),
-        )
-        _build.check_launch("decompress", rc)
+        _build.launch("decompress", "cmtpu_decompress_words", aw.device,
+                      aw.data_ptr(), rw.data_ptr(), out.data_ptr(), ok.data_ptr(), n)
     return out, ok
 
 

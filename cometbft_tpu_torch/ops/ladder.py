@@ -88,12 +88,10 @@ def verify_lanes(s_digits, k_digits, pt, ok, *, group: int | None = None,
     acc = torch.empty((4, fe.LIMBS, n) if with_acc else (0,), dtype=torch.int32,
                       device=s_digits.device)
     if n:
-        rc = _build.lib().cmtpu_ladder_verify(
-            s_digits.data_ptr(), k_digits.data_ptr(), pt.data_ptr(), ok.data_ptr(),
-            tb.data_ptr(), verdict.data_ptr(), acc.data_ptr() if with_acc else None,
-            n, g, _build.stream_of(s_digits),
-        )
-        _build.check_launch("ladder", rc)
+        _build.launch("ladder", "cmtpu_ladder_verify", s_digits.device,
+                      s_digits.data_ptr(), k_digits.data_ptr(), pt.data_ptr(), ok.data_ptr(),
+                      tb.data_ptr(), verdict.data_ptr(), acc.data_ptr() if with_acc else None,
+                      n, g)
     return (verdict, (acc[0], acc[1], acc[2], acc[3])) if with_acc else verdict
 
 

@@ -20,18 +20,27 @@ versions for CPU tensors and launch the kernel for CUDA tensors:
                   int32[total, 8] (the levels entry, counterpart of the
                   reference's ``_leaves_to_levels_core``); what the proofs
                   run (plain version ``tree_levels_raw_plain``);
+  ``digest_tree_root``  leaf digests int32[8, n] to the root in the same
+                  two launches (the digests entry, counterpart of the
+                  reference's ``merkle_root_pow2`` program and of the
+                  subtree and top reductions of ``ops/sharded.py``; plain
+                  version ``digest_tree_root_plain``);
   ``leaf_core``   pre-padded leaf blocks to leaf digests, and
   ``inner_core``  one level's sibling pairs to the next level, a launch a
                   level (``tree_levels``; the reference's ``_leaf_core``
                   and ``_inner_core`` over ``sha256_kernel.compress``).
 
 The proofs (``proofs_from_byte_slices_device``) copy the levels to the
-host once and gather each leaf's aunts there.
+host once and gather each leaf's aunts there. ``merkle_root_fused`` routes
+a power-of-two forest at or above ``CMTPU_MESH_MERKLE_FLOOR`` leaves over
+this process's devices when there are a power of two of them
+(``sharded.sharded_leaves_to_root_fn``), else takes the tree entry.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -88,10 +97,8 @@ def leaf_core(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     bmax, _, n = blk.shape
     out = torch.empty((8, n), dtype=torch.int32, device=blk.device)
     if n:
-        rc = _build.lib().cmtpu_sha256_leaf(
-            blk.data_ptr(), nb.data_ptr(), out.data_ptr(), bmax, n, _build.stream_of(blk)
-        )
-        _build.check_launch("sha256", rc)
+        _build.launch("sha256", "cmtpu_sha256_leaf", blk.device,
+                      blk.data_ptr(), nb.data_ptr(), out.data_ptr(), bmax, n)
     return out
 
 
@@ -109,12 +116,9 @@ def inner_core(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     m = left.shape[1]
     out = torch.empty((8, m), dtype=torch.int32, device=left.device)
     if m:
-        rc = _build.lib().cmtpu_sha256_inner(
-            left.data_ptr(), left.stride(0), left.stride(1),
-            right.data_ptr(), right.stride(0), right.stride(1),
-            out.data_ptr(), m, _build.stream_of(left),
-        )
-        _build.check_launch("sha256", rc)
+        _build.launch("sha256", "cmtpu_sha256_inner", left.device,
+                      left.data_ptr(), left.stride(0), left.stride(1),
+                      right.data_ptr(), right.stride(0), right.stride(1), out.data_ptr(), m)
     return out
 
 
@@ -180,7 +184,10 @@ def tree_root_plain(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = 256)
 
 
 def _check_tree(offsets: torch.Tensor, chunk: int, what: str) -> int:
-    n = offsets.shape[0] - 1
+    return _check_count(offsets.shape[0] - 1, chunk, what)
+
+
+def _check_count(n: int, chunk: int, what: str) -> int:
     if n < 1:
         raise ValueError(f"{what}: needs at least one leaf")
     if chunk < 2 or chunk > 1024 or chunk & (chunk - 1):
@@ -198,13 +205,10 @@ def _launch_tree(flat, offsets, n: int, chunk: int, levels: torch.Tensor | None)
     nc = -(-n // chunk)
     roots = torch.empty((nc, 8), dtype=torch.int32, device=flat.device)
     lv = 0 if levels is None else levels.data_ptr()
-    lib, stream = _build.lib(), _build.stream_of(flat)
-    rc = lib.cmtpu_sha256_tree_chunks(
-        flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), lv, stream
-    )
-    _build.check_launch("sha256", rc)
-    rc = lib.cmtpu_sha256_tree_roots(roots.data_ptr(), nc, chunk, lv, n, stream)
-    _build.check_launch("sha256", rc)
+    _build.launch("sha256", "cmtpu_sha256_tree_chunks", flat.device,
+                  flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), lv)
+    _build.launch("sha256", "cmtpu_sha256_tree_roots", flat.device,
+                  roots.data_ptr(), nc, chunk, lv, n)
     return roots
 
 
@@ -393,3 +397,96 @@ def merkle_root(leaves: list[bytes], device=None) -> bytes:
     if len(leaves) == 0:
         return hashlib.sha256(b"").digest()
     return _root_bytes(tree_root(*pack_leaves(leaves, device)))
+
+
+# -- roots from leaf digests, and the mesh route ---------------------------------
+
+
+def digest_tree_root_plain(digests: torch.Tensor) -> torch.Tensor:
+    """Plain version of the digests entry: int32[8, n] leaf digests, n >= 1,
+    reduced level by level (an odd node promoted) -> int32[8, 1]."""
+    cur = digests
+    while cur.shape[1] > 1:
+        cur = _level_up(cur, inner_core_plain)
+    return cur
+
+
+def digest_tree_root(digests: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """RFC-6962 root over n >= 1 leaf digests (int32[8, n], big-endian
+    words): int32[8, 1]. CPU tensors take ``digest_tree_root_plain``; CUDA
+    tensors launch the ``sha256`` kernel's digests entry (chunks of
+    ``chunk`` digests) and the tree entry's second launch."""
+    if digests.dim() != 2 or digests.shape[0] != 8 or digests.shape[1] < 1:
+        raise ValueError(f"digest_tree_root: expected int32[8, n >= 1], got {tuple(digests.shape)}")
+    if digests.device.type == "cpu":
+        return digest_tree_root_plain(digests)
+    n = _check_count(digests.shape[1], chunk, "digest_tree_root")
+    dg = digests.contiguous()
+    _build.require_cuda("sha256", dg)
+    nc = -(-n // chunk)
+    roots = torch.empty((nc, 8), dtype=torch.int32, device=dg.device)
+    _build.launch("sha256", "cmtpu_sha256_digest_tree", dg.device,
+                  dg.data_ptr(), n, chunk, roots.data_ptr())
+    _build.launch("sha256", "cmtpu_sha256_tree_roots", dg.device,
+                  roots.data_ptr(), nc, chunk, 0, n)
+    return roots[0].reshape(8, 1)
+
+
+def merkle_root_pow2(leaf_digests, device=None) -> bytes:
+    """Root from uint32[8, n] leaf digests (numpy, or an int32 tensor with
+    the same bits), n a power of two: 32 bytes. One digest is its own root;
+    otherwise the digests entry on the tensor's device (a numpy input goes
+    to ``device``, ``cuda`` unless the caller asks for the CPU)."""
+    n = leaf_digests.shape[1]
+    if n < 1 or n & (n - 1):
+        raise ValueError("merkle_root_pow2 requires a power-of-two leaf count")
+    if isinstance(leaf_digests, torch.Tensor):
+        dg = leaf_digests
+    else:
+        dg = torch.from_numpy(np.ascontiguousarray(leaf_digests).view(np.int32))
+        if n > 1:
+            dg = dg.to(resolve(device))
+    return _root_bytes(dg if n == 1 else digest_tree_root(dg))
+
+
+def _mesh_merkle_floor() -> int:
+    """Leaf count from which ``merkle_root_fused`` routes to the mesh
+    (``CMTPU_MESH_MERKLE_FLOOR``, default 16,384)."""
+    try:
+        return max(1, int(os.environ.get("CMTPU_MESH_MERKLE_FLOOR", "16384")))
+    except ValueError:
+        return 16384
+
+
+def _sharded_root(device=None):
+    """(width, the fused leaves-to-root program over this process's devices
+    of ``device``'s type) when the routing width is a power of two above 1,
+    else None: the subtree roots' top pairs level by level."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    from cometbft_tpu_torch.ops import sharded
+
+    dev = resolve(device)
+    w = ek.mesh_width(dev)
+    if w <= 1 or w & (w - 1):
+        return None
+    return w, sharded.sharded_leaves_to_root_fn(sharded.make_mesh(ek.local_devices(dev.type, w)))
+
+
+def merkle_root_fused(leaves: list[bytes], device=None) -> bytes:
+    """RFC-6962 root. A power-of-two forest of at least
+    ``CMTPU_MESH_MERKLE_FLOOR`` leaves on a power-of-two mesh routes to the
+    subtree-parallel program (each device leaf-hashes and reduces its own
+    subtree; counted as ``merkle_sharded_dispatches``); every other forest
+    takes ``merkle_root`` (the tree entry, two launches on the card)."""
+    n = len(leaves)
+    if n == 0 or n & (n - 1) or n < _mesh_merkle_floor():
+        return merkle_root(leaves, device)
+    sh = _sharded_root(device)
+    if sh is None or n % sh[0]:
+        return merkle_root(leaves, device)
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    blocks, nblocks = sha.pack_messages([b"\x00" + it for it in leaves])
+    ek._mesh_count("merkle_sharded_dispatches")
+    return _root_bytes(sh[1](blocks, nblocks))

@@ -167,11 +167,9 @@ def challenge_digits(msg_words: torch.Tensor, nblocks: torch.Tensor, s_words: to
         raise ValueError(f"sha512: bad shapes {words.shape} {nb.shape} {sw.shape}")
     s_dig, k_dig = _digit_outputs(n, words.device)
     if n:
-        rc = _build.lib().cmtpu_challenge_digits(
-            words.data_ptr(), nb.data_ptr(), wpl, sw.data_ptr(), s_dig.data_ptr(),
-            k_dig.data_ptr(), n, _build.stream_of(words),
-        )
-        _build.check_launch("sha512", rc)
+        _build.launch("sha512", "cmtpu_challenge_digits", words.device,
+                      words.data_ptr(), nb.data_ptr(), wpl, sw.data_ptr(), s_dig.data_ptr(),
+                      k_dig.data_ptr(), n)
     return s_dig, k_dig
 
 
@@ -188,11 +186,8 @@ def scalar_digits(k_words: torch.Tensor, s_words: torch.Tensor):
         raise ValueError(f"sha512: bad shapes {kw.shape} {sw.shape}")
     s_dig, k_dig = _digit_outputs(n, kw.device)
     if n:
-        rc = _build.lib().cmtpu_scalar_digits(
-            kw.data_ptr(), sw.data_ptr(), s_dig.data_ptr(), k_dig.data_ptr(), n,
-            _build.stream_of(kw),
-        )
-        _build.check_launch("sha512", rc)
+        _build.launch("sha512", "cmtpu_scalar_digits", kw.device,
+                      kw.data_ptr(), sw.data_ptr(), s_dig.data_ptr(), k_dig.data_ptr(), n)
     return s_dig, k_dig
 
 

@@ -48,10 +48,11 @@ class TorchBackend(VerifyBackend):
         return self._ed.batch_verify(pubs, msgs, sigs, device=self.device)
 
     def merkle_root(self, leaves):
-        return self._merkle.merkle_root(leaves, device=self.device)
+        return self._merkle.merkle_root_fused(leaves, device=self.device)
 
     def mesh_width(self) -> int:
-        return self._ed.mesh_width()
+        """The routing width: this process's CUDA devices, 1 on the CPU."""
+        return self._ed.mesh_width(self.device)
 
     def warmup(self, buckets=None, merkle_leaves=None) -> None:
         """Build the kernels and run each program once at the given batch

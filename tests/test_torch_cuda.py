@@ -6,8 +6,13 @@ on the same card, exactly (bn254: equal mod P), at small shapes and on the
 ZIP-215, scalar and field edge inputs, bn254 also at its 8,192-lane chunk;
 the launch counters must count each launch once (one launch a call, two
 sha256 launches a root and a proof set, one sha512, decompress and ladder
-launch a verify batch, one bn254 launch a chunk of an aggregate). Without a
-CUDA device every test here skips (by the ``cuda`` fixture) with its reason.
+launch a verify batch, one bn254 launch a chunk of an aggregate). The
+digests entry of sha256 is held to its plain version at ragged counts, and
+the lane-split programs on two virtual shards of the card to the
+one-device path. Every kernel launches on its tensors' device whatever the
+calling thread's current device is (on ``cuda:1`` with ``cuda:0`` current
+where the host has two cards). Without a CUDA device every test here skips
+(by the ``cuda`` fixture) with its reason.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 GPU host without them (tests/conftest.py imports jax, hence
@@ -17,6 +22,7 @@ GPU host without them (tests/conftest.py imports jax, hence
 """
 
 import hashlib
+import threading
 
 import numpy as np
 import pytest
@@ -34,6 +40,7 @@ from cometbft_tpu_torch.ops import ladder
 from cometbft_tpu_torch.ops import merkle_kernel as mk
 from cometbft_tpu_torch.ops import sha256_kernel as sha
 from cometbft_tpu_torch.ops import sha512_kernel as s5
+from cometbft_tpu_torch.ops import sharded
 from cometbft_tpu_torch.ops import unpack
 from cometbft_tpu_torch.sidecar.backend import TorchBackend
 
@@ -362,3 +369,149 @@ def test_bn254_backend_defaults_to_cuda(cuda):
     before = _build.LAUNCHES["bn254"]
     assert be.batch_verify(pubs, msgs, sigs) == (False, [True, False, True, True])
     assert _build.LAUNCHES["bn254"] == before + 1
+
+
+@pytest.mark.parametrize("chunk", [4, 256])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 255, 256, 257, 1000, 1025, 65_536])
+def test_sha256_digests_entry_matches_plain(cuda, n, chunk):
+    """The digests entry (K6) at ragged counts: the root equal to the plain
+    version word for word and to the host tree, two launches."""
+    dg = sharded.make_example_leaves(n, cuda)
+    before = _build.LAUNCHES["sha256"]
+    got = mk.digest_tree_root(dg, chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sha256"] == before + 2
+    assert torch.equal(got.cpu(), mk.digest_tree_root_plain(dg.cpu()))
+    assert mk._root_bytes(got) == hash_from_byte_slices(sharded.example_txs(n))
+    if n & (n - 1) == 0:
+        assert mk.merkle_root_pow2(dg) == mk._root_bytes(got)
+
+
+def _each_kernel(dev):
+    """Every kernel launched once on ``dev``, each result equal to its plain
+    version on the same inputs; returns the launches counted."""
+    seeds = [hashlib.sha256(b"device-key-%d" % i).digest() for i in range(5)]
+    pubs = [pure.public_key(x) for x in seeds]
+    msgs = [b"device-vote-%d" % i for i in range(5)]
+    sigs = [pure.sign(x, p, m) for x, p, m in zip(seeds, pubs, msgs)]
+    a_w, r_w, s_w, msg_w, msg_nb = ek.operands_to_device(ek.pack_batch(pubs, msgs, sigs, 1)[0], dev)
+    dg = sharded.make_example_leaves(300, dev)  # one sha256 leaf launch, before the count
+    before = dict(_build.LAUNCHES)
+    s_dig, k_dig = s5.challenge_digits(msg_w, msg_nb, s_w)
+    assert torch.equal(torch.stack([s_dig, k_dig]),
+                       torch.stack(s5.challenge_digits_plain(msg_w, msg_nb, s_w)))
+    pt, ok = ed.decompress_words(a_w, r_w)
+    assert torch.equal(_canon(pt), _canon(ed.decompress_words_plain(a_w, r_w)[0]))
+    verdict = ladder.verify_lanes(s_dig, k_dig, pt, ok)
+    assert verdict.tolist() == ladder.verify_lanes_plain(s_dig, k_dig, pt, ok)[0].tolist()
+    assert verdict.all()
+    flat, offsets = mk.pack_leaves([b"device-tx-%d" % i for i in range(300)], dev)
+    assert torch.equal(mk.tree_root(flat, offsets), mk.tree_root_plain(flat, offsets))
+    assert torch.equal(mk.digest_tree_root(dg), mk.digest_tree_root_plain(dg))
+    ops = bk.operands_to_device(bk._pack(_bn254_lanes(8), 8), dev)
+    got, want = bk.miller_values(*ops), bk.miller_values_plain(*ops)
+    assert (bk.limbs_to_ints(got.cpu().numpy()) == bk.limbs_to_ints(want.cpu().numpy())).all()
+    torch.cuda.synchronize(dev)
+    return {k: _build.LAUNCHES[k] - before[k] for k in before}
+
+
+def _in_thread(current: int, target: int) -> dict:
+    """_each_kernel on cuda:target from a new thread whose current device
+    is set to cuda:current first."""
+    box = {}
+
+    def run():
+        try:
+            torch.cuda.set_device(current)
+            box["launches"] = _each_kernel(torch.device("cuda", target))
+            box["current"] = torch.cuda.current_device()
+        except BaseException as e:  # re-raised in the test's thread
+            box["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in box:
+        raise box["error"]
+    assert box["current"] == current  # the launches left the thread's device as set
+    return box["launches"]
+
+
+WANT_EACH = {"sha512": 1, "decompress": 1, "ladder": 1, "sha256": 4, "bn254": 1}
+
+
+@pytest.mark.parametrize("placement", ["same", "other"])
+def test_every_kernel_launches_on_its_tensors_device(cuda, placement):
+    """From a thread whose current device was set explicitly: on that
+    device, and (with two cards) on cuda:1 while cuda:0 is current."""
+    if placement == "same":
+        assert _in_thread(0, 0) == WANT_EACH
+        return
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: launching on cuda:1 with cuda:0 current")
+    assert _in_thread(0, 1) == WANT_EACH
+
+
+def test_lane_split_programs_on_two_virtual_shards(cuda):
+    """K1 to K4 on make_mesh([cuda:0, cuda:0]): each shard's three verify
+    launches and two sha256 launches a subtree root; the same bitmap,
+    all-valid bit and root as the one-device path and the host tree."""
+    mesh = sharded.make_mesh([cuda, cuda])
+    ops = sharded.make_example_batch(16, cuda)
+    one = ek.verify_operands(ops)
+    before = dict(_build.LAUNCHES)
+    ok = sharded.sharded_verify_fn(mesh)(*ops)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in ("sha512", "decompress", "ladder")} == {
+        "sha512": 2, "decompress": 2, "ladder": 2}
+    assert torch.equal(ok, one) and ok.all()
+    assert torch.equal(sharded.sharded_verify_replicated_fn(mesh)(*ops), one)
+    txs = sharded.example_txs(1024)
+    want = hash_from_byte_slices(txs)
+    leaves = sharded.make_example_leaves(1024, cuda)
+    before = _build.LAUNCHES["sha256"]
+    assert mk._root_bytes(sharded.sharded_merkle_fn(mesh)(leaves)) == want
+    assert _build.LAUNCHES["sha256"] == before + 6  # two a subtree, two the top
+    blocks, nblocks = sha.pack_messages([b"\x00" + t for t in txs])
+    assert mk._root_bytes(sharded.sharded_leaves_to_root_fn(mesh)(blocks, nblocks)) == want
+    ok2, all_valid, root = sharded.sharded_commit_step_fn(mesh)(*ops, leaves)
+    assert torch.equal(ok2, one) and bool(all_valid) and mk._root_bytes(root) == want
+
+
+def test_mesh_routes_over_every_card(cuda, monkeypatch):
+    """On a host with two or more cards, the routing width is the card
+    count: TorchBackend's verify (one launch of each verify kernel a card),
+    its root of a power-of-two forest past CMTPU_MESH_MERKLE_FLOOR (three
+    sha256 launches a card and two for the top) and a BN254 aggregate (one
+    bn254 launch a card) give the exact answers, and the counters step."""
+    w = torch.cuda.device_count()
+    if w < 2:
+        pytest.skip("needs two CUDA devices: the routing width is 1 on one card")
+    monkeypatch.delenv("CMTPU_MESH_FLOOR", raising=False)
+    monkeypatch.setenv("CMTPU_MESH_MERKLE_FLOOR", "16")
+    be = TorchBackend()
+    assert be.mesh_width() == ek.mesh_width() == w and bk.mesh_width() == w
+    seeds = [hashlib.sha256(b"cards-key-%d" % i).digest() for i in range(200)]
+    pubs = [pure.public_key(x) for x in seeds]
+    msgs = [b"cards-vote-%d" % i for i in range(200)]
+    sigs = [pure.sign(x, p, m) for x, p, m in zip(seeds, pubs, msgs)]
+    sigs[123] = sigs[123][:40] + bytes([sigs[123][40] ^ 1]) + sigs[123][41:]
+    counters, before = ek.mesh_counters(), dict(_build.LAUNCHES)
+    assert be.batch_verify(pubs, msgs, sigs) == (False, [i != 123 for i in range(200)])
+    leaves = [b"cards-tx-%d" % i for i in range(1024)]
+    assert be.merkle_root(leaves) == hash_from_byte_slices(leaves)
+    pow2 = w & (w - 1) == 0  # the subtree route takes power-of-two widths only
+    delta = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert delta == {"sha512": w, "decompress": w, "ladder": w,
+                     "sha256": 3 * w + 2 if pow2 else 2, "bn254": 0}
+    after = ek.mesh_counters()
+    assert after["sharded_dispatches"] == counters["sharded_dispatches"] + 1
+    assert after["merkle_sharded_dispatches"] == counters["merkle_sharded_dispatches"] + pow2
+    assert after["devices"] == w
+    sks, bpubs, bmsgs, bsigs = _bn254_signers(7)
+    total = None
+    for x in bsigs:
+        total = bn._g2_add(total, bn.g2_unmarshal(x))
+    split, launches = bk.counters()["sharded_dispatches"], _build.LAUNCHES["bn254"]
+    assert bk.Bn254DeviceBackend().aggregate_verify(bpubs, bmsgs, bn.g2_compress(total)) is True
+    assert bk.counters()["sharded_dispatches"] == split + 1
+    assert _build.LAUNCHES["bn254"] == launches + w

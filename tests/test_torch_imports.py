@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,7 @@ from cometbft_tpu_torch.ops import bn254_kernel as tbk
 from cometbft_tpu_torch.ops import edwards as ted
 from cometbft_tpu_torch.ops import ladder
 from cometbft_tpu_torch.ops import merkle_kernel as tmk
+from cometbft_tpu_torch.ops import multihost, sharded
 from cometbft_tpu_torch.ops import sha512_kernel as ts5
 from cometbft_tpu_torch.sidecar.backend import TorchBackend, device_backend
 
@@ -42,6 +44,8 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.sidecar.engine",
         "cometbft_tpu_torch.sidecar.scheduler",
         "cometbft_tpu_torch.sidecar.service",
+        "cometbft_tpu_torch.ops.sharded",
+        "cometbft_tpu_torch.ops.multihost",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -72,6 +76,12 @@ def test_cuda_request_raises_without_a_card():
         tmk.proofs_from_byte_slices_device([b"a", b"b"])
     with pytest.raises(RuntimeError, match="CUDA"):
         device_backend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.make_mesh(["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.distributed_init("tcp://127.0.0.1:1", 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmk.merkle_root_pow2(np.zeros((8, 2), np.uint32))
     assert TorchBackend(device="cpu").device.type == "cpu"
     assert tbk.Bn254DeviceBackend(device="cpu").device.type == "cpu"
 
@@ -122,6 +132,8 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
         tmk.tree_levels_raw(torch.zeros(4, dtype=torch.uint8, device=meta),
                             torch.arange(5, dtype=torch.int64, device=meta))
     with pytest.raises(ValueError, match="CUDA"):
+        tmk.digest_tree_root(point[0][:8])
+    with pytest.raises(ValueError, match="CUDA"):
         tbk.miller_values(torch.zeros((8, 2, 13), dtype=torch.float64, device=meta),
                           *(torch.zeros((8, 2, 2, 13), dtype=torch.float64, device=meta)
                             for _ in range(3)))
@@ -152,6 +164,8 @@ def test_cpu_wrappers_count_no_launches():
     before = dict(_build.LAUNCHES)
     tmk.merkle_root([b"a", b"b", b"c", b"d"], device="cpu")
     tmk.proofs_from_byte_slices_device([b"a", b"b", b"c"], device="cpu")
+    tmk.digest_tree_root(torch.zeros((8, 5), dtype=torch.int32))
+    tmk.merkle_root_fused([b"a", b"b"], device="cpu")
     assert _build.LAUNCHES == before
     tbk.miller_values(*tbk.operands_to_device(tbk._pack([(bn254_pure.G1, bn254_pure.G2)], 1), "cpu"))
     assert _build.LAUNCHES == before
@@ -164,4 +178,7 @@ def test_every_kernel_source_is_built():
     text = (_build.SRC_DIR / "ladder.cu").read_text()
     assert "cometbft_tpu/ops/pallas_ladder.py:_ladder_kernel" in text
     assert "cometbft_tpu/ops/bn254_kernel.py:352" in (_build.SRC_DIR / "bn254.cu").read_text()
-    assert "cometbft_tpu/ops/merkle_kernel.py:235" in (_build.SRC_DIR / "sha256.cu").read_text()
+    sha256 = (_build.SRC_DIR / "sha256.cu").read_text()
+    assert "cometbft_tpu/ops/merkle_kernel.py:235" in sha256
+    assert "cometbft_tpu/ops/merkle_kernel.py:214" in sha256
+    assert "cmtpu_sha256_digest_tree" in sha256 and "cmtpu_sha256_digest_tree" in _build._SIGNATURES
