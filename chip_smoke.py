@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (cometbft_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bn254-lanes   # only the bn254 kernel's times
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -29,9 +30,10 @@ the aggregate-commit contract through ``Bn254DeviceBackend()``: one
      turns, verdict and accumulator; the sha256 tree entry at the 65,536-
      and 10,000-leaf roots, its leaf and inner entries level by level, and
      its levels entry (every tree level, what the proofs run) at 65,536 and
-     10,000 leaves and at the part set; the bn254 Miller loop at 8,192
-     lanes (``MAX_LANES``, the first chunk of the 10,240-validator
-     aggregate) with edge lanes (the padding lane, coordinates 0, 1 and
+     10,000 leaves, at the part set, its ragged form and a short/long mix,
+     and the part set's block cut into leaves of several lengths under each
+     leaf load and chunk; the bn254 Miller loop at 8,192, 4,096 and 32
+     lanes (the aggregate's two chunks, the vote batch) with edge lanes (the padding lane, coordinates 0, 1 and
      P - 1, off-curve field elements); prints ptxas's registers and spills,
      the ladder's and bn254's launch shapes and, where cuobjdump exists,
      the ladder's SASS instruction mix, the measured issue rates of the
@@ -139,15 +141,38 @@ SHA512_BLOCK_OPS = 2 * (80 * 25 + 64 * 13 + 8)  # 64-bit ops, two 32-bit ops eac
 # each, and 64 digits of shift, mask and subtract).
 SCALAR_LANE_OPS = 18 * 8 + 9 * 6 + 16 * 16 + 4 * 14 + 2 * (4 * 8 + 64 * 3)
 SHA256_BLOCK_OPS = 64 * 25 + 48 * 13 + 8
-# BN254 Miller loop, a lane (csrc/bn254.cu): 64 doubling steps of 157 Fp
-# multiplies (f^2 63, the doubling 40, its line 54), 38 addition steps of
-# 97 (the addition 43, its line 54) and 26 conversions into and out of
-# Montgomery form; 136 32x32->64 products a multiply (CIOS over eight
-# words: 64 for a*b, 8 quotient words, 64 for m*p). Bytes: P, Q, pi(Q),
-# -pi^2(Q) in and the Fp12 value out, 13 float64 limbs an Fp element.
+# BN254 Miller loop, a lane, by the reference program's formulas
+# (cometbft_tpu/ops/bn254_kernel.py:352): 64 doubling steps of 157 Fp
+# multiplies (f^2 63: 21 Fp2 products of 3; the doubling 40, its line 54),
+# 38 addition steps of 97 (the addition 43, its line 54) and 26 conversions
+# into and out of Montgomery form; 136 32x32->64 products a multiply (CIOS
+# over eight words: 64 for a*b, 8 quotient words, 64 for m*p). The bound
+# holds to this count whatever the kernel's schedule does: that schedule's
+# own count (bn254_schedule.lane_muls(), fewer, with Fp2 squares in 2
+# products) is printed beside it. Bytes: P, Q, pi(Q), -pi^2(Q) in and the
+# Fp12 value out, 13 float64 limbs an Fp element.
 BN254_FP_MULS = 64 * 157 + 38 * 97 + 26
 BN254_FP_MUL_OPS = 136
 BN254_LANE_BYTES = (2 + 3 * 4 + 12) * 13 * 8
+# The bn254 launches of the BN254 path: the aggregate's chunks (8,192 lanes
+# and the bucket of 4,096 its 2,049 left-over lanes take) and the 16-vote
+# batch (32 lanes). The earlier one-thread-a-lane kernel's time at each, by
+# CUDA events on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, the kernel
+# table): the team kernel fails the run where it is not faster.
+BN254_LANE_COUNTS = (8192, 4096, 32)
+ONE_THREAD_BN254_MS = {8192: 21.24, 4096: 21.80, 32: 17.96}
+# The part set's ragged form (a block whose size is not a multiple of 64
+# KiB: its last part shorter) and a mix of short leaves and long ones (every
+# 5th; long on average, so the long-leaf levels launch).
+RAGGED_LAST_PART = 12_345
+# The levels entry's leaf loads and chunk, timed apart: the part set's block
+# cut into leaves of each length, under byte loads in chunks of CHUNK (the
+# short-leaf launch), byte loads in chunks of LONG_LEAF_CHUNK, and word
+# loads in chunks of LONG_LEAF_CHUNK (the long-leaf launch); the lengths
+# span merkle_kernel.LONG_LEAF_BYTES, where the wrapper switches.
+SWEEP_LEAF_BYTES = (256, 1024, 2048, 4096, 16_384, 65_536)
+N_MIX = 100
+MIX_LONG = (65_536, 65_537, 4_095, 20_000, 65_535, 8_191)
 N_VALIDATORS = 10_240
 N_VOTES = 16
 BAD_VOTE = 9
@@ -538,6 +563,7 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
         max_abs_err=err,
         ms=time_cuda(lambda: mk.tree_root(flat, offsets), 50),
         kernel_ms=kernel_ms(lambda: mk.tree_root(flat, offsets), launches=2),
+        queued_ms=time_queued(lambda: mk.tree_root(flat, offsets), 50),
         plain_ms=time_cuda(lambda: mk.tree_root_plain(flat, offsets), 1, warmup=0),
         bound_ms=t_b[0], bound_by=t_b[1],
         shape=f"{nl} leaves, 2 launches ({-(-nl // mk.CHUNK)} chunks of {mk.CHUNK})",
@@ -545,6 +571,14 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
     rec = records["sha256"]
     rec.update(compare_levels(leaves, parts, dev, sms, clock_hz))
     rec["max_abs_err"] = max(rec["max_abs_err"], rec["levels_max_abs_err"])
+    print(f"sha256 root path (tree entry, 65,536 leaves): {rec['kernel_ms']} ms CUPTI, "
+          f"{rec['queued_ms']} queued, {rec['ms']} by events (before: 0.0747-0.0753 CUPTI, 0.0780 "
+          f"events); levels entry at 65,536 leaves: {rec['levels_kernel_ms']} CUPTI, "
+          f"{rec['levels_queued_ms']} queued, {rec['levels_ms']} by events (before: 0.0755 CUPTI, "
+          f"0.0782-0.0783 events); at the part set: {rec['levels_partset_kernel_ms']} CUPTI, "
+          f"{rec['levels_partset_queued_ms']} queued, {rec['levels_partset_ms']} by events (before: "
+          f"9.001-9.055 events), bound {rec['levels_partset_bound_ms']}, chain floor "
+          f"{rec['levels_partset_chain_floor_ms']}", flush=True)
     return records
 
 
@@ -560,23 +594,79 @@ def levels_bound(mk, flat, offsets, sms, clock_hz):
                     sms, clock_hz)
 
 
+def long_leaf_sets(leaves, parts) -> dict:
+    """The part set, its ragged form (the last part RAGGED_LAST_PART bytes)
+    and N_MIX leaves, every 5th a long one (MIX_LONG bytes of the block in
+    turn) and the others short, so the long ones start at unaligned offsets
+    of the joined leaves."""
+    block = b"".join(parts)
+    mix = [block[i * 4099 : i * 4099 + MIX_LONG[i // 5 % len(MIX_LONG)]] if i % 5 == 2
+           else leaves[i % len(leaves)] for i in range(N_MIX)]
+    return {"partset": parts, "partset_ragged": parts[:-1] + [parts[-1][:RAGGED_LAST_PART]],
+            "mix": mix}
+
+
+def levels_launch(mk, flat, offsets, chunk: int, words: bool) -> torch.Tensor:
+    """The levels entry's two launches at the given chunk and leaf loads."""
+    n = offsets.shape[0] - 1
+    levels = torch.empty((mk.level_rows(n)[-1][0] + 1, 8), dtype=torch.int32, device=flat.device)
+    mk._launch_tree(flat, offsets, n, chunk, levels, words)
+    return levels
+
+
+def levels_by_leaf_bytes(mk, parts, dev) -> dict:
+    """{leaf bytes: {variant: [ms, ms]}}: each SWEEP_LEAF_BYTES cut of the
+    part set's block under each variant, queued, in two passes in opposite
+    orders; the three variants' levels must agree word for word."""
+    block = b"".join(parts)
+    variants = {"bytes_chunk_%d" % mk.CHUNK: (mk.CHUNK, False),
+                "bytes_chunk_%d" % mk.LONG_LEAF_CHUNK: (mk.LONG_LEAF_CHUNK, False),
+                "words_chunk_%d" % mk.LONG_LEAF_CHUNK: (mk.LONG_LEAF_CHUNK, True)}
+    out = {}
+    for nbytes in SWEEP_LEAF_BYTES:
+        flat, offsets = mk.pack_leaves([block[i : i + nbytes]
+                                        for i in range(0, len(block), nbytes)], dev)
+        got = [levels_launch(mk, flat, offsets, *v) for v in variants.values()]
+        check(all(torch.equal(got[0], g) for g in got[1:]),
+              f"sha256 levels entry: the loads or chunks disagree at {nbytes}-byte leaves")
+        times = {k: [] for k in variants}
+        for order in (list(variants), list(variants)[::-1]):
+            for k in order:
+                times[k].append(time_queued(lambda: levels_launch(mk, flat, offsets, *variants[k]), 5))
+        out[nbytes] = times
+        print(f"sha256 levels entry, {offsets.shape[0] - 1} leaves of {nbytes} bytes (ms queued, "
+              f"two passes): {times}", flush=True)
+    return out
+
+
+def chain_floor_ms(offsets, clock_hz) -> float:
+    """The longest leaf's compressions one after another on one warp, which
+    issues at most one instruction a clock: SHA256_BLOCK_OPS each."""
+    lens = np.diff(offsets.cpu().numpy())
+    return int(((lens + 1 + 8) // 64 + 1).max()) * SHA256_BLOCK_OPS / clock_hz * 1e3
+
+
 def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
     """The sha256 kernel's levels entry (the counterpart of
     merkle_kernel._leaves_to_levels_core) against tree_levels_raw_plain,
-    every word, at the 65,536-leaf block, the 10,000-leaf ragged count and
-    the part set; times at 65,536 leaves and at the part set. The plain
-    version runs on the card, but for the part set on the CPU, on copies of
-    the same inputs: its 1,025 compressions a part run one after another,
-    each ~2,600 tiny tensor operations, which cost ~66 ms a compression on
-    the card (launch-bound; 68 s for the part set) against a few ms on the
-    CPU."""
+    every word, at the 65,536-leaf block, the 10,000-leaf ragged count, the
+    part set, the ragged part set and the short/long mix, each at the chunk
+    the wrapper picks; times at 65,536 leaves and at the part set, with the
+    part set's chain floor. The plain version runs on the card, but for the
+    long leaves on the CPU, on copies of the same inputs: its 1,025
+    compressions a part run one after another, each ~2,600 tiny tensor
+    operations, which cost ~66 ms a compression on the card (launch-bound;
+    68 s for the part set) against a few ms on the CPU."""
     from cometbft_tpu_torch.ops import merkle_kernel as mk
 
     out, err = {}, 0
-    for name, items in (("64k", leaves), ("10k", leaves[:N_RAGGED_LEAVES]), ("partset", parts)):
+    sets = {"64k": leaves, "10k": leaves[:N_RAGGED_LEAVES], **long_leaf_sets(leaves, parts)}
+    for name, items in sets.items():
         flat, offsets = mk.pack_leaves(items, dev)
+        long = mk.long_leaves(len(items), flat.numel())
+        chunk = mk.LONG_LEAF_CHUNK if long else mk.CHUNK
         got = mk.tree_levels_raw(flat, offsets)
-        plain_dev = "cpu" if name == "partset" else dev
+        plain_dev = dev if name in ("64k", "10k") else "cpu"
         t0 = time.perf_counter()
         want = mk.tree_levels_raw_plain(flat.to(plain_dev), offsets.to(plain_dev))
         torch.cuda.synchronize()
@@ -584,21 +674,27 @@ def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
         err = max(err, max_abs_err(got.cpu(), want.cpu()))
         check(got.shape == want.shape == (mk.level_rows(len(items))[-1][0] + 1, 8),
               f"sha256 levels entry: {name} levels have shape {tuple(got.shape)}")
-        if name == "10k":
+        print(f"sha256 levels entry, {name}: {len(items)} leaves, chunk {chunk}, word loads {long}, "
+              f"equal to the plain version: {err == 0}", flush=True)
+        if name not in ("64k", "partset"):
             continue
         t_b = levels_bound(mk, flat, offsets, sms, clock_hz)
         key = "levels" if name == "64k" else "levels_partset"
         out.update({
             f"{key}_ms": time_cuda(lambda: mk.tree_levels_raw(flat, offsets), 50 if name == "64k" else 5),
+            f"{key}_queued_ms": time_queued(lambda: mk.tree_levels_raw(flat, offsets),
+                                            50 if name == "64k" else 5),
             f"{key}_kernel_ms": kernel_ms(lambda: mk.tree_levels_raw(flat, offsets),
                                           20 if name == "64k" else 5, launches=2),
             f"{key}_plain_ms": plain, f"{key}_plain_device": str(plain_dev),
             f"{key}_bound_ms": t_b[0], f"{key}_bound_by": t_b[1],
-            f"{key}_shape": f"{len(items)} leaves of {len(items[0])} bytes, 2 launches, "
-                            f"{got.shape[0]} nodes out",
+            f"{key}_chain_floor_ms": chain_floor_ms(offsets, clock_hz),
+            f"{key}_shape": f"{len(items)} leaves of {len(items[0])} bytes, 2 launches (chunks of "
+                            f"{chunk}), {got.shape[0]} nodes out",
         })
     check(err == 0, f"sha256 levels entry != plain (max abs err {err})")
     out["levels_max_abs_err"] = err
+    out["levels_by_leaf_bytes"] = levels_by_leaf_bytes(mk, parts, dev)
     return out
 
 
@@ -897,35 +993,56 @@ def bn254_fixtures(bn):
 
 
 def compare_bn254(bn, dev, sms, clock_hz, rates):
-    """Phase 4 for bn254: the kernel against its plain version at 8,192
-    lanes (MAX_LANES), every lane equal mod P; returns its record."""
+    """Phase 4 for bn254: the kernel against its plain version at each of
+    BN254_LANE_COUNTS (the aggregate's 8,192-lane chunk, the 4,096-lane
+    bucket of its second, the 32-lane vote batch), edge lanes first, every
+    lane equal mod P; each count timed by events and held under the
+    one-thread-a-lane kernel's time; the launch's registers, local bytes
+    (which must be 0) and team shape printed, and the schedule's Fp
+    multiplies a lane beside the bound's. Returns its record, at 8,192
+    lanes (MAX_LANES)."""
     from cometbft_tpu_torch.ops import bn254_kernel as bk
+    from cometbft_tpu_torch.ops import bn254_schedule as bs
 
-    n = bk.MAX_LANES
-    ops = bk.operands_to_device(bk._pack(bn254_lanes(bn, n), n), dev)
-    got = bk.miller_values(*ops)
-    want = bk.miller_values_plain(*ops)
-    torch.cuda.synchronize()
-    check(bool(((got >= 0) & (got < 2**21) & (got == got.floor())).all()),
-          "bn254 kernel: output limbs are not canonical 21-bit limbs")
-    k, p = bk.limbs_to_ints(got.cpu().numpy()), bk.limbs_to_ints(want.cpu().numpy())
-    err = max(abs(int(a) - int(b)) for a, b in zip(k.ravel(), p.ravel()))
-    check(err == 0, f"bn254 kernel != plain mod P on {int((k != p).any(axis=(1, 2)).sum())} lanes")
-    cfg = bk.launch_config(n)
-    print(f"bn254 launch at {n} lanes: {cfg}", flush=True)
-    products = n * BN254_FP_MULS * BN254_FP_MUL_OPS
-    t_b = bound_ms(products, n * BN254_LANE_BYTES, sms, clock_hz)
-    return dict(
-        max_abs_err=err,
-        ms=time_cuda(lambda: bk.miller_values(*ops), 5),
-        kernel_ms=kernel_ms(lambda: bk.miller_values(*ops), reps=5),
-        plain_ms=time_cuda(lambda: bk.miller_values_plain(*ops), 1, warmup=0),
-        bound_ms=t_b[0], bound_by=t_b[1],
-        bound_ms_at_imad_wide_rate=products / (rates["IMAD.WIDE"]["rate"] * sms * clock_hz) * 1e3,
-        shape=f"{n} lanes x 102 steps, 1 thread a lane ({cfg['blocks']} blocks of "
-              f"{cfg['lanes_per_block']} lanes; {cfg['registers']} registers, "
-              f"{cfg['local_bytes']} local bytes a thread)",
-    )
+    lanes = bn254_lanes(bn, max(BN254_LANE_COUNTS))
+    rec = {"max_abs_err": 0, "ms_by_lanes": {}, "plain_ms_by_lanes": {}, "bound_ms_by_lanes": {},
+           "fp_muls_a_lane": {"bound": BN254_FP_MULS, "schedule": bs.lane_muls()}}
+    print(f"bn254 Fp multiplies a lane: {rec['fp_muls_a_lane']}", flush=True)
+    for n in BN254_LANE_COUNTS:
+        ops = bk.operands_to_device(bk._pack(lanes[:n], n), dev)
+        got = bk.miller_values(*ops)
+        want = bk.miller_values_plain(*ops)
+        torch.cuda.synchronize()
+        check(bool(((got >= 0) & (got < 2**21) & (got == got.floor())).all()),
+              f"bn254 kernel at {n} lanes: output limbs are not canonical 21-bit limbs")
+        k, p = bk.limbs_to_ints(got.cpu().numpy()), bk.limbs_to_ints(want.cpu().numpy())
+        err = max(abs(int(a) - int(b)) for a, b in zip(k.ravel(), p.ravel()))
+        check(err == 0, f"bn254 kernel != plain mod P at {n} lanes on "
+                        f"{int((k != p).any(axis=(1, 2)).sum())} lanes")
+        cfg = bk.launch_config(n)
+        check(cfg["local_bytes"] == 0, f"bn254 kernel spills: {cfg}")
+        ms = time_cuda(lambda: bk.miller_values(*ops), 5)
+        print(f"bn254 at {n} lanes: {ms:.4f} ms by events (one thread a lane: "
+              f"{ONE_THREAD_BN254_MS[n]}); launch {cfg}", flush=True)
+        check(ms < ONE_THREAD_BN254_MS[n], f"bn254 at {n} lanes: {ms:.3f} ms, not faster than one "
+                                           f"thread a lane's {ONE_THREAD_BN254_MS[n]} ms")
+        products = n * BN254_FP_MULS * BN254_FP_MUL_OPS
+        t_b = bound_ms(products, n * BN254_LANE_BYTES, sms, clock_hz)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["ms_by_lanes"][n] = ms
+        rec["plain_ms_by_lanes"][n] = time_cuda(lambda: bk.miller_values_plain(*ops), 1, warmup=0)
+        rec["bound_ms_by_lanes"][n] = t_b[0]
+        if n == bk.MAX_LANES:
+            rec.update(
+                ms=ms, kernel_ms=kernel_ms(lambda: bk.miller_values(*ops), reps=5),
+                plain_ms=rec["plain_ms_by_lanes"][n], bound_ms=t_b[0], bound_by=t_b[1],
+                bound_ms_at_imad_wide_rate=products / (rates["IMAD.WIDE"]["rate"] * sms * clock_hz) * 1e3,
+                shape=f"{n} lanes x 102 steps, {cfg['team']} threads a lane ({cfg['blocks']} blocks of "
+                      f"{cfg['lanes_per_block']} lanes in {cfg['threads']} threads; {cfg['registers']} "
+                      f"registers, {cfg['local_bytes']} local bytes a thread; {cfg['shared_bytes']} "
+                      f"shared bytes a block, {cfg['slots']} slots a lane)",
+            )
+    return rec
 
 
 def drive_bn254_path(fix, backend) -> dict:
@@ -1193,11 +1310,30 @@ def mesh_metrics(mesh_out, digests) -> dict:
             "traced_step": trace}
 
 
+def time_bn254_lanes() -> int:
+    """``--bn254-lanes``: only the bn254 kernel's time by events at each of
+    BN254_LANE_COUNTS, for the cometbft_tpu_torch beside this file (a copy
+    of it in an older checkout times that checkout's kernel, in the same
+    call as this one's). Prints {"bn254_ms_by_lanes": {lanes: ms}}."""
+    from cometbft_tpu_torch.crypto import bn254_pure as bn
+    from cometbft_tpu_torch.ops import bn254_kernel as bk
+
+    lanes = bn254_lanes(bn, max(BN254_LANE_COUNTS))
+    out = {}
+    for n in BN254_LANE_COUNTS:
+        ops = bk.operands_to_device(bk._pack(lanes[:n], n), torch.device("cuda"))
+        out[n] = time_cuda(lambda: bk.miller_values(*ops), 5)
+    print(json.dumps({"bn254_ms_by_lanes": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--bn254-lanes"]:
+        return time_bn254_lanes()
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -1219,9 +1355,11 @@ def main() -> int:
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}", flush=True)
     for line in _build.BUILD_LOG.splitlines():
-        entry = re.search(r"entry function '_Z\w*?\d+(\w+_kernel)(IL[ib](\d+)EE)?", line)
+        entry = re.search(r"entry function '_Z\w*?\d+(\w+_kernel)(I((?:L[ib]\d+E)+)E)?", line)
         if entry:
-            print(f"  {entry.group(1)}" + (f"<{entry.group(3)}>" if entry.group(3) else ""))
+            args = re.findall(r"L[ib](\d+)E", entry.group(3) or "")
+            name = re.search(r"[a-z_]+_kernel$", entry.group(1)).group(0)
+            print(f"  {name}" + (f"<{', '.join(args)}>" if args else ""))
         elif line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
     mixes = sass_mix(so)
@@ -1374,7 +1512,9 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"],
             "kernel_ms": rec["kernel_ms"],
             **{k: v for k, v in rec.items()
-               if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate", "digests")
+               if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate", "digests",
+                        "ms_by_lanes", "plain_ms_by_lanes", "bound_ms_by_lanes", "fp_muls_a_lane",
+                        "queued_ms")
                or k.startswith("levels")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

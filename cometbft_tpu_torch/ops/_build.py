@@ -55,7 +55,7 @@ _SIGNATURES = {
     "cmtpu_scalar_digits": [_P, _P, _P, _P, _I, _P],
     "cmtpu_sha256_leaf": [_P, _P, _P, _I, _I, _P],
     "cmtpu_sha256_inner": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
-    "cmtpu_sha256_tree_chunks": [_P, _P, _I, _I, _P, _P, _P],
+    "cmtpu_sha256_tree_chunks": [_P, _P, _I, _I, _P, _P, _I, _P],
     "cmtpu_sha256_tree_roots": [_P, _I, _I, _P, _I, _P],
     "cmtpu_sha256_digest_tree": [_P, _I, _I, _P, _P],
     "cmtpu_bn254_miller": [_P, _P, _P, _P, _P, _I, _P],

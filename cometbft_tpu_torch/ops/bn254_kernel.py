@@ -12,8 +12,10 @@ them (a 1-D ``lane`` mesh, one launch a card, counted as
 above the mesh floor, as the reference's routing does.
 
 On a CUDA tensor the loop is one launch of the hand-written ``bn254``
-kernel (``csrc/bn254.cu``: eight 32-bit words in Montgomery form, one
-thread a lane, canonical residues out as 13 limbs of 21 bits). On a CPU
+kernel (``csrc/bn254.cu``: eight 32-bit words in Montgomery form, a lane
+over a team of threads that walks the schedule ``ops/bn254_schedule.py``
+generates, the lane's state in shared memory, canonical residues out as 13
+limbs of 21 bits). On a CPU
 tensor it is ``miller_values_plain``: the reference's float64 program in
 PyTorch, with the same 13 x 21-bit limbs, carry rounds, fold tables
 (``_M_ROWS``, ``_C26``, ``_K13``) and one-hot scatter matrices. Every
@@ -330,14 +332,19 @@ def miller_values(p1, q, q1, q2) -> torch.Tensor:
     return out
 
 
+CONFIG_KEYS = ("blocks", "threads", "lanes_per_block", "registers", "local_bytes", "team",
+               "shared_bytes", "slots")
+
+
 def launch_config(n: int) -> dict:
-    """The kernel's launch shape for n lanes, and its registers and local
-    (spill and stack) bytes a thread (needs CUDA)."""
-    out = (ctypes.c_int * 5)()
+    """The kernel's launch shape for n lanes (blocks, threads, lanes a
+    block, threads a lane, dynamic shared bytes a block, slots a lane) and
+    its registers and local (spill and stack) bytes a thread (needs CUDA)."""
+    out = (ctypes.c_int * len(CONFIG_KEYS))()
     rc = _build.lib().cmtpu_bn254_config(n, ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"bn254 config: {_build.lib().cmtpu_error_string(rc).decode()}")
-    return dict(zip(("blocks", "threads", "lanes_per_block", "registers", "local_bytes"), out))
+    return dict(zip(CONFIG_KEYS, out))
 
 
 # -- host packing / dispatch -------------------------------------------------------

@@ -19,40 +19,54 @@
 // (R = 2^256); a multiply is CIOS: 64 32x32->64 products for a*b, 8 for
 // the quotient words and 64 for m*p, then one conditional subtraction, so
 // every value stays canonical (< p). Add and subtract correct by p with a
-// mask, no branch. Fp2 products are Karatsuba (3 multiplies); a product
-// by P's coordinates (Fp) is 2.
+// mask, no branch. The steps run them on PTX carry chains (below); the
+// conversions into and out of Montgomery form and the lane's set-up keep
+// 64-bit C.
 //
-// What bounds it: operations. A lane runs 64 doubling steps (f^2: 21 Fp2
-// products, the doubling: 12 and 2 by Fp, the line: 18) and 38 addition
-// steps (36 set bits and the two Frobenius points: 13 and 2 by Fp, the
-// line 18), plus 26 conversions into and out of Montgomery form: 13,760
-// Fp multiplies of 136 products each, against 1,456 bytes in and 1,248
-// out. The ate bit is a constant, uniform over the lanes, so the kernel
+// What bounds it: operations. A lane runs 64 doubling steps of 145 Fp
+// multiplies (f^2: 6 Fp2 squares of 2 and 15 Karatsuba products of 3; the
+// doubling 34; the tangent times f 54) and 38 addition steps of 94 (the
+// addition 40, the chord times f 54), plus 26 conversions into and out of
+// Montgomery form: 12,878 multiplies of 136 products each, against 1,456
+// bytes in and 1,248 out.
+//
+// Design: a lane over a team of kTeam threads of one warp
+// (bn254_schedule.cuh, generated by ops/bn254_schedule.py). The lane's
+// state (f, T, the point being added, yp, 2 yp, -xp) and its temporaries
+// are slots of eight words in dynamic shared memory, kSlots a lane; a
+// thread holds only the operands and accumulator of its own multiply in
+// registers, so nothing spills. A step is a table of positions: at each,
+// every team thread does one multiply, or one add or subtract, or nothing,
+// on the slots its entry names; a round of positions ends in __syncwarp
+// over the team, and the generator lets no thread read in a round what
+// another writes in it. f^2 (63 multiplies' worth, 57 here) and the
+// doubling of T (34) are independent, so the doubling step overlaps them:
+// 145 multiplies in 19 multiply positions, against 157 in a row for one
+// thread a lane. Every team walks the same table, so a warp diverges only
+// where a thread has nothing to do; the tables are staged in shared
+// memory (a warp reading different __constant__ addresses serialises).
+// The ate bit is a constant, uniform over the lanes, so the kernel
 // branches on it (the reference computes the addition at every bit and
-// selects); no warp diverges.
-//
-// Design, simple first: one thread a lane over a balanced grid (grid.cuh:
-// one block per SM, ceil(n / SMs) lanes). A lane's state is about 200
-// words (f 96, T 48, Q 32, P 16) before temporaries, so f and the
-// Frobenius points live in local memory (L1), indexed by loops that are
-// not unrolled, and T, P and the line stay in registers as far as the
-// register file allows; ptxas's -v line says what spilled. One doubling
-// step and one addition step are inlined once each, and the loop walks
-// the step sequence, so the code stays small. At 8,192 lanes the card
-// holds two warps an SM: latency, not issue, is what this design leaves on
-// the table (PERF.md).
+// selects). One block of up to 64 lanes (512 threads) a SM, a balanced
+// grid: at 8,192 lanes 131 blocks of 63 lanes, 16 warps an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bn254_schedule.cuh"
 #include "grid.cuh"
 
 using namespace cmtpu;
+using namespace bn254_schedule;
 
 namespace {
 
-constexpr int kMaxThreads = 128;
+static_assert(kTeam >= 1 && kTeam < 32 && 32 % kTeam == 0, "a team is a power of two inside a warp");
+constexpr int kMaxLanes = 64;  // lanes a block: 512 threads at kTeam = 8
+constexpr int kMaxThreads = kMaxLanes * kTeam;
 constexpr int kLimbs = 13;  // 21-bit limbs of the operands and the output
+constexpr int kTableBytes = (kTableWords * 4 + 15) / 16 * 16;
+constexpr int kLaneBytes = kSlots * 32;
 
 // p, little-endian 32-bit words; -p^-1 mod 2^32; R^2 mod p (R = 2^256)
 __constant__ uint32_t kP[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
@@ -61,14 +75,8 @@ constexpr uint32_t kPInv = 0xe4866389u;
 __constant__ uint32_t kR2[8] = {0x538afa89u, 0xf32cfc5bu, 0xd44501fbu, 0xb5e71911u,
                                 0x0a417ff6u, 0x47ab1effu, 0xcab8351fu, 0x06d89f71u};
 
-// 6t + 2 below its top bit (bit 64): the 64 ate bits the loop walks, MSB first.
-constexpr uint64_t kAteLow = 0x9d797039be763ba8ull;
-
 struct Fp {
   uint32_t w[8];
-};
-struct Fp2 {
-  Fp a, b;  // a + b u, u^2 = -1
 };
 
 __device__ __forceinline__ Fp fp_zero() {
@@ -163,39 +171,114 @@ __device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b) {
   return fp_reduce_once(s, t[8]);
 }
 
-__device__ __forceinline__ Fp2 f2_add(const Fp2& x, const Fp2& y) {
-  return {fp_add(x.a, y.a), fp_add(x.b, y.b)};
-}
-__device__ __forceinline__ Fp2 f2_sub(const Fp2& x, const Fp2& y) {
-  return {fp_sub(x.a, y.a), fp_sub(x.b, y.b)};
-}
-__device__ __forceinline__ Fp2 f2_dbl(const Fp2& x) { return f2_add(x, x); }
-__device__ __forceinline__ Fp2 f2_neg(const Fp2& x) {
-  const Fp z = fp_zero();
-  return {fp_sub(z, x.a), fp_sub(z, x.b)};
-}
-__device__ __forceinline__ Fp2 f2_zero() { return {fp_zero(), fp_zero()}; }
+// The steps' multiply, add and subtract on PTX carry chains (mad.lo.cc /
+// madc.hi.cc, add.cc, sub.cc): a 32x32 product's halves are two full-rate
+// IMADs with the carry in a flag, where the 64-bit form above is a
+// half-rate IMAD.WIDE and two adds for its carry. Steps on the 64-bit form
+// took 5.31-5.34 ms against 4.70-4.74 at 8,192 lanes (an H100 80GB HBM3 at
+// 700 W, chip_smoke.py), so it was dropped from them.
 
-// Karatsuba: (a - b, c - a - b) with a = x.a y.a, b = x.b y.b,
-// c = (x.a + x.b)(y.a + y.b)
-__device__ __forceinline__ Fp2 f2_mul(const Fp2& x, const Fp2& y) {
-  const Fp a = fp_mul(x.a, y.a);
-  const Fp b = fp_mul(x.b, y.b);
-  const Fp c = fp_mul(fp_add(x.a, x.b), fp_add(y.a, y.b));
-  return {fp_sub(a, b), fp_sub(fp_sub(c, a), b)};
+// t[0..8] += a[0..7] * b: the products' low halves into t[0..7], then their
+// high halves into t[1..8], one carry chain each (t < 2^288 throughout).
+__device__ __forceinline__ void mad_row(uint32_t (&t)[9], const uint32_t (&a)[8], uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32 %8, %16, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(b));
 }
 
-// x times an element of Fp (P's coordinates)
-__device__ __forceinline__ Fp2 f2_mul_fp(const Fp2& x, const Fp& s) {
-  return {fp_mul(x.a, s), fp_mul(x.b, s)};
+// s - p if s >= p else s, for s < 2p
+__device__ __forceinline__ Fp fp_reduce_cc(const Fp& s) {
+  Fp d;
+  uint32_t br;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(d.w[0]), "=r"(d.w[1]), "=r"(d.w[2]), "=r"(d.w[3]), "=r"(d.w[4]), "=r"(d.w[5]),
+        "=r"(d.w[6]), "=r"(d.w[7]), "=r"(br)
+      : "r"(s.w[0]), "r"(s.w[1]), "r"(s.w[2]), "r"(s.w[3]), "r"(s.w[4]), "r"(s.w[5]), "r"(s.w[6]),
+        "r"(s.w[7]), "r"(kP[0]), "r"(kP[1]), "r"(kP[2]), "r"(kP[3]), "r"(kP[4]), "r"(kP[5]),
+        "r"(kP[6]), "r"(kP[7]));
+  Fp r;  // br is all ones when s < p: keep s
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = (s.w[i] & br) | (d.w[i] & ~br);
+  return r;
 }
 
-// x (9 + u) = (9 x.a - x.b) + (x.a + 9 x.b) u
-__device__ __forceinline__ Fp2 f2_mul_xi(const Fp2& x) {
-  Fp2 x8 = f2_dbl(f2_dbl(f2_dbl(x)));
-  const Fp a9 = fp_add(x8.a, x.a);
-  const Fp b9 = fp_add(x8.b, x.b);
-  return {fp_sub(a9, x.b), fp_add(x.a, b9)};
+__device__ __forceinline__ Fp fp_mul_cc(const Fp& a, const Fp& b) {
+  uint32_t t[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p[j] = kP[j];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mad_row(t, a.w, b.w[i]);
+    mad_row(t, p, t[0] * kPInv);  // t[0] becomes 0: shift it out
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[8] = 0;
+  }
+  Fp s;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s.w[i] = t[i];
+  return fp_reduce_cc(s);
+}
+
+__device__ __forceinline__ Fp fp_addsub_cc(const Fp& a, const Fp& b, bool sub) {
+  Fp nb, s;
+  asm("sub.cc.u32 %0, %8, %16;\n\t"
+      "subc.cc.u32 %1, %9, %17;\n\t"
+      "subc.cc.u32 %2, %10, %18;\n\t"
+      "subc.cc.u32 %3, %11, %19;\n\t"
+      "subc.cc.u32 %4, %12, %20;\n\t"
+      "subc.cc.u32 %5, %13, %21;\n\t"
+      "subc.cc.u32 %6, %14, %22;\n\t"
+      "subc.u32 %7, %15, %23;"
+      : "=r"(nb.w[0]), "=r"(nb.w[1]), "=r"(nb.w[2]), "=r"(nb.w[3]), "=r"(nb.w[4]), "=r"(nb.w[5]),
+        "=r"(nb.w[6]), "=r"(nb.w[7])
+      : "r"(kP[0]), "r"(kP[1]), "r"(kP[2]), "r"(kP[3]), "r"(kP[4]), "r"(kP[5]), "r"(kP[6]),
+        "r"(kP[7]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]),
+        "r"(b.w[6]), "r"(b.w[7]));
+  const uint32_t m = sub ? 0xffffffffu : 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) nb.w[i] = (nb.w[i] & m) | (b.w[i] & ~m);
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3]), "=r"(s.w[4]), "=r"(s.w[5]),
+        "=r"(s.w[6]), "=r"(s.w[7])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]),
+        "r"(a.w[7]), "r"(nb.w[0]), "r"(nb.w[1]), "r"(nb.w[2]), "r"(nb.w[3]), "r"(nb.w[4]),
+        "r"(nb.w[5]), "r"(nb.w[6]), "r"(nb.w[7]));
+  return fp_reduce_cc(s);  // a + (p - b) or a + b, below 2p
 }
 
 // 13 whole float64 limbs of 21 bits (value below 2^256) -> Montgomery form
@@ -233,193 +316,117 @@ __device__ __forceinline__ void store_fp(double* dst, const Fp& x) {
   }
 }
 
-__device__ __forceinline__ Fp2 load_fp2(const double* src) {
-  return {load_fp(src), load_fp(src + kLimbs)};
+__device__ __forceinline__ Fp get(const uint4* st, uint32_t s) {
+  const uint4 lo = st[2 * s], hi = st[2 * s + 1];
+  return {{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
 }
 
-// f^2 into g: the 21 products f_i f_j (i <= j, cross terms doubled), by
-// output coefficient k = (i + j) mod 6; i + j >= 6 folds through w^6 = xi.
-// Entries: i | j << 4 | (last of its k) << 8.
-__constant__ uint16_t kSqrPairs[21] = {
-    0x000, 0x051, 0x042, 0x133,                 // k = 0
-    0x010, 0x052, 0x143,                        // k = 1
-    0x020, 0x011, 0x053, 0x144,                 // k = 2
-    0x030, 0x021, 0x154,                        // k = 3
-    0x040, 0x031, 0x022, 0x155,                 // k = 4
-    0x050, 0x041, 0x132,                        // k = 5
-};
+__device__ __forceinline__ void put(uint4* st, uint32_t s, const Fp& v) {
+  st[2 * s] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  st[2 * s + 1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
 
-__device__ __forceinline__ void f12_sqr(const Fp2 (&f)[6], Fp2 (&g)[6]) {
-  Fp2 lo = f2_zero(), hi = f2_zero();
-  int k = 0;
+// One step of the team's schedule: thread t runs column t of the table's
+// positions on its lane's slots st.
+__device__ __forceinline__ void run_step(const uint32_t* tbl, int positions, uint4* st, int t,
+                                         unsigned mask) {
 #pragma unroll 1
-  for (int e = 0; e < 21; ++e) {
-    const int ent = kSqrPairs[e];
-    const int i = ent & 15, j = (ent >> 4) & 15;
-    Fp2 prod = f2_mul(f[i], f[j]);
-    if (i != j) prod = f2_dbl(prod);
-    if (i + j >= 6) {
-      hi = f2_add(hi, prod);
-    } else {
-      lo = f2_add(lo, prod);
+  for (int p = 0; p < positions; ++p) {
+    const uint32_t e = tbl[p * kTeam + t];
+    const uint32_t op = (e >> 24) & 3u;
+    if (op == kMul) {
+      const Fp a = get(st, (e >> 8) & 255u), b = get(st, e & 255u);
+      put(st, (e >> 16) & 255u, fp_mul_cc(a, b));
+    } else if (op != kNop) {
+      const Fp a = get(st, (e >> 8) & 255u), b = get(st, e & 255u);
+      put(st, (e >> 16) & 255u, fp_addsub_cc(a, b, op == kSub));
     }
-    if (ent >> 8) {
-      g[k++] = f2_add(lo, f2_mul_xi(hi));
-      lo = f2_zero();
-      hi = f2_zero();
-    }
+    if (e >> 31) __syncwarp(mask);
   }
 }
 
-// f times the sparse line c0 + c1 w + c3 w^3, into g
-__device__ __forceinline__ void f12_mul_line(const Fp2 (&f)[6], const Fp2 (&c)[3], Fp2 (&g)[6]) {
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    bn254_team_kernel(const double* __restrict__ p1, const double* __restrict__ qa,
+                      const double* __restrict__ q1a, const double* __restrict__ q2a,
+                      double* __restrict__ out, int n, int lanes_per_block) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  for (int i = threadIdx.x; i < kTableWords; i += blockDim.x) smem[i] = kTable[i];
+  __syncthreads();
+  const int team = threadIdx.x / kTeam, t = threadIdx.x % kTeam;
+  const int lane = blockIdx.x * lanes_per_block + team;
+  if (team >= lanes_per_block || lane >= n) return;
+  const unsigned mask = ((1u << kTeam) - 1u) << ((threadIdx.x & 31) & ~(kTeam - 1));
+  uint4* st = reinterpret_cast<uint4*>(reinterpret_cast<char*>(smem) + kTableBytes) +
+              (size_t)team * kSlots * 2;
+  const double* q = qa + (size_t)lane * 4 * kLimbs;
+
+  // the lane's state: -xp, yp, 2 yp; Q and T = (xq, yq, 1); f = 1
 #pragma unroll 1
-  for (int k = 0; k < 6; ++k) {
-    Fp2 lo = f2_mul(f[k], c[0]);
-    const Fp2 t1 = f2_mul(f[k >= 1 ? k - 1 : k + 5], c[1]);
-    const Fp2 t3 = f2_mul(f[k >= 3 ? k - 3 : k + 3], c[2]);
-    Fp2 hi = f2_zero();
-    if (k >= 1) {
-      lo = f2_add(lo, t1);
-    } else {
-      hi = t1;
-    }
-    if (k >= 3) {
-      lo = f2_add(lo, t3);
-    } else {
-      hi = f2_add(hi, t3);
-    }
-    g[k] = f2_add(lo, f2_mul_xi(hi));
-  }
-}
-
-// Double T = (X, Y, Z) and the tangent at P scaled by Z^6:
-// c0 = 2 Y Z^3 yp, c1 = -3 X^2 Z^2 xp, c3 = 3 X^3 - 2 Y^2
-// (bn254_kernel.py:_dbl_and_line, step for step).
-__device__ __forceinline__ void dbl_and_line(Fp2& X, Fp2& Y, Fp2& Z, const Fp& xp, const Fp& yp,
-                                             Fp2 (&line)[3]) {
-  const Fp2 A = f2_mul(X, X);
-  const Fp2 Bv = f2_mul(Y, Y);
-  const Fp2 Z2 = f2_mul(Z, Z);
-  const Fp2 C = f2_mul(Bv, Bv);
-  const Fp2 xb = f2_add(X, Bv);
-  const Fp2 XB = f2_mul(xb, xb);
-  const Fp2 Z3p = f2_mul(Z2, Z);
-  const Fp2 YZ = f2_mul(Y, Z);
-  const Fp2 D = f2_dbl(f2_sub(f2_sub(XB, A), C));
-  const Fp2 E = f2_add(f2_dbl(A), A);
-  const Fp2 F2 = f2_mul(E, E);
-  const Fp2 EZ2 = f2_mul(E, Z2);
-  const Fp2 AX = f2_mul(A, X);
-  const Fp2 YZ3 = f2_mul(Y, Z3p);
-  const Fp2 X3 = f2_sub(F2, f2_dbl(D));
-  line[2] = f2_sub(f2_add(f2_dbl(AX), AX), f2_dbl(Bv));
-  const Fp2 EDX = f2_mul(E, f2_sub(D, X3));
-  line[0] = f2_dbl(f2_mul_fp(YZ3, yp));
-  line[1] = f2_neg(f2_mul_fp(EZ2, xp));
-  Y = f2_sub(EDX, f2_dbl(f2_dbl(f2_dbl(C))));
-  X = X3;
-  Z = f2_dbl(YZ);
-}
-
-// Mixed add T + Q (Q affine) and the chord through Q at P, scaled by Z^3:
-// c0 = H Z yp, c1 = -r xp, c3 = r xq - yq H Z
-// (bn254_kernel.py:_add_and_line, step for step).
-__device__ __forceinline__ void add_and_line(Fp2& X, Fp2& Y, Fp2& Z, const Fp2& xq, const Fp2& yq,
-                                             const Fp& xp, const Fp& yp, Fp2 (&line)[3]) {
-  const Fp2 Z2 = f2_mul(Z, Z);
-  const Fp2 Z3p = f2_mul(Z2, Z);
-  const Fp2 U2 = f2_mul(xq, Z2);
-  const Fp2 S2 = f2_mul(yq, Z3p);
-  const Fp2 H = f2_sub(U2, X);
-  const Fp2 r = f2_sub(S2, Y);
-  const Fp2 H2 = f2_mul(H, H);
-  const Fp2 rsq = f2_mul(r, r);
-  const Fp2 ZH = f2_mul(Z, H);
-  const Fp2 H3 = f2_mul(H2, H);
-  const Fp2 V = f2_mul(X, H2);
-  line[2] = f2_sub(f2_mul(r, xq), f2_mul(yq, ZH));
-  line[0] = f2_mul_fp(ZH, yp);
-  line[1] = f2_neg(f2_mul_fp(r, xp));
-  const Fp2 X3 = f2_sub(f2_sub(rsq, H3), f2_dbl(V));
-  Y = f2_sub(f2_mul(r, f2_sub(V, X3)), f2_mul(Y, H3));
-  X = X3;
-  Z = ZH;
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-    bn254_miller_kernel(const double* __restrict__ p1, const double* __restrict__ qa,
-                        const double* __restrict__ q1a, const double* __restrict__ q2a,
-                        double* __restrict__ out, int n, int lanes_per_block) {
-  const int lane = blockIdx.x * lanes_per_block + threadIdx.x;
-  if (threadIdx.x >= lanes_per_block || lane >= n) return;
-
-  const Fp xp = load_fp(p1 + (size_t)lane * 2 * kLimbs);
-  const Fp yp = load_fp(p1 + (size_t)lane * 2 * kLimbs + kLimbs);
-  // Q, pi(Q), -pi^2(Q), each (x, y)
-  Fp2 q[3][2];
-  const double* srcs[3] = {qa, q1a, q2a};
-#pragma unroll 1
-  for (int s = 0; s < 6; ++s) {
-    q[s >> 1][s & 1] = load_fp2(srcs[s >> 1] + (size_t)lane * 4 * kLimbs + (s & 1) * 2 * kLimbs);
-  }
-  Fp one = fp_zero();
-  {
-    Fp r2;
+  for (int job = t; job < 8; job += kTeam) {
+    if (job == 0) {
+      put(st, kSlotNxp, fp_sub(fp_zero(), load_fp(p1 + (size_t)lane * 2 * kLimbs)));
+    } else if (job == 1) {
+      const Fp yp = load_fp(p1 + (size_t)lane * 2 * kLimbs + kLimbs);
+      put(st, kSlotYp, yp);
+      put(st, kSlotYp2, fp_add(yp, yp));
+    } else if (job < 6) {
+      const Fp v = load_fp(q + (job - 2) * kLimbs);  // xq.a, xq.b, yq.a, yq.b
+      put(st, kSlotQ + job - 2, v);
+      put(st, kSlotX + job - 2, v);  // X and Y follow each other
+    } else if (job == 6) {
+      Fp one = fp_zero();
+      one.w[0] = 1;
+      Fp r2;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) r2.w[i] = kR2[i];
-    Fp plain_one = fp_zero();
-    plain_one.w[0] = 1;
-    one = fp_mul(plain_one, r2);  // R mod p
+      for (int i = 0; i < 8; ++i) r2.w[i] = kR2[i];
+      one = fp_mul(one, r2);  // R mod p
+      put(st, kSlotZ, one);
+      put(st, kSlotZ + 1, fp_zero());
+      put(st, kSlotF, one);
+    } else {
+#pragma unroll 1
+      for (int k = 1; k < 12; ++k) put(st, kSlotF + k, fp_zero());
+    }
   }
-  Fp2 X = q[0][0], Y = q[0][1], Z = {one, fp_zero()};
-  Fp2 f[6], g[6];
-#pragma unroll 1
-  for (int k = 0; k < 6; ++k) f[k] = f2_zero();
-  f[0].a = one;
+  __syncwarp(mask);
 
-  // Steps: for each ate bit (MSB first) a doubling, then an addition of Q
-  // when the bit is set; then additions of pi(Q) and -pi^2(Q).
-  int bit = 63, tail = 0;
-  bool add_next = false;
+  const uint32_t* dbl = smem;
+  const uint32_t* add = smem + kDblPositions * kTeam;
 #pragma unroll 1
-  for (;;) {
-    int which;  // -1: doubling; else the index of the point to add
-    if (add_next) {
-      which = 0;
-      add_next = false;
-    } else if (bit >= 0) {
-      which = -1;
-      add_next = (kAteLow >> bit) & 1;
-      --bit;
-    } else if (tail < 2) {
-      which = ++tail;
-    } else {
-      break;
-    }
-    Fp2 line[3];
-    if (which < 0) {
-      f12_sqr(f, g);
+  for (int bit = kAteLen - 1; bit >= 0; --bit) {
+    run_step(dbl, kDblPositions, st, t, mask);
+    if ((kAteBits >> bit) & 1) run_step(add, kAddPositions, st, t, mask);
+  }
+  // the two Frobenius lines: pi(Q), then -pi^2(Q), in the point's slots
 #pragma unroll 1
-      for (int k = 0; k < 6; ++k) f[k] = g[k];
-      dbl_and_line(X, Y, Z, xp, yp, line);
-    } else {
-      add_and_line(X, Y, Z, q[which][0], q[which][1], xp, yp, line);
-    }
-    f12_mul_line(f, line, g);
-#pragma unroll 1
-    for (int k = 0; k < 6; ++k) f[k] = g[k];
+  for (int f = 0; f < 2; ++f) {
+    const double* src = (f ? q2a : q1a) + (size_t)lane * 4 * kLimbs;
+    for (int c = t; c < 4; c += kTeam) put(st, kSlotQ + c, load_fp(src + c * kLimbs));
+    __syncwarp(mask);
+    run_step(add, kAddPositions, st, t, mask);
   }
 
   double* dst = out + (size_t)lane * 12 * kLimbs;
-#pragma unroll 1
-  for (int k = 0; k < 6; ++k) {
-    store_fp(dst + (2 * k) * kLimbs, f[k].a);
-    store_fp(dst + (2 * k + 1) * kLimbs, f[k].b);
-  }
+  for (int s = t; s < 12; s += kTeam) store_fp(dst + s * kLimbs, get(st, kSlotF + s));
 }
 
-cudaError_t grid_for(int n, Grid* g) { return balanced_grid(n, 32, kMaxThreads, g); }
+// The launch for n lanes: a balanced grid of at most kMaxLanes lanes a
+// block, and fewer where the card's shared memory holds fewer; smem gets
+// the block's dynamic shared memory.
+cudaError_t grid_for(int n, Grid* g, int* smem) {
+  int dev, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int lanes_per_warp = 32 / kTeam;
+  int max_lanes = (optin - kTableBytes) / kLaneBytes;
+  if (max_lanes > kMaxLanes) max_lanes = kMaxLanes;
+  if (max_lanes < lanes_per_warp) return cudaErrorInvalidConfiguration;
+  err = balanced_grid(n, lanes_per_warp, max_lanes / lanes_per_warp * 32, g);
+  *smem = kTableBytes + g->lanes_per_block * kLaneBytes;
+  return err;
+}
 
 }  // namespace
 
@@ -428,26 +435,34 @@ cudaError_t grid_for(int n, Grid* g) { return balanced_grid(n, 32, kMaxThreads, 
 extern "C" int cmtpu_bn254_miller(const double* p1, const double* qa, const double* q1a,
                                   const double* q2a, double* out, int n, void* stream) {
   Grid g;
-  const cudaError_t err = grid_for(n, &g);
+  int smem;
+  cudaError_t err = grid_for(n, &g, &smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bn254_team_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  bn254_miller_kernel<<<g.blocks, g.threads, 0, (cudaStream_t)stream>>>(p1, qa, q1a, q2a, out, n,
-                                                                        g.lanes_per_block);
+  bn254_team_kernel<<<g.blocks, g.threads, smem, (cudaStream_t)stream>>>(p1, qa, q1a, q2a, out,
+                                                                         n, g.lanes_per_block);
   return (int)cudaGetLastError();
 }
 
-// The launch for n lanes and the kernel's resources: out[5] = blocks,
-// threads, lanes a block, registers a thread, local bytes a thread.
+// The launch for n lanes and the kernel's resources: out[8] = blocks,
+// threads, lanes a block, registers a thread, local bytes a thread, threads
+// a lane, dynamic shared bytes a block, slots a lane.
 extern "C" int cmtpu_bn254_config(int n, int* out) {
   Grid g;
-  cudaError_t err = grid_for(n, &g);
+  int smem;
+  cudaError_t err = grid_for(n, &g, &smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, bn254_miller_kernel);
+  err = cudaFuncGetAttributes(&attr, bn254_team_kernel);
   if (err != cudaSuccess) return (int)err;
   out[0] = g.blocks;
   out[1] = g.threads;
   out[2] = g.lanes_per_block;
   out[3] = attr.numRegs;
   out[4] = (int)attr.localSizeBytes;
+  out[5] = kTeam;
+  out[6] = smem;
+  out[7] = kSlots;
   return 0;
 }

@@ -37,11 +37,23 @@
 // registers and from 0.0476 to 0.0534 ms (a traced headline call on an
 // H100 80GB HBM3 at 700 W, chip_smoke.py).
 //
+// Long leaves (a block's 64 KiB parts: 1,025 compressions each, a chain
+// that cannot be split) take the levels entry's third instance, the input
+// kind kRawWords: each leaf is read in aligned words (leaf_hash_words), and
+// the wrapper launches chunks of 32 leaves, one warp a block, so the chains
+// spread a warp to an SM (336 parts: 11 blocks) where chunks of 256 put
+// eight warps of them on each of two SMs. Their floor is one part's chain
+// on one warp, ~1.16 ms; the part set's launch went from 9.0 to 2.13 ms,
+// of which the chunk took it to 4.01 and the word loads the rest (queued,
+// an H100 80GB HBM3 at 700 W, chip_smoke.py). The wrapper takes this
+// instance for leaves of 2 KiB or more on average
+// (merkle_kernel.LONG_LEAF_BYTES, where it starts to win).
+//
 // The digests entry (replaces cometbft_tpu/ops/merkle_kernel.py:214
 // merkle_root_pow2 over _tree_root_jit :200, and the subtree and top
 // reductions of cometbft_tpu/ops/sharded.py) is the same two launches from
-// leaf digests instead of raw leaves: under the second template flag
-// (kDigests) a thread of launch 1 loads its leaf's 8 big-endian words from
+// leaf digests instead of raw leaves: under the input kind kLeafDigests a
+// thread of launch 1 loads its leaf's 8 big-endian words from
 // int32[8, n] (word-major, so neighbouring threads read neighbouring words)
 // instead of hashing a leaf; launch 2 is the root path's, unchanged. Any
 // n >= 1, an odd node promoted as the raw-leaf tree does. Bound at 65,536
@@ -209,6 +221,72 @@ __device__ __forceinline__ void leaf_hash(uint32_t st[8], const uint8_t* __restr
   }
 }
 
+// SHA-256(0x00 || leaf) from aligned 32-bit loads: the levels entry's leaf
+// hash for long leaves (the wrapper's choice, with the chunk). Short leaves,
+// and the root path always, keep leaf_hash: on 65,536 short leaves the word
+// loads took the levels launch from 64 to 80 registers and from 0.0756 to
+// 0.0819 ms (device time, queued behind a sleep kernel; an H100 80GB HBM3
+// at 700 W, chip_smoke.py).
+//
+// Big-endian word t of block b covers message bytes q0 = 64 b + 4 t .. q0 +
+// 3, i.e. leaf bytes q0 - 1 .. q0 + 2 (byte -1 is the 0x00 prefix). From the aligned word al holding the leaf's first byte (sh = its
+// offset in it) they start at stream offset sh - 1 + q0 = 4 J + r, with r =
+// (sh + 3) & 3 and J = 16 b + t - (sh == 0): a funnel shift of aligned
+// words J and J + 1 and a byte swap. Only aligned words holding a byte of
+// the leaf are read (flat has no slack past its last leaf, and the word
+// before the first leaf is not flat's); in the first block and from the
+// one holding the leaf's end, bytes outside the leaf are masked off and
+// the 0x80 pad and the bit length go in in registers. The next block's
+// words are loaded before this block's compression, so their latency
+// hides behind it.
+__device__ __forceinline__ void load_words(uint32_t W[17], const uint32_t* al, long long j0,
+                                           long long jlast) {
+#pragma unroll
+  for (int k = 0; k < 17; ++k) {
+    const long long j = j0 + k;
+    W[k] = (j >= 0 && j <= jlast) ? __ldg(al + j) : 0u;
+  }
+}
+
+__device__ __forceinline__ void leaf_hash_words(uint32_t st[8], const uint8_t* __restrict__ leaf,
+                                                long long len) {
+  const long long mlen = len + 1;
+  const long long nb = (mlen + 8) / 64 + 1;
+  const unsigned long long bits = (unsigned long long)mlen * 8;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(leaf);
+  const uint32_t* al = reinterpret_cast<const uint32_t*>(addr & ~(uintptr_t)3);
+  const int sh = (int)(addr & 3);
+  const int r8 = 8 * ((sh + 3) & 3);
+  const long long d = sh == 0;
+  const long long jlast = len > 0 ? (sh + len - 1) >> 2 : -1;  // the last word holding a leaf byte
+  uint32_t W[17];
+  load_words(W, al, -d, jlast);
+  iv(st);
+#pragma unroll 1
+  for (long long b = 0; b < nb; ++b) {
+    uint32_t w[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) w[t] = __byte_perm(__funnelshift_r(W[t], W[t + 1], r8), 0, 0x0123);
+    if (b == 0 || 64 * b + 64 > len) {  // the prefix, the leaf's end, the pad, the length
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const long long q0 = 64 * b + 4 * t;
+        const long long keep = len + 1 - q0;  // message bytes q0 .. len are the leaf's
+        uint32_t mask = keep >= 4 ? 0xffffffffu : keep <= 0 ? 0u : 0xffffffffu << (8 * (4 - keep));
+        if (q0 == 0) mask &= 0x00ffffffu;
+        w[t] &= mask;
+        if (keep >= 0 && keep < 4) w[t] |= 0x80u << (8 * (3 - keep));
+      }
+      if (b == nb - 1) {
+        w[14] |= (uint32_t)(bits >> 32);
+        w[15] |= (uint32_t)bits;
+      }
+    }
+    if (b + 1 < nb) load_words(W, al, 16 * (b + 1) - d, jlast);
+    compress(st, w);
+  }
+}
+
 // Where a block's nodes go in the levels output (out null: no levels).
 struct Levels {
   uint32_t* out;    // int32[total, 8], or null
@@ -276,13 +354,17 @@ __device__ void reduce_nodes(uint32_t* nodes, int m, Levels lv, int steps) {
   }
 }
 
+// What a block of launch 1 reads for each leaf: the raw leaf, bytes one at
+// a time (leaf_hash) or in aligned words (leaf_hash_words), or its digest.
+enum LeafInput { kRawBytes, kRawWords, kLeafDigests };
+
 // Launch 1: block b hashes leaves [b C, min((b+1) C, n)) and writes their
 // subtree root to roots[b] (8 big-endian words); with kLevels, also levels
 // 0..c of its chunk.
-// With kDigests, block b loads digests [b C, min((b+1) C, n)) from
+// With kLeafDigests, block b loads digests [b C, min((b+1) C, n)) from
 // digests[8, n] instead (flat and offsets unused; kLevels is never set with
 // it).
-template <bool kLevels, bool kDigests>
+template <bool kLevels, int kInput>
 __global__ void tree_chunks_kernel(const uint8_t* __restrict__ flat,
                                    const long long* __restrict__ offsets, int n,
                                    uint32_t* __restrict__ roots, uint32_t* __restrict__ levels,
@@ -292,7 +374,7 @@ __global__ void tree_chunks_kernel(const uint8_t* __restrict__ flat,
   const long long first = (long long)blockIdx.x * C;
   const int m = (int)min((long long)C, n - first);
   const Levels lv{levels, 0, n, first};
-  if (kDigests) {
+  if (kInput == kLeafDigests) {
     if (i < m) {
 #pragma unroll
       for (int w = 0; w < 8; ++w) nodes[w * C + i] = digests[(size_t)w * n + first + i];
@@ -300,7 +382,11 @@ __global__ void tree_chunks_kernel(const uint8_t* __restrict__ flat,
   } else if (i < m) {
     const long long off = offsets[first + i];
     uint32_t st[8];
-    leaf_hash(st, flat + off, offsets[first + i + 1] - off);
+    if (kInput == kRawWords) {
+      leaf_hash_words(st, flat + off, offsets[first + i + 1] - off);
+    } else {
+      leaf_hash(st, flat + off, offsets[first + i + 1] - off);
+    }
 #pragma unroll
     for (int w = 0; w < 8; ++w) nodes[w * C + i] = st[w];
     if (kLevels) store_node(lv, i, st);
@@ -366,19 +452,17 @@ extern "C" int cmtpu_sha256_inner(const uint32_t* left, long long l_row, long lo
 // with chunks of C leaves (a power of two, 2..1024); roots is
 // uint32[ceil(n / C), 8] scratch, and the root is left in roots[0..7].
 // levels: null for the root alone, else int32[total, 8] for every level
-// (the header above), written by the two launches together.
+// (the header above), written by the two launches together; words nonzero
+// loads the leaves in aligned words (levels only).
 extern "C" int cmtpu_sha256_tree_chunks(const uint8_t* flat, const long long* offsets, int n,
-                                        int chunk, uint32_t* roots, uint32_t* levels,
+                                        int chunk, uint32_t* roots, uint32_t* levels, int words,
                                         void* stream) {
   const int nc = (n + chunk - 1) / chunk;
   const size_t smem = (size_t)chunk * 32;
-  if (levels) {
-    tree_chunks_kernel<true, false><<<nc, chunk, smem, (cudaStream_t)stream>>>(
-        flat, offsets, n, roots, levels, nullptr);
-  } else {
-    tree_chunks_kernel<false, false><<<nc, chunk, smem, (cudaStream_t)stream>>>(
-        flat, offsets, n, roots, nullptr, nullptr);
-  }
+  auto kernel = !levels ? tree_chunks_kernel<false, kRawBytes>
+                : words ? tree_chunks_kernel<true, kRawWords>
+                        : tree_chunks_kernel<true, kRawBytes>;
+  kernel<<<nc, chunk, smem, (cudaStream_t)stream>>>(flat, offsets, n, roots, levels, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -389,7 +473,7 @@ extern "C" int cmtpu_sha256_digest_tree(const uint32_t* digests, int n, int chun
                                         uint32_t* roots, void* stream) {
   const int nc = (n + chunk - 1) / chunk;
   const size_t smem = (size_t)chunk * 32;
-  tree_chunks_kernel<false, true><<<nc, chunk, smem, (cudaStream_t)stream>>>(
+  tree_chunks_kernel<false, kLeafDigests><<<nc, chunk, smem, (cudaStream_t)stream>>>(
       nullptr, nullptr, n, roots, nullptr, digests);
   return (int)cudaGetLastError();
 }

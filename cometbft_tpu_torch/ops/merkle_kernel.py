@@ -52,6 +52,16 @@ from cometbft_tpu_torch.ops import sha256_kernel as sha
 
 # Leaves a block of the tree entry's first launch hashes and reduces.
 CHUNK = 256
+# Long leaves (LONG_LEAF_BYTES or more on average, as a block's 64 KiB
+# parts) take the levels entry's word loads and chunks of LONG_LEAF_CHUNK:
+# one warp a block, so the leaves' compression chains spread over the SMs,
+# a warp on each, where chunks of CHUNK would put eight warps of them on
+# one SM. The switch lies where the long-leaf launch starts to win: a 21
+# MiB block cut into 2 KiB leaves took 0.284 ms under it against 0.345
+# under the short-leaf launch, cut into 1 KiB leaves 0.457 against 0.209
+# (queued, an H100 80GB HBM3 at 700 W, chip_smoke.py levels_by_leaf_bytes).
+LONG_LEAF_BYTES = 2048
+LONG_LEAF_CHUNK = 32
 
 
 def inner_core_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -195,9 +205,11 @@ def _check_count(n: int, chunk: int, what: str) -> int:
     return n
 
 
-def _launch_tree(flat, offsets, n: int, chunk: int, levels: torch.Tensor | None) -> torch.Tensor:
-    """The tree entry's two launches; ``levels`` None for the root alone.
-    Returns the chunk-root scratch, the root in row 0."""
+def _launch_tree(flat, offsets, n: int, chunk: int, levels: torch.Tensor | None,
+                 words: bool = False) -> torch.Tensor:
+    """The tree entry's two launches; ``levels`` None for the root alone,
+    ``words`` for the levels entry's word loads. Returns the chunk-root
+    scratch, the root in row 0."""
     _build.require_cuda("sha256", flat, dtype=torch.uint8)
     _build.require_cuda("sha256", offsets, dtype=torch.int64)
     if flat.device != offsets.device:
@@ -206,7 +218,7 @@ def _launch_tree(flat, offsets, n: int, chunk: int, levels: torch.Tensor | None)
     roots = torch.empty((nc, 8), dtype=torch.int32, device=flat.device)
     lv = 0 if levels is None else levels.data_ptr()
     _build.launch("sha256", "cmtpu_sha256_tree_chunks", flat.device,
-                  flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), lv)
+                  flat.data_ptr(), offsets.data_ptr(), n, chunk, roots.data_ptr(), lv, int(words))
     _build.launch("sha256", "cmtpu_sha256_tree_roots", flat.device,
                   roots.data_ptr(), nc, chunk, lv, n)
     return roots
@@ -271,17 +283,30 @@ def tree_levels_raw_plain(flat: torch.Tensor, offsets: torch.Tensor, chunk: int 
     return out
 
 
-def tree_levels_raw(flat: torch.Tensor, offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+def long_leaves(n: int, nbytes: int) -> bool:
+    """Whether n leaves of nbytes in all are long (``LONG_LEAF_BYTES`` or
+    more on average): the levels entry then reads them in aligned words,
+    in chunks of ``LONG_LEAF_CHUNK``."""
+    return nbytes >= LONG_LEAF_BYTES * n
+
+
+def tree_levels_raw(flat: torch.Tensor, offsets: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     """Every level of the RFC-6962 tree over n >= 1 raw leaves
-    (``pack_leaves``): int32[total, 8] in the ``level_rows`` layout. CPU
-    tensors take ``tree_levels_raw_plain``; CUDA tensors launch the
-    ``sha256`` kernel's tree entry twice with its levels output."""
+    (``pack_leaves``): int32[total, 8] in the ``level_rows`` layout, in
+    chunks of ``chunk`` leaves (when None, ``LONG_LEAF_CHUNK`` for long
+    leaves, else ``CHUNK``; the levels do not depend on it). CPU tensors
+    take ``tree_levels_raw_plain``; CUDA tensors launch the ``sha256``
+    kernel's tree entry twice with its levels output, long leaves read in
+    aligned words."""
+    long = long_leaves(offsets.shape[0] - 1, flat.numel())
+    if chunk is None:
+        chunk = LONG_LEAF_CHUNK if long else CHUNK
     n = _check_tree(offsets, chunk, "tree_levels_raw")
     if flat.device.type == "cpu":
         return tree_levels_raw_plain(flat, offsets, chunk)
     rows = level_rows(n)
     levels = torch.empty((rows[-1][0] + 1, 8), dtype=torch.int32, device=flat.device)
-    _launch_tree(flat, offsets, n, chunk, levels)
+    _launch_tree(flat, offsets, n, chunk, levels, long)
     return levels
 
 

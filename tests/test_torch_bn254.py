@@ -6,7 +6,8 @@
 - the plain Miller program (``ops/bn254_kernel.miller_values_plain``)
   against the reference's JAX program at bucket 8 on the same packed
   operands (the reference's ``_pack``, carried across by ``convert``):
-  limb-identical; ``multi_miller_values`` equal as ints, a lane at
+  limb-identical; the kernel's team schedule (``ops/bn254_schedule``'s
+  model) equal mod P; ``multi_miller_values`` equal as ints, a lane at
   infinity included;
 - ``Bn254DeviceBackend(device="cpu")`` decisions against the reference host
   engine (``verify_aggregate``, ``batch_verify_signatures``);
@@ -27,6 +28,7 @@ from cometbft_tpu.ops import bn254_kernel as jbk
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.crypto import bn254_pure as pure
 from cometbft_tpu_torch.ops import bn254_kernel as tbk
+from cometbft_tpu_torch.ops import bn254_schedule as tbs
 
 pytestmark = pytest.mark.torch_port
 
@@ -232,6 +234,13 @@ def test_plain_program_is_limb_identical_to_jax(jax_program):
     for lane in (0, 3):
         assert pure.final_exponentiation_fast(values[lane]) == pure.final_exponentiation_fast(
             pure.multi_miller_loop([lanes[lane]]))
+
+
+def test_team_model_equals_reference_program(jax_program):
+    """The kernel's team schedule, run over Python ints, against the
+    reference's program on the same lanes: equal mod P on every lane."""
+    lanes, _, want = jax_program
+    assert tbs.miller_values_model(lanes) == convert.bn254_values_from_jax(want)
 
 
 def test_multi_miller_values_equal_reference_with_a_lane_at_infinity(jax_program, monkeypatch):

@@ -3,7 +3,9 @@ kernel (ladder at every group width, decompress from raw words, sha512's
 challenge_digits and scalar_digits, sha256 with its leaf, inner, tree and
 levels entries, the bn254 Miller loop) is held to its plain PyTorch version
 on the same card, exactly (bn254: equal mod P), at small shapes and on the
-ZIP-215, scalar and field edge inputs, bn254 also at its 8,192-lane chunk;
+ZIP-215, scalar and field edge inputs, bn254 also at its 8,192-lane chunk
+and at counts that leave a warp's last teams without a lane (its launch
+with no local bytes), the levels entry also on long leaves (word loads);
 the launch counters must count each launch once (one launch a call, two
 sha256 launches a root and a proof set, one sha512, decompress and ladder
 launch a verify batch, one bn254 launch a chunk of an aggregate). The
@@ -258,6 +260,34 @@ def test_sha256_levels_entry_matches_plain(cuda, n, chunk):
     assert bytes(mk.levels_to_digests(got)[-1]) == hash_from_byte_slices(leaves)
 
 
+def _long_leaves(case):
+    """A part set at a small size (9 parts of 64 KiB, the last ragged) or a
+    mix of short leaves and long ones at unaligned starts."""
+    rng = np.random.default_rng(len(case))
+    if case == "parts":
+        return [rng.bytes(65_536) for _ in range(8)] + [rng.bytes(12_345)]
+    long_lengths = (65_536, 65_537, 4_095, 20_000, 65_535)
+    return [rng.bytes(long_lengths[i // 4 % 5] if i % 4 == 1 else TREE_LEAF_LENGTHS[i % 9])
+            for i in range(40)]
+
+
+@pytest.mark.parametrize("case", ["parts", "mix"])
+def test_sha256_levels_entry_long_leaves(cuda, case):
+    """The levels entry's word loads on long leaves (the mix's at unaligned
+    starts), at the chunk the wrapper picks (one warp a block): every word
+    equal to the plain version (on the CPU: a 64 KiB leaf is 1,025
+    compressions in a row), two launches, the root the host's."""
+    leaves = _long_leaves(case)
+    flat, offsets = mk.pack_leaves(leaves, cuda)
+    assert mk.long_leaves(len(leaves), flat.numel())
+    before = _build.LAUNCHES["sha256"]
+    got = mk.tree_levels_raw(flat, offsets)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sha256"] == before + 2
+    assert torch.equal(got.cpu(), mk.tree_levels_raw_plain(flat.cpu(), offsets.cpu()))
+    assert bytes(mk.levels_to_digests(got)[-1]) == hash_from_byte_slices(leaves)
+
+
 @pytest.mark.parametrize("n", [1, 2, 7, 100, 1000])
 def test_proofs_on_cuda_equal_host(cuda, n):
     items = [b"cuda-proof-%d" % i * (1 + i % 3) for i in range(n)]
@@ -323,10 +353,12 @@ def _bn254_lanes(n):
     return lanes
 
 
-@pytest.mark.parametrize("n", [8, 8192])
+@pytest.mark.parametrize("n", [5, 8, 33, 8192])
 def test_bn254_kernel_matches_plain(cuda, n):
-    """At bucket 8 and at the 8,192-lane chunk (MAX_LANES), edge lanes
-    first: every lane equal mod P, the kernel's limbs canonical."""
+    """At bucket 8, at the 8,192-lane chunk (MAX_LANES) and at counts that
+    leave a warp's last teams without a lane (5, 33: not a multiple of the
+    32 / team lanes a warp), edge lanes first: every lane equal mod P, the
+    kernel's limbs canonical."""
     ops = bk.operands_to_device(bk._pack(_bn254_lanes(n), n), cuda)
     before = _build.LAUNCHES["bn254"]
     got = bk.miller_values(*ops)
@@ -337,6 +369,19 @@ def test_bn254_kernel_matches_plain(cuda, n):
     assert bool(((got >= 0) & (got < 2**21) & (got == got.floor())).all())
     k, p = bk.limbs_to_ints(got.cpu().numpy()), bk.limbs_to_ints(want.cpu().numpy())
     assert (k == p).all()
+
+
+def test_bn254_launch_has_no_spills(cuda):
+    """The team kernel at 8,192 lanes: no local (spill) bytes, well under
+    255 registers, 8 threads a lane, one wave of blocks on the card."""
+    from cometbft_tpu_torch.ops import bn254_schedule as bs
+
+    cfg = bk.launch_config(8192)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cfg["local_bytes"] == 0 and cfg["registers"] <= 128
+    assert cfg["team"] == bs.TEAM and cfg["slots"] == bs.slots()
+    assert cfg["blocks"] <= sms and cfg["blocks"] * cfg["lanes_per_block"] >= 8192
+    assert cfg["threads"] >= cfg["lanes_per_block"] * cfg["team"]
 
 
 def _bn254_signers(m):

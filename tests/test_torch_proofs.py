@@ -104,6 +104,36 @@ def test_plain_levels_equal_reference_levels(n, chunk):
         == [True] * len(tmk.level_rows(n))
 
 
+def _part_set(n):
+    """n leaves in the shape of a block's parts at a small size: parts of
+    8 KiB, the last part ragged (1,234 bytes), two short leaves (an empty
+    one) among them, so the start of every leaf after them is unaligned."""
+    rng = np.random.default_rng(n)
+    items = [rng.bytes(8192) for _ in range(n - 3)] + [rng.bytes(1234)]
+    return items[:2] + [b"", rng.bytes(77)] + items[2:-1] + [items[-1]]
+
+
+@pytest.mark.parametrize("n", [7, 8])
+def test_levels_of_long_leaves_equal_reference(n):
+    """Long leaves (the levels entry's word loads and one warp a block):
+    the wrapper tells them from the leaves' bytes, and its levels at their
+    chunk equal the reference's (``_leaves_to_levels_core`` at a
+    power-of-two count, its level-by-level program otherwise) and the plain
+    version's at CHUNK."""
+    items = _part_set(n)
+    assert len(items) == n
+    flat, offsets = tmk.pack_leaves(items, "cpu")
+    assert tmk.long_leaves(n, flat.numel()) and not tmk.long_leaves(n, 100 * n)
+    got = tmk.tree_levels_raw(flat, offsets)
+    if n & (n - 1) == 0:
+        blocks, nblocks = jsha.pack_messages([b"\x00" + it for it in items])
+        ref = jmk._leaves_to_levels_jit(blocks.shape[0], n)(blocks, nblocks)
+    else:
+        ref = jmk.tree_levels(jmk.hash_leaves_device(items))
+    assert torch.equal(got, convert.levels_from_jax([np.asarray(lv) for lv in ref]))
+    assert torch.equal(got, tmk.tree_levels_raw_plain(flat, offsets))
+
+
 @pytest.mark.parametrize("n", [3, 100])
 def test_merkle_levels_bytes_equal_reference(n):
     assert tmk.merkle_levels_bytes(_items(n), device="cpu") == jmk.merkle_levels_bytes(_items(n))
