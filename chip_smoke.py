@@ -12,7 +12,10 @@ leaves and at a 21 MiB block's 336 parts of 64 KiB. The sidecar path is the
 port's entry point, ``SidecarServer`` over a local socket. The BN254 path is
 the aggregate-commit contract through ``Bn254DeviceBackend()``: one
 10,240-validator aggregate commit (README "Aggregate BLS commits") and a
-16-vote bitmap batch. In order:
+16-vote bitmap batch. The hybrid path is ``HybridBackend()`` (the card and
+the native host MSM) at the commit and block, and the chain path the
+supervised chains (``build_resilient()``, ``build_bn254_chain()``) with and
+without an injected fault. In order:
 
   1. prints the PyTorch version and the card (name, power limit);
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``;
@@ -65,7 +68,29 @@ the aggregate-commit contract through ``Bn254DeviceBackend()``: one
      and the 16-vote batch with one bad signature gives the exact bitmap in
      one launch; then the aggregate's stage split (parse and decompress,
      hash, pack, kernel, unpack, Fp12 product, final exponentiation);
-  9. runs the mesh path (the lane-split programs) on two virtual shards of
+  9. runs the hybrid path (counters zeroed after TorchBackend's answers):
+     ``HybridBackend()`` warmed as the sidecar warms it (the native host
+     library built, the card's walls at 128, 1,024 and 10,240), three forced
+     shares through ``_routed_call`` (0, all host; HYBRID_SPLIT, which puts
+     the corrupted commit's bad indices on both sides; the whole commit)
+     on the valid and the corrupted commit, each bitmap equal to
+     TorchBackend's, ``verify_and_root`` equal to TorchBackend's bitmap and
+     root, then HYBRID_CALLS planned calls; three launches a call with a
+     device share, none else; prints the planner's shares, ``last_timing``
+     and learned rates, then the medians of the hybrid, TorchBackend and
+     CpuBackend at the commit, the roots and ``verify_and_root``, the rate
+     seeds this run gives (``sidecar/backend.HOST_SIGS_PER_MS`` and the
+     card's two), and the same three medians (and the native MSM's) at the
+     smaller batches of HYBRID_SMALL_SIGS, each bitmap checked, with the
+     share the planner gave the card;
+ 10. runs the chain path (counters zeroed): ``build_resilient()`` serves
+     the commit, the corrupted commit and the root from ``hybrid`` with no
+     degradation; the hybrid wrapped in a ChaosBackend at error rate 1.0
+     degrades to ``cpu`` with the same bitmaps;
+     ``ResilientBackend(build_bn254_chain())`` serves the 16-vote batch's
+     exact bitmap from ``bn254-device`` (one bn254 launch), then, its
+     device tier wrapped at error rate 1.0, from ``bn254-host``;
+ 11. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -78,7 +103,7 @@ the aggregate-commit contract through ``Bn254DeviceBackend()``: one
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 10. prints the ``kernels`` line (launches summed over the paths, and by
+ 12. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero. Without CUDA it exits nonzero before
@@ -566,6 +591,7 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
         queued_ms=time_queued(lambda: mk.tree_root(flat, offsets), 50),
         plain_ms=time_cuda(lambda: mk.tree_root_plain(flat, offsets), 1, warmup=0),
         bound_ms=t_b[0], bound_by=t_b[1],
+        chain_floor_ms=chain_floor_ms(longest_leaf_blocks(offsets), nl, clock_hz),
         shape=f"{nl} leaves, 2 launches ({-(-nl // mk.CHUNK)} chunks of {mk.CHUNK})",
     )
     rec = records["sha256"]
@@ -575,7 +601,8 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
           f"{rec['queued_ms']} queued, {rec['ms']} by events (before: 0.0747-0.0753 CUPTI, 0.0780 "
           f"events); levels entry at 65,536 leaves: {rec['levels_kernel_ms']} CUPTI, "
           f"{rec['levels_queued_ms']} queued, {rec['levels_ms']} by events (before: 0.0755 CUPTI, "
-          f"0.0782-0.0783 events); at the part set: {rec['levels_partset_kernel_ms']} CUPTI, "
+          f"0.0782-0.0783 events); bound {rec['bound_ms']}, chain floor {rec['chain_floor_ms']} "
+          f"(levels {rec['levels_chain_floor_ms']}); at the part set: {rec['levels_partset_kernel_ms']} CUPTI, "
           f"{rec['levels_partset_queued_ms']} queued, {rec['levels_partset_ms']} by events (before: "
           f"9.001-9.055 events), bound {rec['levels_partset_bound_ms']}, chain floor "
           f"{rec['levels_partset_chain_floor_ms']}", flush=True)
@@ -639,11 +666,18 @@ def levels_by_leaf_bytes(mk, parts, dev) -> dict:
     return out
 
 
-def chain_floor_ms(offsets, clock_hz) -> float:
-    """The longest leaf's compressions one after another on one warp, which
-    issues at most one instruction a clock: SHA256_BLOCK_OPS each."""
+def longest_leaf_blocks(offsets) -> int:
+    """SHA-256 blocks of the longest leaf's 0x00 || leaf."""
     lens = np.diff(offsets.cpu().numpy())
-    return int(((lens + 1 + 8) // 64 + 1).max()) * SHA256_BLOCK_OPS / clock_hz * 1e3
+    return int(((lens + 1 + 8) // 64 + 1).max())
+
+
+def chain_floor_ms(leaf_blocks: int, n: int, clock_hz) -> float:
+    """The compressions a root of n leaves waits on one after another, on
+    one warp, which issues at most one instruction a clock
+    (SHA256_BLOCK_OPS each): the longest leaf's blocks, then 2 for each of
+    the ceil(log2 n) levels above the leaves."""
+    return (leaf_blocks + 2 * (n - 1).bit_length()) * SHA256_BLOCK_OPS / clock_hz * 1e3
 
 
 def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
@@ -688,7 +722,7 @@ def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
                                           20 if name == "64k" else 5, launches=2),
             f"{key}_plain_ms": plain, f"{key}_plain_device": str(plain_dev),
             f"{key}_bound_ms": t_b[0], f"{key}_bound_by": t_b[1],
-            f"{key}_chain_floor_ms": chain_floor_ms(offsets, clock_hz),
+            f"{key}_chain_floor_ms": chain_floor_ms(longest_leaf_blocks(offsets), len(items), clock_hz),
             f"{key}_shape": f"{len(items)} leaves of {len(items[0])} bytes, 2 launches (chunks of "
                             f"{chunk}), {got.shape[0]} nodes out",
         })
@@ -1109,6 +1143,230 @@ def bn254_stage_split(fix, bn, dev) -> dict:
 
 # Virtual shards of the one card the mesh phase runs on: NCCL puts no two
 # ranks on one card, so the split is held on repeats of one device.
+# The hybrid phase: the device share forced at the split (it puts 2 of the
+# corrupted commit's 5 bad indices on the device side, 3 on the host's), the
+# run of planned calls the rate model learns from, and the two commit sizes
+# the device's affine cost (a fixed ms plus a slope a signature) is fitted
+# through for the rate seeds.
+HYBRID_SPLIT = 4096
+HYBRID_CALLS = 8
+HYBRID_FIT_SIGS = (1024, N_SIGS)
+# Batches under the commit that the planner prices too: one signature (a
+# vote, a light-client header), a commit of a typical validator set, and a
+# large one.
+HYBRID_SMALL_SIGS = (1, 150, 1024)
+
+
+def drive_hybrid_path(fixtures, pure, torch_backend):
+    """The hybrid phase's checks (launches counted by the caller):
+    ``_routed_call`` at shares 0, HYBRID_SPLIT and the whole commit, on the
+    valid and the corrupted commit, each bitmap equal to TorchBackend's;
+    ``verify_and_root`` equal to TorchBackend's bitmap and root; then
+    HYBRID_CALLS planned calls; launch counts zeroed after TorchBackend's
+    answers and checked: three launches a call with a device share, none
+    else. Returns (the backend, the root, the plan record, the launches)."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar.backend import HybridBackend
+    from cometbft_tpu_torch.sidecar.service import DEFAULT_BUCKETS
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    n = len(pubs)
+    bad_msgs, bad_sigs, want_bad = corrupted_commit(pure, msgs, sigs)
+    check(min(want_bad) < HYBRID_SPLIT <= max(want_bad),
+          f"the split {HYBRID_SPLIT} leaves the bad indices {want_bad} on one side")
+    commits = {"valid": (msgs, sigs), "corrupted": (bad_msgs, bad_sigs)}
+    want = {k: torch_backend.batch_verify(pubs, m, s) for k, (m, s) in commits.items()}
+    check(want["corrupted"] == (False, [i not in want_bad for i in range(n)]),
+          "TorchBackend's corrupted-commit bitmap is not the expected one")
+    want_root = torch_backend.merkle_root(leaves)
+    hybrid = HybridBackend()
+    # As the sidecar serving it does: the native build (the hybrid routes to
+    # the card alone until it is done) and the card's walls at its buckets.
+    hybrid.warmup(DEFAULT_BUCKETS)
+    _build.reset_launches()
+    launched = 0
+    for share in (0, HYBRID_SPLIT, n):
+        for name, (m, s) in commits.items():
+            got, _ = hybrid._routed_call(pubs, m, s, share)
+            check(got == want[name], f"hybrid at share {share}, {name} commit: bitmap != TorchBackend's")
+            launched += share > 0
+    got, root = hybrid.verify_and_root(pubs, msgs, sigs, leaves)
+    launched += hybrid.last_share > 0
+    check(got == want["valid"] and root == want_root,
+          "hybrid verify_and_root: bitmap or root != TorchBackend's")
+    shares = []
+    for _ in range(HYBRID_CALLS):
+        check(hybrid.batch_verify(pubs, msgs, sigs) == want["valid"], "hybrid planned call: bitmap")
+        shares.append(hybrid.last_share)
+        launched += hybrid.last_share > 0
+    plan = {"shares": shares, "plan_now": hybrid._plan(n), "last_timing": hybrid.last_timing,
+            "dev_rate": hybrid._dev_rate, "host_rate": hybrid._host_rate,
+            "dev_overhead_ms": hybrid._dev_overhead, "bias": hybrid._bias,
+            "dev_wall_ms": {f"{b}x{w}": v for (b, w), v in hybrid._dev_wall.items()}}
+    return hybrid, want_root, plan, expect_launches(launched, 0, 0)
+
+
+def hybrid_metrics(fixtures, hybrid, torch_backend) -> dict:
+    """Medians of 5 at the headline commit and block: the hybrid, TorchBackend
+    and CpuBackend verify, the hybrid's (native) and TorchBackend's root, the
+    hybrid's verify_and_root beside TorchBackend's verify then root, the
+    hybrid forced to the HYBRID_SPLIT share (it moves the model); the rate
+    model's seeds from this run (host sigs/ms from CpuBackend; the device's
+    fixed ms and sigs/ms from TorchBackend's walls at HYBRID_FIT_SIGS, the
+    affine fit the planner assumes); and at each of HYBRID_SMALL_SIGS the
+    hybrid (bitmap checked, the card's share), TorchBackend, CpuBackend
+    and the native MSM alone."""
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.sidecar.backend import CpuBackend
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    n = len(pubs)
+    cpu = CpuBackend()
+
+    def median_ms(fn, reps=5):
+        return statistics.median(time_host(fn) for _ in range(reps))
+
+    out = {
+        "verify_ms": {
+            "hybrid": median_ms(lambda: hybrid.batch_verify(pubs, msgs, sigs)),
+            "torch": median_ms(lambda: torch_backend.batch_verify(pubs, msgs, sigs)),
+            "cpu": median_ms(lambda: cpu.batch_verify(pubs, msgs, sigs)),
+        },
+        "root_ms": {
+            "hybrid_native": median_ms(lambda: hybrid.merkle_root(leaves)),
+            "torch": median_ms(lambda: torch_backend.merkle_root(leaves)),
+        },
+        "verify_and_root_ms": {
+            "hybrid": median_ms(lambda: hybrid.verify_and_root(pubs, msgs, sigs, leaves)),
+            "torch": median_ms(lambda: (torch_backend.batch_verify(pubs, msgs, sigs),
+                                        torch_backend.merkle_root(leaves))),
+        },
+        "hybrid_share_after": hybrid.last_share,
+        "hybrid_last_timing": hybrid.last_timing,
+    }
+    out["verify_ms"]["hybrid_forced_split"] = median_ms(
+        lambda: hybrid._routed_call(pubs, msgs, sigs, HYBRID_SPLIT))
+    out["forced_split_last_timing"] = hybrid.last_timing
+    (n1, n2) = HYBRID_FIT_SIGS
+    w1 = median_ms(lambda: torch_backend.batch_verify(pubs[:n1], msgs[:n1], sigs[:n1]))
+    w2 = median_ms(lambda: torch_backend.batch_verify(pubs[:n2], msgs[:n2], sigs[:n2]))
+    slope = (w2 - w1) / (n2 - n1)
+    out["rate_seeds"] = {
+        "host_rate": n / out["verify_ms"]["cpu"],
+        "dev_rate": 1.0 / slope if slope > 0 else None,
+        "dev_overhead_ms": w1 - n1 * slope,
+        "torch_wall_ms": {n1: w1, n2: w2},
+    }
+    small = {}
+    for k in HYBRID_SMALL_SIGS:
+        p, m, s = pubs[:k], msgs[:k], sigs[:k]
+        check(hybrid.batch_verify(p, m, s) == (True, [True] * k),
+              f"hybrid at {k} signatures: bitmap")
+        small[k] = {"hybrid": median_ms(lambda: hybrid.batch_verify(p, m, s)),
+                    "hybrid_share": hybrid.last_share,
+                    "torch": median_ms(lambda: torch_backend.batch_verify(p, m, s)),
+                    "cpu": median_ms(lambda: cpu.batch_verify(p, m, s)),
+                    "native": median_ms(lambda: native.batch_verify(p, m, s))}
+    out["small_batches_ms"] = small
+    out["rates_after"] = {"dev_rate": hybrid._dev_rate, "host_rate": hybrid._host_rate}
+    return out
+
+
+def drive_chain_path(fixtures, pure, bn_fix, want_root):
+    """The chain phase's checks, launch counts zeroed first and checked:
+    ``build_resilient()`` serves the valid and the corrupted commit and the
+    root from ``hybrid``, nothing degraded; the hybrid wrapped in a
+    ChaosBackend at error rate 1.0 degrades to ``cpu`` with the same
+    bitmaps; ``ResilientBackend(build_bn254_chain())`` serves the 16-vote
+    batch's exact bitmap from ``bn254-device``, then, the device tier
+    wrapped at error rate 1.0, from ``bn254-host``. Returns (the launches,
+    a record)."""
+    from cometbft_tpu_torch.crypto.bn254 import build_bn254_chain
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar.chaos import ChaosBackend
+    from cometbft_tpu_torch.sidecar.supervisor import ResilientBackend, build_resilient
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    n = len(pubs)
+    bad_msgs, bad_sigs, want_bad = corrupted_commit(pure, msgs, sigs)
+    want_bits = {"valid": [True] * n, "corrupted": [i not in want_bad for i in range(n)]}
+    commits = {"valid": (msgs, sigs), "corrupted": (bad_msgs, bad_sigs)}
+    rec, launched, times = {}, 0, {}
+
+    _build.reset_launches()
+    chain = build_resilient()
+    names = [t.name for t in chain.tiers]
+    check(names == ["hybrid", "cpu"], f"build_resilient() chain {names}: unset CMTPU_SIDECAR_ADDR "
+                                      f"and CMTPU_FAULTS for this phase")
+    hybrid = chain.tiers[0].backend
+    check(chain.active_tier == "hybrid", f"active tier {chain.active_tier}, not hybrid")
+    for name, (m, s) in commits.items():
+        t0 = time.perf_counter()
+        ok, bits = chain.batch_verify(pubs, m, s)
+        times[f"chain_{name}"] = (time.perf_counter() - t0) * 1e3
+        launched += hybrid.last_share > 0
+        check(bits == want_bits[name] and ok == all(bits), f"chain, {name} commit: bitmap")
+    check(chain.merkle_root(leaves) == want_root, "chain root != TorchBackend's")
+    c = chain.counters()
+    check(c["active_tier"] == "hybrid" and c["degraded_calls"] == 0 and c["trips"] == 0
+          and c["deadline_exceeded"] == 0 and c["crosscheck_catches"] == 0
+          and c["tiers"]["hybrid"]["calls"] == 3,
+          f"the chain degraded with no fault injected: {c}")
+    rec["chain"] = c
+
+    chaos = ChaosBackend(hybrid, "error:1", seed=0)
+    injected = ResilientBackend([("hybrid", chaos), ("cpu", chain.tiers[1].backend)], backoff_ms=1)
+    for name, (m, s) in commits.items():
+        t0 = time.perf_counter()
+        ok, bits = injected.batch_verify(pubs, m, s)
+        times[f"injected_{name}"] = (time.perf_counter() - t0) * 1e3
+        check(bits == want_bits[name] and ok == all(bits), f"injected chain, {name} commit: bitmap")
+    c = injected.counters()
+    check(c["degraded_calls"] == 2 and chaos.injected["error"] >= 2 and c["crosscheck_catches"] == 0,
+          f"the injected chain did not degrade to cpu on each call: {c}")
+    rec["injected"] = c
+
+    votes = bn_fix["votes"]
+    want_votes = [i != BAD_VOTE for i in range(N_VOTES)]
+    bn_chain = ResilientBackend(build_bn254_chain())
+    check([t.name for t in bn_chain.tiers] == ["bn254-device", "bn254-host", "cpu"],
+          f"build_bn254_chain() tiers {[t.name for t in bn_chain.tiers]}")
+    t0 = time.perf_counter()
+    ok, bits = bn_chain.batch_verify(*votes)
+    times["bn254_chain_votes"] = (time.perf_counter() - t0) * 1e3
+    c = bn_chain.counters()
+    check(not ok and bits == want_votes and c["degraded_calls"] == 0
+          and c["tiers"]["bn254-device"]["calls"] == 1,
+          f"BN254 chain: bitmap {bits} or served by another tier than bn254-device: {c}")
+    rec["bn254_chain"] = c
+    tiers = build_bn254_chain()
+    bn_injected = ResilientBackend([("bn254-device", ChaosBackend(tiers[0][1], "error:1", seed=0)),
+                                    *tiers[1:]], backoff_ms=1)
+    t0 = time.perf_counter()
+    ok, bits = bn_injected.batch_verify(*votes)
+    times["bn254_injected_votes"] = (time.perf_counter() - t0) * 1e3
+    c = bn_injected.counters()
+    check(not ok and bits == want_votes and c["degraded_calls"] == 1
+          and c["tiers"]["bn254-host"]["calls"] == 1 and c["tiers"]["cpu"]["calls"] == 0,
+          f"injected BN254 chain: bitmap {bits} or not served by bn254-host: {c}")
+    rec["bn254_injected"] = c
+    rec["times_ms"] = times
+    return expect_launches(launched, 0, 1), rec
+
+
+def expect_launches(verify_calls: int, roots: int, bn254: int) -> dict:
+    """The launch counts since the last reset, checked against a path's
+    verify dispatches (three launches each), roots (two sha256 each) and
+    bn254 launches."""
+    from cometbft_tpu_torch.ops import _build
+
+    got = dict(_build.LAUNCHES)
+    want = {"ladder": verify_calls, "decompress": verify_calls, "sha512": verify_calls,
+            "sha256": 2 * roots, "bn254": bn254}
+    check(got == want, f"launches {got}, expected {want}")
+    return got
+
+
 N_SHARDS = 2
 
 
@@ -1145,9 +1403,12 @@ def compare_digests(leaves, merkle_oracle, dev, sms, clock_hz):
                                        for _ in range(3)) if t is not None), None),
         "queued_ms": time_queued(lambda: mk.digest_tree_root(digests), 50),
         "plain_ms": time_cuda(lambda: mk.digest_tree_root_plain(digests), 1, warmup=0),
-        "bound_ms": t_b[0], "bound_by": t_b[1], "max_abs_err": err,
-        "replaces": "cometbft_tpu/ops/merkle_kernel.py:214",
+        "bound_ms": t_b[0], "bound_by": t_b[1], "chain_floor_ms": chain_floor_ms(0, n, clock_hz),
+        "max_abs_err": err, "replaces": "cometbft_tpu/ops/merkle_kernel.py:214",
     }
+    print(f"sha256 digests entry, {n} digests: {rec['kernel_ms']} ms CUPTI, {rec['queued_ms']} "
+          f"queued, {rec['ms']} by events; bound {rec['bound_ms']}, chain floor "
+          f"{rec['chain_floor_ms']}", flush=True)
     return rec, digests
 
 
@@ -1467,6 +1728,18 @@ def main() -> int:
         "card": card,
     }), flush=True)
 
+    hybrid, root, plan, by_path["hybrid"] = drive_hybrid_path(fixtures, pure, backend)
+    print(f"hybrid path ok (shares 0, {HYBRID_SPLIT} and {N_SIGS}: bitmaps equal TorchBackend's; "
+          f"verify_and_root's root too); launches {by_path['hybrid']}; planner {json.dumps(plan)}",
+          flush=True)
+    hm = hybrid_metrics(fixtures, hybrid, backend)
+    print(json.dumps({"metric": "hybrid_verify_10k_commit_ms", "value": hm["verify_ms"]["hybrid"],
+                      **hm, "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    by_path["chain"], chain_rec = drive_chain_path(fixtures, pure, bn_fix, root)
+    print(f"chain path ok (hybrid serves, an injected error degrades to cpu with the same bitmaps; "
+          f"the BN254 chain serves from bn254-device, then bn254-host); launches {by_path['chain']}; "
+          f"{json.dumps(chain_rec)}", flush=True)
+
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(
         fixtures[5], hash_from_byte_slices, dev, props.multi_processor_count, clock_hz)
@@ -1513,6 +1786,7 @@ def main() -> int:
             "kernel_ms": rec["kernel_ms"],
             **{k: v for k, v in rec.items()
                if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate", "digests",
+                        "chain_floor_ms",
                         "ms_by_lanes", "plain_ms_by_lanes", "bound_ms_by_lanes", "fp_muls_a_lane",
                         "queued_ms")
                or k.startswith("levels")},

@@ -412,15 +412,19 @@ def _pool() -> _DeviceOwner:
 
 def batch_verify_submit(pubs, msgs, sigs, device=None):
     """Pack on the calling thread, dispatch on the device-owner thread,
-    return a collect() -> (ok, bitmap) closure. A dispatch routed to the
-    mesh is counted (``sharded_dispatches``, ``padded_lanes``)."""
+    return a collect() -> (ok, bitmap) closure; the hybrid backend runs its
+    host share between the two. ``collect.program_key`` is the (batch
+    bucket, block bucket) of the program that ran, so that a caller can
+    tell a first launch from a steady one. A dispatch routed to the mesh is
+    counted (``sharded_dispatches``, ``padded_lanes``)."""
     dev = resolve(device)
     n = len(pubs)
     operands, host_ok = pack_batch(pubs, msgs, sigs, mesh_width(dev))
+    key = _bucket_key(operands)
     fn, sharded = _route_for(operands, dev)
     if sharded:
         _mesh_count("sharded_dispatches")
-        _mesh_count("padded_lanes", _bucket_key(operands)[0] - n)
+        _mesh_count("padded_lanes", key[0] - n)
 
     def run():
         return fn(*operands).cpu().numpy()
@@ -432,6 +436,7 @@ def batch_verify_submit(pubs, msgs, sigs, device=None):
         results = [bool(host_ok[i] and dev_ok[i]) for i in range(n)]
         return all(results), results
 
+    collect.program_key = key
     return collect
 
 

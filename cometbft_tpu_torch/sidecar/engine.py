@@ -41,7 +41,7 @@ import sys
 import threading
 import time
 
-from cometbft_tpu_torch.sidecar.backend import VerifyBackend
+from cometbft_tpu_torch.sidecar.backend import CARD_DISPATCH_MS, CARD_SIGS_PER_MS, VerifyBackend
 
 # Priority classes, drained strict-priority (lower value wins).
 CLASS_CONSENSUS = 0  # vote admission / commit verification on the hot path
@@ -303,8 +303,9 @@ class VerificationEngine(VerifyBackend):
         cached = self._rate_cache
         if cached is not None:
             return cached
-        rate = _env_float("CMTPU_ENGINE_RATE", 100.0)
-        overhead = _env_float("CMTPU_ENGINE_OVERHEAD_MS", 8.0)
+        # Without a hybrid tier: the card's dispatch cost, measured on it.
+        rate = _env_float("CMTPU_ENGINE_RATE", CARD_SIGS_PER_MS)
+        overhead = _env_float("CMTPU_ENGINE_OVERHEAD_MS", CARD_DISPATCH_MS)
         stack = [self.inner]
         seen: set[int] = set()
         while stack:

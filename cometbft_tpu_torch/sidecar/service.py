@@ -4,7 +4,8 @@ processes.
 
 Counterpart of ``cometbft_tpu/sidecar/service.py``, copied, serving
 ``TorchBackend`` (``CMTPU_SIDECAR_DEVICE``: ``torch``, the default, on
-``cuda``, or ``cpu``; no fallback from one to the other). The wire bytes
+``cuda``; ``hybrid``, the card and the native host MSM; or ``cpu``; no
+fallback from one to another). The wire bytes
 are the reference's, so the reference's ``GrpcBackend`` (a node's
 ``CMTPU_BACKEND=grpc``) drives this server unchanged, as does the port's
 copy below. A hand-framed protocol, not grpcio: one length-prefixed write
@@ -57,7 +58,6 @@ import time
 
 from cometbft_tpu_torch.sidecar.backend import (
     LockedBackend,
-    TorchBackend,
     VerifyBackend,
     device_backend,
 )
@@ -175,7 +175,8 @@ class SidecarServer:
     (CMTPU_COALESCE=0 strips it): concurrent connections (many node
     processes) merge into single columnar dispatches with per-request
     bitmap slicing. The backend defaults to ``device_backend`` of
-    ``CMTPU_SIDECAR_DEVICE`` (``torch``, the card, unless it says ``cpu``).
+    ``CMTPU_SIDECAR_DEVICE`` (``torch``, the card, unless it says ``hybrid``
+    or ``cpu``).
     ``shutdown()`` ends every connection's handler thread and the
     scheduler's dispatcher."""
 
@@ -406,10 +407,12 @@ class SidecarServer:
     def warmup(self, buckets=DEFAULT_BUCKETS) -> None:
         """Build the kernels and run each program once at the given verify
         buckets (and the tree entry at block sizes), so the first real
-        commit pays no build and no first launch."""
-        if isinstance(self.backend, TorchBackend):
+        commit pays no build and no first launch (the hybrid's native
+        library too)."""
+        warm = getattr(self.backend, "warmup", None)
+        if warm is not None:
             with self._device_lock:
-                self.backend.warmup(buckets)
+                warm(buckets)
 
     @property
     def bound_addr(self) -> str:

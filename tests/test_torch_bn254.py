@@ -11,8 +11,9 @@
   infinity included;
 - ``Bn254DeviceBackend(device="cpu")`` decisions against the reference host
   engine (``verify_aggregate``, ``batch_verify_signatures``);
-- the reference seam: the port's backend as the first tier of a
-  ``ResilientBackend`` installed by ``bn254.set_bn254_backend``, under
+- the reference seam: the port's own chain (``crypto/bn254.build_bn254_chain``
+  under the port's ``ResilientBackend``, its device tier first) installed by
+  the reference's ``bn254.set_bn254_backend``, under
   ``types.validation.verify_commit`` on an aggregate commit.
 """
 
@@ -296,7 +297,8 @@ def test_batch_verify_bitmap_matches_reference(signers):
 
 
 def test_verify_commit_through_the_reference_seam():
-    from cometbft_tpu.sidecar.supervisor import ResilientBackend
+    from cometbft_tpu_torch.crypto.bn254 import build_bn254_chain
+    from cometbft_tpu_torch.sidecar.supervisor import ResilientBackend
     from cometbft_tpu.types import BlockID, Commit, Vote
     from cometbft_tpu.types.block import PRECOMMIT_TYPE, aggregate_commit
     from cometbft_tpu.types.cmttime import Time
@@ -324,11 +326,8 @@ def test_verify_commit_through_the_reference_seam():
     poisoned = copy.deepcopy(agg)
     poisoned.agg_signature = ref.aggregate_signatures([cs.signature for cs in sigs[:3]])
 
-    chain_backend = ResilientBackend(
-        [("bn254-torch", tbk.Bn254DeviceBackend(device="cpu")),
-         ("bn254-host", ref.Bn254HostBackend()), ("cpu", ref.Bn254ScalarBackend())],
-        crosscheck="off",
-    )
+    chain_backend = ResilientBackend(build_bn254_chain(device="cpu"), crosscheck="off")
+    assert [t.name for t in chain_backend.tiers] == ["bn254-device", "bn254-host", "cpu"]
     before = tbk.counters()["dispatches"]
     ref.set_bn254_backend(chain_backend)
     try:

@@ -1,6 +1,8 @@
-"""Boundaries of the port: it imports neither jax nor the JAX package, it
-never falls back to the CPU when CUDA is asked for, and a missing CUDA
-compiler is an error, not a silent switch to the plain versions."""
+"""Boundaries of the port: it imports neither jax nor the JAX package (the
+native loader, the supervisor, chaos and the BN254 chain included), it
+never falls back to the CPU when CUDA is asked for (the hybrid tier and the
+chains neither), and a missing CUDA compiler is an error, not a silent
+switch to the plain versions."""
 
 import pkgutil
 import subprocess
@@ -21,7 +23,9 @@ from cometbft_tpu_torch.ops import ladder
 from cometbft_tpu_torch.ops import merkle_kernel as tmk
 from cometbft_tpu_torch.ops import multihost, sharded
 from cometbft_tpu_torch.ops import sha512_kernel as ts5
+from cometbft_tpu_torch.crypto.bn254 import build_bn254_chain
 from cometbft_tpu_torch.sidecar.backend import TorchBackend, device_backend
+from cometbft_tpu_torch.sidecar.supervisor import build_resilient
 
 pytestmark = pytest.mark.torch_port
 
@@ -36,6 +40,7 @@ def _modules():
 
 
 def test_every_module_imports_without_jax():
+    """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
     mods = _modules()
     assert "cometbft_tpu_torch.ops.ladder" in mods and len(mods) >= 20
     assert {"cometbft_tpu_torch.ops.bn254_kernel", "cometbft_tpu_torch.crypto.bn254_pure"} <= set(mods)
@@ -46,10 +51,14 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.sidecar.service",
         "cometbft_tpu_torch.ops.sharded",
         "cometbft_tpu_torch.ops.multihost",
+        "cometbft_tpu_torch.native",
+        "cometbft_tpu_torch.sidecar.chaos",
+        "cometbft_tpu_torch.sidecar.supervisor",
+        "cometbft_tpu_torch.crypto.bn254",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'cometbft_tpu' or k.startswith('cometbft_tpu.'))\n"
         "print(repr(bad))\n"
@@ -76,6 +85,12 @@ def test_cuda_request_raises_without_a_card():
         tmk.proofs_from_byte_slices_device([b"a", b"b"])
     with pytest.raises(RuntimeError, match="CUDA"):
         device_backend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_backend("hybrid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_resilient()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_bn254_chain()
     with pytest.raises(RuntimeError, match="CUDA"):
         sharded.make_mesh(["cuda", "cuda"])
     with pytest.raises(RuntimeError, match="CUDA"):
