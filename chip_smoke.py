@@ -15,10 +15,19 @@ the aggregate-commit contract through ``Bn254DeviceBackend()``: one
 16-vote bitmap batch. The hybrid path is ``HybridBackend()`` (the card and
 the native host MSM) at the commit and block, and the chain path the
 supervised chains (``build_resilient()``, ``build_bn254_chain()``) with and
-without an injected fault. In order:
+without an injected fault. The auto path is the process default
+(``get_backend()`` under ``CMTPU_BACKEND=auto``), the fanout path the fleet
+tier (two port sidecars, one in another process, and the local hybrid), the
+proofs paths ``crypto/merkle``'s selection, and the tooling path the
+profiling endpoints, ``entry.py`` and the device probe. In order:
 
   1. prints the PyTorch version and the card (name, power limit);
-  2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``;
+  2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``; then
+     (after the issue rates of step 4 are measured) starts two processes
+     that load them: ``python -m cometbft_tpu_torch.sidecar`` on
+     127.0.0.1:0 (the fleet's remote shard, warmed) and ``python -m
+     cometbft_tpu_torch.probe.device``, and waits for both to be done with
+     their first use of the card before anything is timed;
   3. makes the fixtures from fixed seeds (keys, signatures, leaves, parts);
   4. holds each kernel against its plain PyTorch version on the card at the
      main path's shapes (exact equality; bn254 equal mod P), and times both
@@ -51,7 +60,7 @@ without an injected fault. In order:
      and its stage split, and traces one such call (``torch.profiler``:
      each kernel's device time, and the device's busy time over the call);
   6. runs the proofs path (counters zeroed just before): at each size the
-     root and every proof equal the host's ``proofs_from_byte_slices``,
+     root and every proof equal the host's ``proofs_from_byte_slices_pure``,
      every 97th proof and the last verify, two sha256 launches a proof set;
      then times ``proofs_64k_ms``, its stage split and the host's time;
   7. runs the sidecar path: ``SidecarServer`` on 127.0.0.1:0 in this
@@ -82,7 +91,11 @@ without an injected fault. In order:
      seeds this run gives (``sidecar/backend.HOST_SIGS_PER_MS`` and the
      card's two), and the same three medians (and the native MSM's) at the
      smaller batches of HYBRID_SMALL_SIGS, each bitmap checked, with the
-     share the planner gave the card;
+     share the planner gave the card; the roots at HYBRID_ROOT_LEAVES, the
+     native tree against the card (bytes equal, medians of 5), and the root
+     cost model's seeds they give (``CARD_ROOT_MS``, ``CARD_LEAVES_PER_MS``,
+     ``HOST_LEAVES_PER_MS``); the warmed hybrid's 65,536-leaf root must go
+     to the card (two sha256 launches);
  10. runs the chain path (counters zeroed): ``build_resilient()`` serves
      the commit, the corrupted commit and the root from ``hybrid`` with no
      degradation; the hybrid wrapped in a ChaosBackend at error rate 1.0
@@ -90,7 +103,27 @@ without an injected fault. In order:
      ``ResilientBackend(build_bn254_chain())`` serves the 16-vote batch's
      exact bitmap from ``bn254-device`` (one bn254 launch), then, its
      device tier wrapped at error rate 1.0, from ``bn254-host``;
- 11. runs the mesh path (the lane-split programs) on two virtual shards of
+ 11. runs the auto path: a fresh ``get_backend()`` under
+     ``CMTPU_BACKEND=auto`` (the coalesced chain, its hybrid warmed), then,
+     counts zeroed, the commit, the corrupted commit and AUTO_SIGS' smaller
+     batches, each bitmap equal to TorchBackend's, served by ``hybrid`` with
+     no degradation, the first 150-signature call with a share on the card;
+     medians of 5 beside TorchBackend's; ``set_backend(None)`` closes it;
+ 12. runs the fanout path: medians of the fleet's commit beside
+     TorchBackend's and its walls at FANOUT_FIT_SIGS (its fixed cost,
+     ``fanout.FANOUT_DISPATCH_MS``); counts zeroed, ``build_resilient()``
+     headed by ``fanout`` of width 3, exact bitmaps; the other process
+     killed, one redistribution and exact bits, the root failed over;
+ 13. runs the proofs paths (counts zeroed): the card and the native host
+     pass at the 65,536-leaf block and the part set, equal to the pure pass
+     on every 97th proof, medians of 3, and the default's path
+     (``crypto/merkle.DEVICE_PROOFS_DEFAULT``);
+ 14. runs the tooling (counts zeroed): ``PprofServer`` on port 0,
+     ``/debug/torch/memory`` after a headline call (allocated bytes on
+     cuda:0) and ``/debug/torch/trace?seconds=1`` during headline calls (a
+     trace written; whether it holds the ladder's record);
+     ``dryrun_multichip(2)``; ``entry()``; the device probe's PROBE OK;
+ 15. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -103,11 +136,12 @@ without an injected fault. In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 12. prints the ``kernels`` line (launches summed over the paths, and by
+ 16. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
-Any failure raises and exits nonzero. Without CUDA it exits nonzero before
-printing any result. It imports nothing of JAX or of ``cometbft_tpu``.
+Any failure raises and exits nonzero, and ends the processes it started.
+Without CUDA it exits nonzero before printing any result. It imports
+nothing of JAX or of ``cometbft_tpu``.
 """
 
 from __future__ import annotations
@@ -856,7 +890,7 @@ def proof_sets(fixtures) -> dict:
 def drive_proofs(fixtures, host) -> None:
     """The proofs path: proofs_from_byte_slices_device (on the card by
     default) at the three sizes, each root and every proof's total, index,
-    leaf hash and aunts equal to the host's proofs_from_byte_slices; every
+    leaf hash and aunts equal to the host's proofs_from_byte_slices_pure; every
     97th proof and the last verify against the root; two sha256 launches a
     proof set."""
     from cometbft_tpu_torch.ops import _build
@@ -866,7 +900,7 @@ def drive_proofs(fixtures, host) -> None:
         before = _build.LAUNCHES["sha256"]
         root, proofs = mk.proofs_from_byte_slices_device(items)
         check(_build.LAUNCHES["sha256"] - before == 2, f"{name} proofs: not two sha256 launches")
-        root_h, proofs_h = host.proofs_from_byte_slices(items)
+        root_h, proofs_h = host.proofs_from_byte_slices_pure(items)
         check(root == root_h and len(proofs) == len(proofs_h) == len(items),
               f"{name} proofs: root or count differs from the host's")
         for i, (pd, ph) in enumerate(zip(proofs, proofs_h)):
@@ -907,7 +941,7 @@ def proofs_metrics(fixtures, host, dev) -> dict:
 
     leaves = fixtures[5]
     runs = [time_host(lambda: mk.proofs_from_byte_slices_device(leaves)) for _ in range(5)]
-    oracle = [time_host(lambda: host.proofs_from_byte_slices(leaves)) for _ in range(3)]
+    oracle = [time_host(lambda: host.proofs_from_byte_slices_pure(leaves)) for _ in range(3)]
     splits = [proofs_stage_split(leaves, dev) for _ in range(3)]
     return {
         "metric": "proofs_64k_ms", "value": statistics.median(runs), "runs_ms": runs,
@@ -1192,8 +1226,11 @@ def drive_hybrid_path(fixtures, pure, torch_backend):
             launched += share > 0
     got, root = hybrid.verify_and_root(pubs, msgs, sigs, leaves)
     launched += hybrid.last_share > 0
+    roots = hybrid.last_root == "card"
     check(got == want["valid"] and root == want_root,
           "hybrid verify_and_root: bitmap or root != TorchBackend's")
+    check(hybrid.last_root == "card", f"the warmed hybrid put the {len(leaves)}-leaf root on the "
+                                      f"{hybrid.last_root}, not the card")
     shares = []
     for _ in range(HYBRID_CALLS):
         check(hybrid.batch_verify(pubs, msgs, sigs) == want["valid"], "hybrid planned call: bitmap")
@@ -1202,15 +1239,34 @@ def drive_hybrid_path(fixtures, pure, torch_backend):
     plan = {"shares": shares, "plan_now": hybrid._plan(n), "last_timing": hybrid.last_timing,
             "dev_rate": hybrid._dev_rate, "host_rate": hybrid._host_rate,
             "dev_overhead_ms": hybrid._dev_overhead, "bias": hybrid._bias,
-            "dev_wall_ms": {f"{b}x{w}": v for (b, w), v in hybrid._dev_wall.items()}}
-    return hybrid, want_root, plan, expect_launches(launched, 0, 0)
+            "dev_wall_ms": {f"{b}x{w}": v for (b, w), v in hybrid._dev_wall.items()},
+            "root_model": {"card_fixed_ms": hybrid._root_fixed,
+                           "card_leaves_per_ms": hybrid._card_leaf_rate,
+                           "host_leaves_per_ms": hybrid._host_leaf_rate}}
+    return hybrid, want_root, plan, expect_launches(launched, roots, 0)
+
+
+def medians_in_turns(fns: dict, reps: int = 21) -> dict:
+    """Median ms of each function, the functions called in turns (one of
+    each a round), so that a drift of the host's speed hits all alike; and
+    how many rounds the first function won."""
+    runs = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            runs[name].append(time_host(fn))
+    first, *rest = runs.values()
+    out = {name: statistics.median(r) for name, r in runs.items()}
+    out["rounds_first_won"] = sum(all(a < r[i] for r in rest) for i, a in enumerate(first))
+    out["rounds"] = reps
+    return out
 
 
 def hybrid_metrics(fixtures, hybrid, torch_backend) -> dict:
     """Medians of 5 at the headline commit and block: the hybrid, TorchBackend
-    and CpuBackend verify, the hybrid's (native) and TorchBackend's root, the
-    hybrid's verify_and_root beside TorchBackend's verify then root, the
-    hybrid forced to the HYBRID_SPLIT share (it moves the model); the rate
+    and CpuBackend verify; medians of 21 in turns: the hybrid's and
+    TorchBackend's root, the hybrid's verify_and_root beside TorchBackend's
+    verify then root; the hybrid forced to the HYBRID_SPLIT share (it moves
+    the model); the rate
     model's seeds from this run (host sigs/ms from CpuBackend; the device's
     fixed ms and sigs/ms from TorchBackend's walls at HYBRID_FIT_SIGS, the
     affine fit the planner assumes); and at each of HYBRID_SMALL_SIGS the
@@ -1232,15 +1288,17 @@ def hybrid_metrics(fixtures, hybrid, torch_backend) -> dict:
             "torch": median_ms(lambda: torch_backend.batch_verify(pubs, msgs, sigs)),
             "cpu": median_ms(lambda: cpu.batch_verify(pubs, msgs, sigs)),
         },
+        # Pairs compared in turns, 21 each: their difference is smaller than
+        # the host's drift over a phase.
         "root_ms": {
-            "hybrid_native": median_ms(lambda: hybrid.merkle_root(leaves)),
-            "torch": median_ms(lambda: torch_backend.merkle_root(leaves)),
+            **medians_in_turns({"hybrid": lambda: hybrid.merkle_root(leaves),
+                                "torch": lambda: torch_backend.merkle_root(leaves)}),
+            "hybrid_root_on": hybrid.last_root,
         },
-        "verify_and_root_ms": {
-            "hybrid": median_ms(lambda: hybrid.verify_and_root(pubs, msgs, sigs, leaves)),
-            "torch": median_ms(lambda: (torch_backend.batch_verify(pubs, msgs, sigs),
-                                        torch_backend.merkle_root(leaves))),
-        },
+        "verify_and_root_ms": medians_in_turns({
+            "hybrid": lambda: hybrid.verify_and_root(pubs, msgs, sigs, leaves),
+            "torch": lambda: (torch_backend.batch_verify(pubs, msgs, sigs),
+                              torch_backend.merkle_root(leaves))}),
         "hybrid_share_after": hybrid.last_share,
         "hybrid_last_timing": hybrid.last_timing,
     }
@@ -1269,7 +1327,38 @@ def hybrid_metrics(fixtures, hybrid, torch_backend) -> dict:
                     "native": median_ms(lambda: native.batch_verify(p, m, s))}
     out["small_batches_ms"] = small
     out["rates_after"] = {"dev_rate": hybrid._dev_rate, "host_rate": hybrid._host_rate}
+    out["roots_by_leaves"] = hybrid_roots(leaves, hybrid, torch_backend, median_ms)
     return out
+
+
+# Root sizes the root cost model is measured at: a small block, a mid-size
+# one and the headline block.
+HYBRID_ROOT_LEAVES = (1_000, 10_000, N_LEAVES)
+
+
+def hybrid_roots(leaves, hybrid, torch_backend, median_ms) -> dict:
+    """The root cost model's data: at each of HYBRID_ROOT_LEAVES the native
+    tree's and the card's (TorchBackend's) root, medians of 5, bytes equal,
+    and the hybrid's choice; the seeds they give (the host's leaves/ms at
+    the largest tree; the card's fixed ms and leaves/ms from the line
+    through the smallest and the largest)."""
+    from cometbft_tpu_torch import native
+
+    rows = {}
+    for k in HYBRID_ROOT_LEAVES:
+        ls = leaves[:k]
+        check(native.merkle_root(ls) == torch_backend.merkle_root(ls),
+              f"{k}-leaf root: the native tree and the card differ")
+        hybrid.merkle_root(ls)
+        rows[k] = {"native": median_ms(lambda: native.merkle_root(ls)),
+                   "card": median_ms(lambda: torch_backend.merkle_root(ls)),
+                   "hybrid_chose": hybrid.last_root}
+    lo, hi = min(rows), max(rows)
+    slope = (rows[hi]["card"] - rows[lo]["card"]) / (hi - lo)
+    seeds = {"HOST_LEAVES_PER_MS": hi / rows[hi]["native"],
+             "CARD_LEAVES_PER_MS": 1.0 / slope if slope > 0 else None,
+             "CARD_ROOT_MS": rows[lo]["card"] - lo * slope}
+    return {"rows": rows, "seeds": seeds}
 
 
 def drive_chain_path(fixtures, pure, bn_fix, want_root):
@@ -1307,6 +1396,7 @@ def drive_chain_path(fixtures, pure, bn_fix, want_root):
         launched += hybrid.last_share > 0
         check(bits == want_bits[name] and ok == all(bits), f"chain, {name} commit: bitmap")
     check(chain.merkle_root(leaves) == want_root, "chain root != TorchBackend's")
+    roots = hybrid.last_root == "card"
     c = chain.counters()
     check(c["active_tier"] == "hybrid" and c["degraded_calls"] == 0 and c["trips"] == 0
           and c["deadline_exceeded"] == 0 and c["crosscheck_catches"] == 0
@@ -1351,7 +1441,358 @@ def drive_chain_path(fixtures, pure, bn_fix, want_root):
           f"injected BN254 chain: bitmap {bits} or not served by bn254-host: {c}")
     rec["bn254_injected"] = c
     rec["times_ms"] = times
-    return expect_launches(launched, 0, 1), rec
+    return expect_launches(launched, roots, 1), rec
+
+
+# -- the process default, the fleet, the proofs paths, the tooling ---------------
+
+# Batches the process default serves: the commit, a typical validator set's
+# commit, one vote.
+AUTO_SIGS = (N_SIGS, 150, 1)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set (a str) or unset (None) environment variables for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def count_shares(hybrid) -> list:
+    """Record the hybrid's device share after each of its batch_verify calls
+    (three launches a call with a share): the calls of the chains' and the
+    fleet's threads."""
+    shares, inner = [], hybrid.batch_verify
+
+    def counted(pubs, msgs, sigs):
+        out = inner(pubs, msgs, sigs)
+        shares.append(hybrid.last_share)
+        return out
+
+    hybrid.batch_verify = counted
+    return shares
+
+
+def drive_auto_path(fixtures, pure, torch_backend) -> dict:
+    """The process default: a fresh ``get_backend()`` under
+    ``CMTPU_BACKEND=auto`` (built and warmed first, outside the launch
+    count), then, counts zeroed, the commit, the corrupted commit and the
+    batches of AUTO_SIGS, each bitmap equal to TorchBackend's; every call
+    served by the hybrid tier with no degradation; the first 150-signature
+    call with a share on the card; three launches a call with a device
+    share. Then medians of 5 beside the bare chain's, its hybrid tier's and
+    TorchBackend's, and set_backend(None) closes it (its dispatcher thread
+    ends)."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.sidecar.scheduler import CoalescingScheduler
+    from cometbft_tpu_torch.sidecar.supervisor import ResilientBackend
+
+    _, _, pubs, msgs, sigs, _, _ = fixtures
+    bad_msgs, bad_sigs, _ = corrupted_commit(pure, msgs, sigs)
+    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+        be.set_backend(None)
+        t0 = time.perf_counter()
+        auto = be.get_backend()
+        setup_s = time.perf_counter() - t0
+    check(isinstance(auto, CoalescingScheduler) and isinstance(auto.inner, ResilientBackend),
+          f"CMTPU_BACKEND=auto served {type(auto).__name__}, not the coalesced chain")
+    chain = auto.inner
+    check([t.name for t in chain.tiers] == ["hybrid", "cpu"], f"auto chain {chain.counters()['chain']}")
+    hybrid = be._hybrid_tier(chain)
+    warm = {(ek.bucket_for(b, hybrid._n_dev), hybrid._n_dev) for b in ek.WARM_BUCKETS}
+    check(warm <= set(hybrid._dev_wall), f"the default's hybrid was not warmed: {hybrid._dev_wall}")
+    shares = count_shares(hybrid)
+    cases = {"commit": (pubs, msgs, sigs), "corrupted": (pubs, bad_msgs, bad_sigs)}
+    cases.update({f"sigs_{k}": (pubs[:k], msgs[:k], sigs[:k]) for k in AUTO_SIGS[1:]})
+    want = {name: torch_backend.batch_verify(*case) for name, case in cases.items()}
+    _build.reset_launches()
+    first_share = {}
+    for name, (p, m, s) in cases.items():
+        check(auto.batch_verify(p, m, s) == want[name], f"auto, {name}: bitmap != TorchBackend's")
+        first_share[name] = hybrid.last_share
+    typical = f"sigs_{AUTO_SIGS[1]}"
+    check(first_share[typical] > 0,
+          f"the default's first {typical} call had no share on the card: {first_share}")
+    c = chain.counters()
+    check(c["active_tier"] == "hybrid" and c["degraded_calls"] == 0 and c["trips"] == 0
+          and c["crosscheck_catches"] == 0 and c["tiers"]["hybrid"]["calls"] == len(cases),
+          f"the default's chain degraded with no fault injected: {c}")
+    launches = expect_launches(sum(1 for sh in shares if sh > 0), 0, 0)
+
+    def median_ms(fn, reps=5):
+        return statistics.median(time_host(fn) for _ in range(reps))
+
+    # Where the default's time goes: the scheduler (auto against the bare
+    # chain), the supervisor's cross-check (the chain against its hybrid).
+    times = {}
+    for k in AUTO_SIGS:
+        p, m, s = pubs[:k], msgs[:k], sigs[:k]
+        times[k] = {"auto": median_ms(lambda: auto.batch_verify(p, m, s)),
+                    "auto_share": hybrid.last_share,
+                    "chain": median_ms(lambda: chain.batch_verify(p, m, s)),
+                    "hybrid": median_ms(lambda: hybrid.batch_verify(p, m, s)),
+                    "torch": median_ms(lambda: torch_backend.batch_verify(p, m, s))}
+    engine = auto.engine
+    be.set_backend(None)
+    check(be._backend is None and not engine._thread.is_alive(),
+          "set_backend(None) left the default's dispatcher running")
+    return {"launches": launches, "setup_s": setup_s, "first_share": first_share,
+            "times_ms": times, "counters": c,
+            "root_model": {"card_fixed_ms": hybrid._root_fixed,
+                           "card_leaves_per_ms": hybrid._card_leaf_rate,
+                           "host_leaves_per_ms": hybrid._host_leaf_rate}}
+
+
+def start_sidecar_process(device: str = "torch"):
+    """``python -m cometbft_tpu_torch.sidecar`` on 127.0.0.1:0, serving
+    ``CMTPU_SIDECAR_DEVICE=device`` (``TorchBackend()`` on the card) and
+    warmed, in a process of its own: started after this process built the
+    kernels (it loads the same library), read with ``sidecar_process_addr``."""
+    env = dict(os.environ, CMTPU_SIDECAR_ADDR="127.0.0.1:0", CMTPU_SIDECAR_DEVICE=device,
+               CMTPU_SIDECAR_WARM="1")
+    return subprocess.Popen([sys.executable, "-m", "cometbft_tpu_torch.sidecar"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def sidecar_process_addr(proc) -> str:
+    """The address the process printed, once its warm-up is complete."""
+    addr, lines = None, []
+    for line in proc.stdout:
+        lines.append(line)
+        m = re.search(r"sidecar: serving on (\S+)", line)
+        if m:
+            addr = m.group(1)
+        if "warmup complete" in line:
+            break
+    check(addr is not None and proc.poll() is None,
+          f"the sidecar process did not come up: {''.join(lines)[-3000:]}")
+    threading.Thread(target=proc.stdout.read, daemon=True).start()  # drain the rest
+    return addr
+
+
+# Fleet walls at these batch sizes give the dispatch's fixed cost.
+FANOUT_FIT_SIGS = (1024, N_SIGS)
+
+
+def drive_fanout_path(fixtures, pure, torch_backend, proc, remote, want_root) -> dict:
+    """The fleet tier on one card: two port sidecars (``proc``, another
+    process serving on ``remote``, and one in this process on 127.0.0.1:0,
+    both serving TorchBackend()) named by CMTPU_FANOUT_PEERS, and the local
+    hybrid.
+    ``build_resilient()`` is headed by ``fanout``. First the commit's median
+    of 5 beside TorchBackend's and the fleet's walls at FANOUT_FIT_SIGS;
+    then, counts zeroed, the commit's and the corrupted commit's bitmaps
+    equal TorchBackend's, the fleet's width the sum of its shards'; then
+    the other process is killed: the next commit
+    shows exactly one redistribution and exact bits, and the root fails
+    over past it (CMTPU_FANOUT_COOLDOWN_MS=0, so the dead shard is tried
+    again). Launches counted in this process: three a verify dispatch of
+    the in-process sidecar and a hybrid call with a device share, two a
+    root."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+    from cometbft_tpu_torch.sidecar.service import SidecarServer
+    from cometbft_tpu_torch.sidecar.supervisor import build_resilient
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    n = len(pubs)
+    bad_msgs, bad_sigs, want_bad = corrupted_commit(pure, msgs, sigs)
+    want = {"valid": (True, [True] * n), "corrupted": (False, [i not in want_bad for i in range(n)])}
+    server = SidecarServer("127.0.0.1:0", backend=TorchBackend()).start()
+    chain = None
+    try:
+        with environ(CMTPU_FANOUT_PEERS=f"{remote},{server.bound_addr}",
+                     CMTPU_FANOUT_COOLDOWN_MS="0", CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+            chain = build_resilient()
+        names = [t.name for t in chain.tiers]
+        check(names == ["fanout", "hybrid", "cpu"], f"fanout chain {names}")
+        fan, hybrid = chain.tiers[0].backend, chain.tiers[1].backend
+        check([s.name for s in fan.shards] == ["peer0", "peer1", "local"]
+              and fan.shards[2].backend is hybrid, f"fleet shards {fan.shard_widths()}")
+        rec, times = {}, {}
+        times["fanout_commit"] = [time_host(lambda: chain.batch_verify(pubs, msgs, sigs))
+                                  for _ in range(5)]
+        times["torch_commit"] = [time_host(lambda: torch_backend.batch_verify(pubs, msgs, sigs))
+                                 for _ in range(5)]
+        walls = {k: statistics.median(time_host(lambda: fan.batch_verify(pubs[:k], msgs[:k], sigs[:k]))
+                                      for _ in range(3)) for k in FANOUT_FIT_SIGS}
+        (k1, k2) = FANOUT_FIT_SIGS
+        slope = (walls[k2] - walls[k1]) / (k2 - k1)
+        rec["fit"] = {"walls_ms": walls, "fixed_ms": walls[k1] - k1 * slope,
+                      "sigs_per_ms_a_card": 1.0 / slope / fan.mesh_width() if slope > 0 else None}
+        shares = count_shares(hybrid)
+        _build.reset_launches()
+        d0 = server.scheduler_counters()["dispatches"]
+        for name, (m, s) in {"valid": (msgs, sigs), "corrupted": (bad_msgs, bad_sigs)}.items():
+            check(chain.batch_verify(pubs, m, s) == want[name], f"fanout chain, {name}: bitmap")
+        check(fan.mesh_width() == 3 and chain.mesh_width() == 3,
+              f"fleet width {fan.mesh_width()}, chain {chain.mesh_width()}: not the sum 3")
+        c = chain.counters()
+        check(c["active_tier"] == "fanout" and c["degraded_calls"] == 0
+              and fan.counters()["redistributions"] == 0, f"the fleet degraded unprovoked: {c}")
+        proc.kill()
+        proc.wait()
+        r0 = fan.counters()["redistributions"]
+        check(chain.batch_verify(pubs, msgs, sigs) == want["valid"],
+              "fanout chain after a shard died: bitmap")
+        fc = fan.counters()
+        check(fc["redistributions"] - r0 == 1 and chain.counters()["degraded_calls"] == 0,
+              f"a dead shard: expected one redistribution, fanout counters {fc}")
+        f0 = fc["shards"]["peer0"]["failures"]
+        check(chain.merkle_root(leaves) == want_root, "fanout root after failover")
+        fc = fan.counters()
+        check(fc["shards"]["peer0"]["failures"] == f0 + 1,
+              f"the root did not fail over past the dead shard: {fc}")
+        dispatches = server.scheduler_counters()["dispatches"] - d0
+        launches = expect_launches(dispatches + sum(1 for sh in shares if sh > 0), 1, 0)
+        rec.update({"launches": launches, "sidecar_dispatches": dispatches, "fanout": fc,
+                    "chain": chain.counters(), "times_ms": times})
+        return rec
+    finally:
+        if chain is not None:
+            chain.close()
+        server.shutdown()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+PROOF_PATH_SETS = ("64k", "partset")
+
+
+def drive_proofs_paths(fixtures, host) -> dict:
+    """crypto/merkle's proofs path selection at the 65,536-leaf block and
+    the part set: the card (CMTPU_DEVICE_PROOFS=1, two sha256 launches a
+    set) and the native host pass (=0, none), each root and every 97th
+    proof and the last equal to the pure pass, medians of 3 each; then the
+    default (unset) takes DEVICE_PROOFS_DEFAULT's path."""
+    from cometbft_tpu_torch.ops import _build
+
+    sets = proof_sets(fixtures)
+    out, device_calls = {}, 0
+    _build.reset_launches()
+    for name in PROOF_PATH_SETS:
+        items = sets[name]
+        root_p, proofs_p = host.proofs_from_byte_slices_pure(items)
+        row = {}
+        for path, env in (("device", "1"), ("host-native", "0")):
+            with environ(CMTPU_DEVICE_PROOFS=env):
+                root, proofs = host.proofs_from_byte_slices(items)
+                check(host.last_proofs_path == path,
+                      f"{name}: CMTPU_DEVICE_PROOFS={env} took {host.last_proofs_path}")
+                check(root == root_p and len(proofs) == len(items), f"{name}, {path}: root or count")
+                for i in list(range(0, len(items), 97)) + [len(items) - 1]:
+                    a, b = proofs[i], proofs_p[i]
+                    check((a.total, a.index, a.leaf_hash, list(a.aunts))
+                          == (b.total, b.index, b.leaf_hash, b.aunts), f"{name}, {path}: proof {i}")
+                row[path] = statistics.median(time_host(lambda: host.proofs_from_byte_slices(items))
+                                              for _ in range(3))
+                device_calls += 4 if path == "device" else 0
+        with environ(CMTPU_DEVICE_PROOFS=None):
+            host.proofs_from_byte_slices(items)
+            row["default"] = host.last_proofs_path
+            device_calls += host.last_proofs_path == "device"
+        out[name] = row
+    launches = expect_launches(0, device_calls, 0)
+    want = "device" if host.DEVICE_PROOFS_DEFAULT else "host-native"
+    check(all(r["default"] == want for r in out.values()), f"default proofs path: {out}")
+    return {"launches": launches, "ms": out, "default": want}
+
+
+def http_get(port: int, path: str) -> str:
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120).read().decode()
+
+
+def drive_tooling(fixtures, backend, probe_rc: int, probe_out: str) -> dict:
+    """The port's tooling, counts zeroed: PprofServer on port 0 (its index,
+    /debug/torch/memory after a headline call: allocated bytes on cuda:0,
+    /debug/torch/trace?seconds=1 taken during headline calls: a trace
+    written, and whether it holds the ladder's record);
+    ``dryrun_multichip(2)`` on the card; ``entry()``; and the device probe's
+    process (run after the build: its exit code and output) ended with PROBE
+    OK."""
+    import tempfile
+
+    from cometbft_tpu_torch.entry import dryrun_multichip, entry
+    from cometbft_tpu_torch.libs.pprof import PprofServer
+    from cometbft_tpu_torch.ops import _build
+
+    _, _, pubs, msgs, sigs, leaves, _ = fixtures
+    rec = {}
+    _build.reset_launches()
+    headlines = 0
+
+    def headline():
+        nonlocal headlines
+        backend.batch_verify(pubs, msgs, sigs)
+        backend.merkle_root(leaves)
+        headlines += 1
+
+    srv = PprofServer(port=0)
+    srv.start()
+    tdir = tempfile.mkdtemp(prefix="torch-trace-")
+    try:
+        index = http_get(srv.port, "/debug/pprof/")
+        check("/debug/torch/memory" in index and "/debug/torch/trace" in index, f"index: {index}")
+        headline()
+        mem = http_get(srv.port, "/debug/torch/memory")
+        m = re.search(r"^cuda:0 .*allocated_bytes\.all\.current=(\d+)", mem, re.M)
+        check(m is not None and int(m.group(1)) > 0, f"/debug/torch/memory: {mem[:500]}")
+        rec["allocated_bytes_cuda0"] = int(m.group(1))
+        box = {}
+        t = threading.Thread(target=lambda: box.update(
+            body=http_get(srv.port, f"/debug/torch/trace?seconds=1&dir={tdir}")))
+        t.start()
+        time.sleep(0.1)
+        while t.is_alive():
+            headline()
+        t.join()
+        body = box.get("body", "")
+        m = re.search(r"trace written to (\S+):", body)
+        check(m is not None and os.path.exists(m.group(1)), f"/debug/torch/trace: {body}")
+        with open(m.group(1)) as f:
+            names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                     if e.get("cat") == "kernel"}
+        rec["trace"] = {"reply": body, "kernel_names": len(names),
+                        "ladder_record": any("ladder_verify_kernel" in k for k in names)
+                        or "not measured"}
+    finally:
+        srv.stop()
+        import shutil
+
+        shutil.rmtree(tdir, ignore_errors=True)
+    dryrun_multichip(2)
+    fn, args = entry()
+    check(bool(fn(*args).all()), "entry(): the example batch did not verify")
+    got = dict(_build.LAUNCHES)
+    # headline calls, the dry run's two shards and entry(): three launches a
+    # verify; two sha256 a headline root, the dry run's leaf hash and forest
+    want_verify = headlines + 2 + 1
+    check(all(got[k] == want_verify for k in ("ladder", "decompress", "sha512"))
+          and got["sha256"] >= 2 * headlines + 1 and got["bn254"] == 0,
+          f"tooling launches {got}: expected {want_verify} verify launch sets")
+    rec["launches"] = got
+    check(probe_rc == 0 and "PROBE OK" in probe_out, f"the device probe failed: {probe_out[-2000:]}")
+    rec["probe"] = [line for line in probe_out.splitlines() if line.startswith("[")]
+    return rec
 
 
 def expect_launches(verify_calls: int, roots: int, bn254: int) -> dict:
@@ -1595,13 +2036,7 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--bn254-lanes"]:
         return time_bn254_lanes()
-    from cometbft_tpu_torch.crypto import bn254_pure as bn
-    from cometbft_tpu_torch.crypto import ed25519_pure as pure
-    from cometbft_tpu_torch.crypto import merkle as host
-    from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
     from cometbft_tpu_torch.ops import _build
-    from cometbft_tpu_torch.ops.bn254_kernel import Bn254DeviceBackend
-    from cometbft_tpu_torch.sidecar.backend import TorchBackend
 
     card = card_line()
     dev = torch.device("cuda")
@@ -1623,6 +2058,26 @@ def main() -> int:
             print(f"  {name}" + (f"<{', '.join(args)}>" if args else ""))
         elif line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
+    procs: list = []  # every process the phases start, ended here
+    try:
+        return run_phases(card, dev, props, clock_hz, so, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
+    """Phases 4-12 (module docstring); the processes it starts go to ``procs``."""
+    from cometbft_tpu_torch.crypto import bn254_pure as bn
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.crypto import merkle as host
+    from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops.bn254_kernel import Bn254DeviceBackend
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
     mixes = sass_mix(so)
     for g, mix in mixes.items():
         print(f"ladder SASS at {g} threads a lane (static instruction counts): {mix}", flush=True)
@@ -1632,6 +2087,17 @@ def main() -> int:
     print(f"issue rates (thread-instructions a clock per SM, measured): {json.dumps(rates)}",
           flush=True)
 
+    # Processes of their own on the card, started now that the kernel library
+    # is built (they load it) and the issue rates are measured: the fleet's
+    # remote sidecar (warming up while the fixtures are made) and the
+    # device probe.
+    sidecar_proc = start_sidecar_process()
+    procs.append(sidecar_proc)
+    probe_proc = subprocess.Popen([sys.executable, "-m", "cometbft_tpu_torch.probe.device"],
+                                  cwd=os.path.dirname(os.path.abspath(__file__)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs.append(probe_proc)
+
     t0 = time.perf_counter()
     fixtures = make_fixtures(pure, N_SIGS, N_LEAVES)
     print(f"fixtures: {N_SIGS} signatures, {N_LEAVES} leaves, {N_PARTS} parts of {PART_BYTES} "
@@ -1640,6 +2106,13 @@ def main() -> int:
     bn_fix = bn254_fixtures(bn)
     print(f"fixtures: {N_VALIDATORS}-validator BN254 aggregate and {N_VOTES} votes in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Both processes done with their first use of the card before anything
+    # is timed here.
+    remote = sidecar_process_addr(sidecar_proc)
+    probe_out, _ = probe_proc.communicate(timeout=300)
+    print(f"sidecar process serving on {remote}; device probe exit {probe_proc.returncode}",
+          flush=True)
 
     t0 = time.perf_counter()
     records = compare_kernels(fixtures, hash_from_byte_slices, dev, props.multi_processor_count,
@@ -1739,6 +2212,34 @@ def main() -> int:
     print(f"chain path ok (hybrid serves, an injected error degrades to cpu with the same bitmaps; "
           f"the BN254 chain serves from bn254-device, then bn254-host); launches {by_path['chain']}; "
           f"{json.dumps(chain_rec)}", flush=True)
+
+    auto = drive_auto_path(fixtures, pure, backend)
+    by_path["auto"] = auto.pop("launches")
+    print(f"auto path ok (CMTPU_BACKEND=auto: the coalesced chain, its hybrid warmed in "
+          f"{auto['setup_s']:.1f} s, served every batch with TorchBackend's bitmaps); launches "
+          f"{by_path['auto']}", flush=True)
+    print(json.dumps({"metric": "auto_verify_ms", **auto, "device": torch.cuda.get_device_name(0),
+                      "card": card}), flush=True)
+    fan = drive_fanout_path(fixtures, pure, backend, sidecar_proc, remote, root)
+    by_path["fanout"] = fan.pop("launches")
+    print(f"fanout path ok (fanout -> hybrid -> cpu; two sidecars, one in another process, and "
+          f"the local hybrid on one card; a killed shard redistributed once, the root failed "
+          f"over); launches {by_path['fanout']}", flush=True)
+    print(json.dumps({"metric": "fanout_verify_10k_commit_ms",
+                      "value": statistics.median(fan["times_ms"]["fanout_commit"]),
+                      "torch_ms": statistics.median(fan["times_ms"]["torch_commit"]),
+                      "note": "three shards on ONE card, not a multi-host figure", **fan,
+                      "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    pp = drive_proofs_paths(fixtures, host)
+    by_path["proofs_paths"] = pp.pop("launches")
+    print(f"proofs paths ok (the card and the native host pass equal the pure pass; default "
+          f"{pp['default']}); launches {by_path['proofs_paths']}", flush=True)
+    print(json.dumps({"metric": "proofs_paths_ms", **pp, "device": torch.cuda.get_device_name(0),
+                      "card": card}), flush=True)
+    tools = drive_tooling(fixtures, backend, probe_proc.returncode, probe_out)
+    by_path["tooling"] = tools.pop("launches")
+    print(f"tooling ok (pprof endpoints, dryrun_multichip(2), entry(), the device probe); "
+          f"launches {by_path['tooling']}; {json.dumps(tools)}", flush=True)
 
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(

@@ -1,5 +1,6 @@
-"""RFC-6962 Merkle roots and inclusion proofs over hashlib: the port's host
-side and oracle.
+"""RFC-6962 Merkle roots and inclusion proofs: the port's host side and
+oracle (hashlib), and the proofs path's selection among the card, the
+native host pass and pure Python (``proofs_from_byte_slices``).
 
 leaf  = SHA256(0x00 || data)
 inner = SHA256(0x01 || left || right)
@@ -15,6 +16,8 @@ leaf hash and its aunts from the leaf's sibling up to the root's child
 from __future__ import annotations
 
 import hashlib
+import os
+from collections.abc import Sequence
 from dataclasses import dataclass, field
 
 HASH_SIZE = 32
@@ -128,10 +131,11 @@ def compute_hash_from_aunts(
     return h
 
 
-def proofs_from_byte_slices(items: list[bytes]) -> tuple[bytes, list[Proof]]:
-    """Root and one inclusion proof an item, level-synchronous: at each
-    level node i's aunt is its neighbour i ^ 1, and an odd trailing node is
-    promoted with no aunt (the same aunts as proof.go's recursion)."""
+def proofs_from_byte_slices_pure(items: list[bytes]) -> tuple[bytes, list[Proof]]:
+    """Root and one inclusion proof an item in pure Python, level-synchronous:
+    at each level node i's aunt is its neighbour i ^ 1, and an odd trailing
+    node is promoted with no aunt (the same aunts as proof.go's recursion).
+    The tests' oracle."""
     n = len(items)
     if n == 0:
         return empty_hash(), []
@@ -152,3 +156,102 @@ def proofs_from_byte_slices(items: list[bytes]) -> tuple[bytes, list[Proof]]:
         level = nxt
     proofs = [Proof(total=n, index=i, leaf_hash=leaf_hashes[i], aunts=aunts[i]) for i in range(n)]
     return level[0], proofs
+
+
+class _LazyProofs(Sequence):
+    """The proofs of one tree over the native pass's packed aunts buffer.
+
+    Every level was hashed and every aunt gathered in one C pass; a
+    ``Proof`` (its 32-byte aunt slices included) is made only when indexed,
+    because a 65,536-leaf block would otherwise allocate ~1M small bytes
+    objects up front that consumers (a transaction's proof, part-set
+    gossip) touch one leaf at a time."""
+
+    __slots__ = ("_n", "_leaf_hashes", "_packed", "_stride", "_counts")
+
+    def __init__(self, n, leaf_hashes, packed, stride, counts):
+        self._n = n
+        self._leaf_hashes = leaf_hashes
+        self._packed = packed
+        self._stride = stride
+        self._counts = counts
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(self._n))]
+        if i < 0:
+            i += self._n
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        base = i * self._stride
+        return Proof(
+            total=self._n,
+            index=i,
+            leaf_hash=self._leaf_hashes[i],
+            aunts=[self._packed[base + 32 * k : base + 32 * (k + 1)] for k in range(self._counts[i])],
+        )
+
+    def __iter__(self):
+        for i in range(self._n):
+            yield self[i]
+
+
+# Where a proof set of 32 or more items goes when CMTPU_DEVICE_PROOFS is unset:
+# the native host pass (False) or the card (True). chip_smoke.py's proofs
+# paths phase on one NVIDIA H100 80GB HBM3 (700.00 W) and its host, medians
+# of 3 in three runs (PERF.md §5): 65,536 leaves native 84.4-91.6 ms, the
+# card 116.4-136.1 (its numpy aunt gather); 336 parts of 64 KiB native
+# 22.8-23.1, the card 26.8-28.7. The native pass is faster in every run.
+DEVICE_PROOFS_DEFAULT = False
+
+# Which path the last proofs_from_byte_slices call took: "device",
+# "host-native", "pure-python" or "empty". Observability only.
+last_proofs_path = "none"
+
+
+def _device_proofs() -> bool:
+    """``CMTPU_DEVICE_PROOFS``: 1 the card, 0 the native host pass, unset
+    ``DEVICE_PROOFS_DEFAULT``."""
+    env = os.environ.get("CMTPU_DEVICE_PROOFS", "")
+    return DEVICE_PROOFS_DEFAULT if env == "" else env == "1"
+
+
+def proofs_from_byte_slices(items: list[bytes], device=None) -> tuple[bytes, Sequence[Proof]]:
+    """Root and one inclusion proof an item (crypto/merkle/proof.go:35-49),
+    by one of three paths (``last_proofs_path`` says which):
+
+    - 32 items or more, on the card (``merkle_kernel.
+      proofs_from_byte_slices_device`` on ``device``, ``cuda`` unless the
+      caller asks for the CPU) or by the native host pass
+      (``native.merkle_proof_parts``, served as ``_LazyProofs``), as
+      ``_device_proofs()`` says. A failure of either raises: neither falls
+      back to another path;
+    - fewer, or while the native library is still building (its first use
+      starts the build), pure Python.
+
+    Every path gives the same root and aunts."""
+    global last_proofs_path
+
+    n = len(items)
+    if n == 0:
+        last_proofs_path = "empty"
+        return empty_hash(), []
+    if n >= 32 and _device_proofs():
+        from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+        root, proofs = mk.proofs_from_byte_slices_device(items, device)
+        last_proofs_path = "device"
+        return root, proofs
+    if n >= 32:
+        from cometbft_tpu_torch import native
+
+        if native.ready() is not None:
+            root, leaf_hashes, packed, stride, counts = native.merkle_proof_parts(items)
+            last_proofs_path = "host-native"
+            return root, _LazyProofs(n, leaf_hashes, packed, stride, counts)
+        native.ensure_built_async()
+    last_proofs_path = "pure-python"
+    return proofs_from_byte_slices_pure(items)

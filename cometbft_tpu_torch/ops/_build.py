@@ -41,6 +41,7 @@ KERNELS = ("ladder", "decompress", "sha512", "sha256", "bn254")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 BUILD_LOG = ""
 
@@ -158,7 +159,8 @@ def check_launch(kernel: str, rc: int) -> None:
     if rc != 0:
         msg = lib().cmtpu_error_string(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")
-    LAUNCHES[kernel] += 1
+    with _count_lock:  # launches come from several threads (the fanout's shards)
+        LAUNCHES[kernel] += 1
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

@@ -415,7 +415,9 @@ def batch_verify_submit(pubs, msgs, sigs, device=None):
     return a collect() -> (ok, bitmap) closure; the hybrid backend runs its
     host share between the two. ``collect.program_key`` is the (batch
     bucket, block bucket) of the program that ran, so that a caller can
-    tell a first launch from a steady one. A dispatch routed to the mesh is
+    tell a first launch from a steady one; ``collect.launched`` is set once
+    the device-owner thread has copied the operands and launched the
+    program (or failed to), so that a caller can queue work behind it. A dispatch routed to the mesh is
     counted (``sharded_dispatches``, ``padded_lanes``)."""
     dev = resolve(device)
     n = len(pubs)
@@ -426,8 +428,14 @@ def batch_verify_submit(pubs, msgs, sigs, device=None):
         _mesh_count("sharded_dispatches")
         _mesh_count("padded_lanes", key[0] - n)
 
+    launched = threading.Event()
+
     def run():
-        return fn(*operands).cpu().numpy()
+        try:
+            out = fn(*operands)
+        finally:
+            launched.set()
+        return out.cpu().numpy()
 
     fut = _pool().submit(run)
 
@@ -437,6 +445,7 @@ def batch_verify_submit(pubs, msgs, sigs, device=None):
         return all(results), results
 
     collect.program_key = key
+    collect.launched = launched
     return collect
 
 

@@ -358,7 +358,7 @@ def gather_aunts(levels: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 def proofs_aunts_device(items: list[bytes], device=None):
     """Inclusion proofs for every item in vectorized form: (root bytes,
     leaf hashes uint8[n, 32], aunts uint8[n, depth, 32], aunt counts
-    int32[n]); the same aunts as the host's ``proofs_from_byte_slices``."""
+    int32[n]); the same aunts as the host's ``proofs_from_byte_slices_pure``."""
     if len(items) == 0:
         raise ValueError(
             "proofs_aunts_device: the empty tree has no proofs "
@@ -406,7 +406,7 @@ def proofs_from_byte_slices_device(items: list[bytes], device=None):
     """Counterpart of crypto/merkle's ``proofs_from_byte_slices`` on the
     card: (root bytes, DeviceProofs). The empty tree takes the host answer."""
     if len(items) == 0:
-        return host.proofs_from_byte_slices(items)
+        return host.proofs_from_byte_slices_pure(items)
     root, leaf_hashes, aunts, counts = proofs_aunts_device(items, device)
     return root, DeviceProofs(root, leaf_hashes, aunts, counts)
 

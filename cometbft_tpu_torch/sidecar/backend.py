@@ -9,13 +9,16 @@ bitmap)`` and ``merkle_root(leaves) -> bytes``) and three tiers:
   (``cometbft_tpu_torch/native``) from 16 signatures, the pure ZIP-215
   oracle one signature at a time below that;
 - ``HybridBackend`` splits one batch between the card and the native host
-  MSM by a rate model and runs both shares at once.
+  MSM by a rate model and runs both shares at once; a root goes to the card
+  or the native tree by a root cost model.
 
 Each has the reference's duck type, so a host that runs the reference's
 consensus code can install one through that package's own ``set_backend``.
 ``LockedBackend`` and ``device_backend`` are what the port's sidecar server
 (``sidecar/service.py``) builds its device tier from, and the supervised
-chain (``sidecar/supervisor.py``) stacks these tiers.
+chain (``sidecar/supervisor.py``) stacks these tiers. ``get_backend`` serves
+the process default that ``CMTPU_BACKEND`` names (``auto``: the supervised
+chain behind the coalescing scheduler).
 """
 
 from __future__ import annotations
@@ -115,6 +118,21 @@ HOST_SIGS_PER_MS = 48.0  # CMTPU_HOST_RATE
 CARD_SIGS_PER_MS = 663.0  # CMTPU_DEV_RATE
 CARD_DISPATCH_MS = 1.7  # CMTPU_DEV_OVERHEAD_MS
 
+# The root cost model's seeds, from chip_smoke.py's hybrid phase on the same
+# NVIDIA H100 80GB HBM3 (700.00 W) and host, the mean of three runs (PERF.md
+# §5): medians of 5 of TorchBackend's and the native tree's roots at 1,000,
+# 10,000 and 65,536 leaves of 17 bytes (native 0.39-0.49, 3.70-4.48 and
+# 28.1-31.3 ms; the card 0.27-0.34, 0.85-1.30 and 4.6-6.9 ms): the host's
+# rate at 65,536 (2,334, 2,094 and 2,322 leaves/ms), the card's line through
+# 1,000 and 65,536 (14,844, 9,747 and 11,826 leaves/ms over 0.206, 0.198 and
+# 0.260 ms). The card pays a fixed cost a root and then its leaf rate (the
+# host's leaf join and copy are most of it); the native tree pays no fixed
+# cost, and wins under ~600 leaves. ``HybridBackend.warmup`` replaces them
+# with its own timings.
+CARD_ROOT_MS = 0.22
+CARD_LEAVES_PER_MS = 12_100.0
+HOST_LEAVES_PER_MS = 2_250.0
+
 
 class HybridBackend(VerifyBackend):
     """The card and the host working one batch at once.
@@ -126,8 +144,12 @@ class HybridBackend(VerifyBackend):
     (``ed25519_kernel.batch_verify_submit``: packed on the calling thread,
     launched on the device-owner thread), runs the host share on the
     calling thread, and joins the bitmaps. The model is corrected from every
-    measured call (``_update_rates``). Merkle roots take the native host
-    tree, which needs no copy to the card.
+    measured call (``_update_rates``). A Merkle root takes the card or the
+    native host tree, whichever the root cost model prices lower
+    (``_root_on_card``): the card's fixed cost and leaf rate against the
+    native tree's leaf rate, seeded from ``CARD_ROOT_MS``,
+    ``CARD_LEAVES_PER_MS`` and ``HOST_LEAVES_PER_MS`` and timed again by
+    ``warmup``.
 
     ``device`` None means ``cuda`` (raises without a card); ``"cpu"`` runs
     the device share on the plain PyTorch path, for the tests.
@@ -173,9 +195,16 @@ class HybridBackend(VerifyBackend):
         # the rate model alone cannot learn to give it more; the bias moves
         # the split one bucket toward the tier that sat idle.
         self._bias = 0
-        # The share and the stage walls of the last call.
+        # The root cost model: the card's fixed ms and leaves/ms a root, the
+        # native tree's leaves/ms.
+        self._root_fixed = CARD_ROOT_MS
+        self._card_leaf_rate = CARD_LEAVES_PER_MS
+        self._host_leaf_rate = HOST_LEAVES_PER_MS
+        # The share and the stage walls of the last call, and where the last
+        # root ran ("card" or "host").
         self.last_share = 0
         self.last_timing: dict = {}
+        self.last_root = ""
 
     def _plan(self, n: int) -> int:
         """The device share (a bucket size; 0 is all host, n all device)
@@ -233,14 +262,19 @@ class HybridBackend(VerifyBackend):
         res, _ = self._routed_call(pubs, msgs, sigs, self._plan(n))
         return res
 
-    def _routed_call(self, pubs, msgs, sigs, share, between=None):
+    def _routed_call(self, pubs, msgs, sigs, share, between=None, on_card=None):
         """One planned verification: all host (share <= 0), all device
         (share >= n) or the split, with the model updated from what it
-        measured. ``between`` (optional) runs while the device works
-        (``verify_and_root``'s tree); returns ((ok, bitmap), its result)."""
+        measured. ``between`` (optional) runs on the host after the host
+        share, while the device works (``verify_and_root``'s native tree);
+        ``on_card`` (optional) runs right after the device share is submitted,
+        so that its launches queue behind the share's (``verify_and_root``'s
+        root on the card). Returns ((ok, bitmap), the one's result)."""
         n = len(pubs)
         extra = None
         if share <= 0:
+            if on_card is not None:
+                extra = on_card()
             # The native MSM at any size, as the host rate prices it: the
             # anchor's per-signature pure Python below 16 is no host share.
             self.last_share = 0
@@ -261,6 +295,14 @@ class HybridBackend(VerifyBackend):
         collect = self._ek.batch_verify_submit(pubs[:share], msgs[:share], sigs[:share],
                                                device=self.device)
         t_disp = time.perf_counter()
+        card_root_s = 0.0
+        if on_card is not None:
+            # Behind the share's launches: started earlier, this thread's
+            # host work would hold the interpreter while the device-owner
+            # thread waits to launch.
+            collect.launched.wait()
+            extra = on_card()
+            card_root_s = time.perf_counter() - t_disp
         if share < n:
             ok_h, bits_h = self._native.batch_verify(pubs[share:], msgs[share:], sigs[share:])
         else:
@@ -271,17 +313,20 @@ class HybridBackend(VerifyBackend):
         t_wait = time.perf_counter()
         ok_d, bits_d = collect()
         t_dev = time.perf_counter()
-        self._update_rates(collect.program_key, share, n - share, t0, t_disp, t_host, t_wait, t_dev)
+        self._update_rates(collect.program_key, share, n - share, t0, t_disp, t_host, t_wait, t_dev,
+                           card_root_s)
         return (ok_d and ok_h, bits_d + bits_h), extra
 
-    def _update_rates(self, key, n_dev, n_host, t0, t_disp, t_host, t_wait, t_dev):
+    def _update_rates(self, key, n_dev, n_host, t0, t_disp, t_host, t_wait, t_dev,
+                      card_root_s=0.0):
         """EMA the rate model from this call. The host share ran alone in
-        [t_disp, t_host]. The device wall is observable only when the device
-        was the straggler (collect(), entered at t_wait, blocked); when it
-        finished first nothing about it is learned. A program's first
-        dispatch is left out too: it may carry the kernel build."""
+        [t_disp, t_host], after ``card_root_s`` seconds of a root on the
+        card. The device wall is observable only when the device was the
+        straggler (collect(), entered at t_wait, blocked) and no root shared
+        the card with it; otherwise nothing about it is learned. A program's
+        first dispatch is left out too: it may carry the kernel build."""
         alpha = 0.3
-        host_ms = (t_host - t_disp) * 1000
+        host_ms = (t_host - t_disp - card_root_s) * 1000
         dev_ms = (t_dev - t0) * 1000
         warm_key = (*key, self._n_dev)
         first_use = warm_key not in self._warmed
@@ -299,10 +344,14 @@ class HybridBackend(VerifyBackend):
             "first_use": first_use,
             "bias": self._bias,
         }
+        if card_root_s:
+            self.last_timing["card_root_ms"] = round(card_root_s * 1000, 2)
         with self._rate_lock:
             if host_ms > 1:
                 r = min(max(n_host / host_ms, 5.0), 5000.0)
                 self._host_rate += alpha * (r - self._host_rate)
+            if card_root_s:
+                return  # the root's launches and sync shared the card's wall
             straggler = t_dev - t_wait > 0.001
             if straggler and not first_use and dev_ms > self._dev_overhead:
                 # The learned rate stays a card's (the mesh's over its width).
@@ -329,25 +378,43 @@ class HybridBackend(VerifyBackend):
         elif self._bias < 0:
             self._bias += 1
 
+    def _root_on_card(self, n: int) -> bool:
+        """Whether a root of n leaves goes to the card: its predicted time
+        (the fixed cost plus n over the card's leaf rate) under the native
+        tree's (n over the host's leaf rate), or the native library is not
+        built yet. A small tree, where the fixed cost dominates, stays on
+        the host."""
+        if self._native.ready() is None:
+            return True
+        return self._root_fixed + n / self._card_leaf_rate < n / self._host_leaf_rate
+
     def merkle_root(self, leaves):
-        if self._native.ready() is not None:
-            return self._native.merkle_root(leaves)
-        return self._torch.merkle_root(leaves)
+        if self._root_on_card(len(leaves)):
+            self.last_root = "card"
+            return self._torch.merkle_root(leaves)
+        self.last_root = "host"
+        return self._native.merkle_root(leaves)
 
     def mesh_width(self) -> int:
         return self._n_dev
 
     def verify_and_root(self, pubs, msgs, sigs, leaves):
-        """A commit's verification and its block's root together: the device
-        share in flight while the host runs its MSM share and the tree.
-        Returns ((ok, bitmap), root)."""
+        """A commit's verification and its block's root together. A root on
+        the card is launched right after the device share, behind it on the
+        card; a root on the host runs after the host's MSM share, while the
+        device share is in flight. Returns ((ok, bitmap), root)."""
         n = len(pubs)
         if n == 0:
             return (False, []), self.merkle_root(leaves)
         if n < self._min_split or self._native.ready() is None:
             return self.batch_verify(pubs, msgs, sigs), self.merkle_root(leaves)
+        if self._root_on_card(len(leaves)):
+            self.last_root = "card"
+            return self._routed_call(pubs, msgs, sigs, self._plan(n),
+                                     on_card=lambda: self._torch.merkle_root(leaves))
+        self.last_root = "host"
         return self._routed_call(pubs, msgs, sigs, self._plan(n),
-                                 between=lambda: self.merkle_root(leaves))
+                                 between=lambda: self._native.merkle_root(leaves))
 
     def warmup(self, buckets=None, merkle_leaves=None) -> None:
         """Build the native library (raises if gcc fails), warm the card
@@ -356,7 +423,9 @@ class HybridBackend(VerifyBackend):
         wall there. ``_plan`` prices a bucket it has seen by its wall and
         one it has not from the walls around it; with one commit's wall
         alone it extrapolates down by the learned rate, which prices a
-        small batch far above the card's fixed cost."""
+        small batch far above the card's fixed cost. Last, it times one root
+        each way at each of ``merkle_leaves`` (``ed25519_kernel.WARM_LEAVES``
+        by default) as the root cost model (``_time_roots``)."""
         self._native.load()
         self._torch.warmup(buckets, merkle_leaves)
         msg = b"\x00" * 120  # two SHA-512 blocks, as a vote
@@ -370,6 +439,34 @@ class HybridBackend(VerifyBackend):
             with self._rate_lock:
                 self._dev_wall[(collect.program_key[0], self._n_dev)] = wall
                 self._warmed.add((*collect.program_key, self._n_dev))
+        self._time_roots(merkle_leaves or self._ek.WARM_LEAVES)
+
+    def _time_roots(self, counts) -> None:
+        """Roots on the card and on the native tree at each leaf count, the
+        least of 3 each: the host's leaf rate from the largest tree; the
+        card's fixed cost and leaf rate from the line through the smallest
+        and the largest (from the largest alone over the fixed cost it has,
+        for one count)."""
+        card, host = {}, {}
+        for n in sorted(set(counts)):
+            leaves = [b"\x00"] * n
+            card[n] = host[n] = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                self._torch.merkle_root(leaves)
+                t1 = time.perf_counter()
+                self._native.merkle_root(leaves)
+                t2 = time.perf_counter()
+                card[n] = min(card[n], (t1 - t0) * 1000)
+                host[n] = min(host[n], (t2 - t1) * 1000)
+        lo, hi = min(card), max(card)
+        self._host_leaf_rate = hi / max(host[hi], 1e-3)
+        slope = (card[hi] - card[lo]) / (hi - lo) if hi > lo else 0.0
+        if slope > 0:
+            self._card_leaf_rate = 1.0 / slope
+            self._root_fixed = max(card[lo] - lo * slope, 0.0)
+        else:
+            self._card_leaf_rate = hi / max(card[hi] - self._root_fixed, 1e-3)
 
 
 class LockedBackend(VerifyBackend):
@@ -416,23 +513,97 @@ def device_backend(choice: str = "torch") -> VerifyBackend:
     raise ValueError(f"unknown sidecar device {choice!r}; expected one of {DEVICE_CHOICES}")
 
 
+BACKEND_CHOICES = ("auto", "grpc", "torch", "hybrid", "cpu")
+
 _backend: VerifyBackend | None = None
+# Whether _backend was built here (then set_backend closes it) or installed.
+_built_here = False
 _lock = threading.Lock()
 
 
+def _hybrid_tier(chain) -> HybridBackend | None:
+    """The chain's hybrid tier, unwrapped from a fault-injection wrapper."""
+    for tier in chain.tiers:
+        b = tier.backend
+        while not isinstance(b, HybridBackend) and getattr(b, "inner", None) is not None:
+            b = b.inner
+        if isinstance(b, HybridBackend):
+            return b
+    return None
+
+
+def _make_backend() -> VerifyBackend:
+    """The process default that ``CMTPU_BACKEND`` names (the reference's
+    choices, with ``torch`` for the device tier):
+
+    - ``auto`` (the default): the supervised chain (``build_resilient()``:
+      ``[fanout ->] [grpc ->] hybrid -> cpu``) behind a
+      ``CoalescingScheduler``, or bare under ``CMTPU_COALESCE=0``. Its hybrid
+      tier is warmed here (``HybridBackend.warmup``: the kernels, the card's
+      walls at the warm buckets, the root cost model), so that the first
+      small batch is priced from measured walls; the stall is paid once, at
+      the first ``get_backend()``. Without a card it raises, as
+      ``build_resilient()`` does;
+    - ``grpc``: the port's ``GrpcBackend`` to ``CMTPU_SIDECAR_ADDR``;
+    - ``torch``: ``TorchBackend()``; ``hybrid``: ``HybridBackend()`` (both
+      raise without a card);
+    - ``cpu``: ``CpuBackend()``, the host anchor.
+
+    ``tpu`` raises: the port's device tier is ``torch``."""
+    choice = os.environ.get("CMTPU_BACKEND", "auto").lower()
+    if choice == "tpu":
+        raise ValueError("CMTPU_BACKEND=tpu names the JAX package's TPU tier; "
+                         "the port's device tier is CMTPU_BACKEND=torch")
+    if choice not in BACKEND_CHOICES:
+        raise ValueError(f"unknown CMTPU_BACKEND {choice!r}; expected one of {BACKEND_CHOICES}")
+    if choice == "grpc":
+        from cometbft_tpu_torch.sidecar.service import GrpcBackend
+
+        return GrpcBackend(os.environ.get("CMTPU_SIDECAR_ADDR", "127.0.0.1:26670"))
+    if choice == "torch":
+        return TorchBackend()
+    if choice == "hybrid":
+        return HybridBackend()
+    if choice == "cpu":
+        return CpuBackend()
+    from cometbft_tpu_torch.sidecar.supervisor import build_resilient
+
+    chain = build_resilient()
+    hybrid = _hybrid_tier(chain)
+    if hybrid is not None:
+        try:
+            hybrid.warmup()
+        except BaseException:
+            chain.close()
+            raise
+    if os.environ.get("CMTPU_COALESCE", "1") == "0":
+        return chain
+    from cometbft_tpu_torch.sidecar.scheduler import CoalescingScheduler
+
+    return CoalescingScheduler(chain)
+
+
 def get_backend() -> VerifyBackend:
-    """The process-wide backend: a ``TorchBackend`` on ``cuda`` unless one
-    was installed with ``set_backend``."""
-    global _backend
+    """The process-wide backend: ``_make_backend()``'s on first use, unless
+    one was installed with ``set_backend``."""
+    global _backend, _built_here
     if _backend is None:
         with _lock:
             if _backend is None:
-                _backend = TorchBackend()
+                _backend = _make_backend()
+                _built_here = True
     return _backend
 
 
 def set_backend(backend: VerifyBackend | None) -> None:
-    """Override the process-wide backend (tests, node bootstrap)."""
-    global _backend
+    """Override the process-wide backend (tests, node bootstrap). A default
+    that ``get_backend`` built is closed (the scheduler's dispatcher thread,
+    the chain's sockets); an installed one is left to its owner."""
+    global _backend, _built_here
     with _lock:
-        _backend = backend
+        old, owned = _backend, _built_here
+        _backend, _built_here = backend, False
+    if owned and old is not None and old is not backend:
+        close = getattr(old, "close", None)
+        if close is not None:
+            close()

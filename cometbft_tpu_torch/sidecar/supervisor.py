@@ -18,7 +18,7 @@ stall:
   failures open the tier; after `CMTPU_BREAKER_COOLDOWN_MS` it goes
   half-open and one probe — the sidecar `Ping` RPC when the tier has one,
   the real call otherwise — re-promotes a healed tier to its chain slot.
-* **An ordered degradation chain** `grpc -> hybrid -> cpu`: the last tier
+* **An ordered degradation chain** `fanout -> grpc -> hybrid -> cpu`: the last tier
   is the liveness anchor, called inline with no deadline — it must answer,
   and its answer is trusted.
 
@@ -28,9 +28,9 @@ deterministic sample of the served bitmap re-verifies on the host path, so
 an injected bit-flip false-accept from a sick tier is caught, counted,
 trips the tier, and the anchor's answer is served instead.
 
-`build_resilient()` assembles the chain `grpc -> hybrid -> cpu` from what
-the process can reach; `CMTPU_FAULTS` (sidecar/chaos.py) wraps the
-non-anchor tiers for fault-injection runs. Unlike the reference, no
+`build_resilient()` assembles the chain `fanout -> grpc -> hybrid -> cpu`
+from what the process is configured to reach; `CMTPU_FAULTS`
+(sidecar/chaos.py) wraps the non-anchor tiers for fault-injection runs. Unlike the reference, no
 construction error is caught: without a card the hybrid tier raises, and
 so does the chain.
 """
@@ -549,9 +549,14 @@ class ResilientBackend(VerifyBackend):
 
 
 def build_chain(device=None) -> list[tuple[str, VerifyBackend]]:
-    """The `grpc -> hybrid -> cpu` degradation order:
+    """The `fanout -> grpc -> hybrid -> cpu` degradation order, from what the
+    process is configured to reach:
 
-    * a single-sidecar tier first, when `CMTPU_SIDECAR_ADDR` names one (the
+    * the fleet tier first, when `CMTPU_FANOUT_PEERS` names sidecar peers
+      (`sidecar/fanout.py`): a port `GrpcBackend` shard a peer, and the
+      hybrid tier below as its `local` shard, so that this host's card
+      counts toward the fleet width and its slice rides the same dispatch;
+    * a single-sidecar tier, when `CMTPU_SIDECAR_ADDR` names one (the
       port's `GrpcBackend`, its request deadline `CMTPU_DEADLINE_MS`);
     * `HybridBackend(device)`: the card and the native host MSM (`device`
       None is `cuda`, which raises without a card; `"cpu"` is the plain
@@ -559,17 +564,16 @@ def build_chain(device=None) -> list[tuple[str, VerifyBackend]]:
     * `CpuBackend` as the anchor, always last.
 
     `CMTPU_FAULTS` wraps every non-anchor tier in ChaosBackend, seeded from
-    `CMTPU_FAULTS_SEED` plus the tier's position. The fanout tier
-    (`CMTPU_FANOUT_PEERS`) is not ported: naming peers raises.
+    `CMTPU_FAULTS_SEED` plus the tier's position.
     """
     from cometbft_tpu_torch.sidecar.chaos import wrap_tiers_from_env
+    from cometbft_tpu_torch.sidecar.fanout import build_fanout
 
-    if os.environ.get("CMTPU_FANOUT_PEERS", "").strip():
-        raise RuntimeError(
-            "CMTPU_FANOUT_PEERS is set, but the fanout tier (sidecar/fanout.py) has no "
-            "counterpart in cometbft_tpu_torch yet"
-        )
+    hybrid = HybridBackend(device)
     tiers: list[tuple[str, VerifyBackend]] = []
+    fan = build_fanout(hybrid)
+    if fan is not None:
+        tiers.append(("fanout", fan))
     addr = os.environ.get("CMTPU_SIDECAR_ADDR", "").strip()
     if addr:
         from cometbft_tpu_torch.sidecar.service import GrpcBackend
@@ -577,12 +581,13 @@ def build_chain(device=None) -> list[tuple[str, VerifyBackend]]:
         deadline_ms = _env_float("CMTPU_DEADLINE_MS", 0.0)
         timeout_s = deadline_ms / 1000.0 if deadline_ms > 0 else 300.0
         tiers.append(("grpc", GrpcBackend(addr, timeout_s=timeout_s)))
-    tiers.append(("hybrid", HybridBackend(device)))
+    tiers.append(("hybrid", hybrid))
     tiers = wrap_tiers_from_env(tiers)
     tiers.append(("cpu", CpuBackend()))
     return tiers
 
 
 def build_resilient(device=None) -> ResilientBackend:
-    """The supervised chain over ``build_chain(device)``."""
+    """The supervised chain over ``build_chain(device)``: what
+    ``get_backend()`` serves under ``CMTPU_BACKEND=auto``."""
     return ResilientBackend(build_chain(device))

@@ -32,7 +32,7 @@ import torch
 
 from cometbft_tpu_torch.crypto import bn254_pure as bn
 from cometbft_tpu_torch.crypto import ed25519_pure as pure
-from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices, proofs_from_byte_slices
+from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices, proofs_from_byte_slices_pure
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import bn254_kernel as bk
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -291,7 +291,7 @@ def test_sha256_levels_entry_long_leaves(cuda, case):
 @pytest.mark.parametrize("n", [1, 2, 7, 100, 1000])
 def test_proofs_on_cuda_equal_host(cuda, n):
     items = [b"cuda-proof-%d" % i * (1 + i % 3) for i in range(n)]
-    root_h, proofs_h = proofs_from_byte_slices(items)
+    root_h, proofs_h = proofs_from_byte_slices_pure(items)
     before = _build.LAUNCHES["sha256"]
     root_d, proofs_d = mk.proofs_from_byte_slices_device(items)
     assert _build.LAUNCHES["sha256"] == before + 2

@@ -1,5 +1,6 @@
 """Boundaries of the port: it imports neither jax nor the JAX package (the
-native loader, the supervisor, chaos and the BN254 chain included), it
+native loader, the supervisor, chaos, the fleet tier, the BN254 chain and
+the tooling included), it
 never falls back to the CPU when CUDA is asked for (the hybrid tier and the
 chains neither), and a missing CUDA compiler is an error, not a silent
 switch to the plain versions."""
@@ -55,6 +56,10 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.sidecar.chaos",
         "cometbft_tpu_torch.sidecar.supervisor",
         "cometbft_tpu_torch.crypto.bn254",
+        "cometbft_tpu_torch.sidecar.fanout",
+        "cometbft_tpu_torch.libs.pprof",
+        "cometbft_tpu_torch.entry",
+        "cometbft_tpu_torch.probe.device",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

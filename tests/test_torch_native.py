@@ -154,7 +154,7 @@ def test_merkle_proof_parts_match_reference_and_proofs():
         got = native.merkle_proof_parts(leaves)
         assert got == ref_native.merkle_proof_parts(leaves), n
         root, leaf_hashes, aunts, stride, counts = got
-        want_root, proofs = tmerkle.proofs_from_byte_slices(leaves)
+        want_root, proofs = tmerkle.proofs_from_byte_slices_pure(leaves)
         assert root == want_root
         for i, proof in enumerate(proofs):
             assert leaf_hashes[i] == proof.leaf_hash

@@ -64,7 +64,7 @@ def _fields(p):
 def test_proofs_equal_reference(n):
     items = _items(n)
     root_r, proofs_r = ref_proofs(items)
-    root_h, proofs_h = host.proofs_from_byte_slices(items)
+    root_h, proofs_h = host.proofs_from_byte_slices_pure(items)
     before = dict(_build.LAUNCHES)
     root_d, proofs_d = tmk.proofs_from_byte_slices_device(items, device="cpu")
     assert _build.LAUNCHES == before
@@ -182,7 +182,7 @@ def test_proofs_lazy_sequence_protocol():
 def test_tampered_proof_fails_as_in_the_reference(change):
     """The port's Proof rejects exactly what the reference's rejects."""
     items = _items(13)
-    root, proofs = host.proofs_from_byte_slices(items)
+    root, proofs = host.proofs_from_byte_slices_pure(items)
     fields = dict(total=13, index=6, leaf_hash=proofs[6].leaf_hash, aunts=list(proofs[6].aunts))
     if change == "index":
         fields["index"] = 7

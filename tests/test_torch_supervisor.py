@@ -597,9 +597,16 @@ def test_build_chain_wraps_non_anchor_tiers_under_faults(clean_env):
 
 
 def test_build_chain_raises_on_fanout_peers(clean_env):
+    """CMTPU_FANOUT_PEERS no longer raises now that the fleet tier is
+    ported: it heads the chain, the hybrid its local shard
+    (tests/test_torch_fanout.py holds the tier to the reference's)."""
+    from cometbft_tpu_torch.sidecar.fanout import FanoutBackend
+
     clean_env.setenv("CMTPU_FANOUT_PEERS", "127.0.0.1:26671")
-    with pytest.raises(RuntimeError, match="fanout"):
-        t_sup.build_chain(device="cpu")
+    chain = t_sup.build_chain(device="cpu")
+    assert [name for name, _ in chain] == ["fanout", "hybrid", "cpu"]
+    assert isinstance(chain[0][1], FanoutBackend) and chain[0][1].shards[-1].backend is chain[1][1]
+    chain[0][1].close()
 
 
 def test_chains_raise_without_a_card(clean_env):
