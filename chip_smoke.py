@@ -18,8 +18,10 @@ supervised chains (``build_resilient()``, ``build_bn254_chain()``) with and
 without an injected fault. The auto path is the process default
 (``get_backend()`` under ``CMTPU_BACKEND=auto``), the fanout path the fleet
 tier (two port sidecars, one in another process, and the local hybrid), the
-proofs paths ``crypto/merkle``'s selection, and the tooling path the
-profiling endpoints, ``entry.py`` and the device probe. In order:
+proofs paths ``crypto/merkle``'s selection, the tooling path the
+profiling endpoints, ``entry.py`` and the device probe, and the commit path
+commit verification (``types/validation``, ``light/verifier``) of a
+10,240-validator set's commits and hops. In order:
 
   1. prints the PyTorch version and the card (name, power limit);
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``; then
@@ -123,7 +125,29 @@ profiling endpoints, ``entry.py`` and the device probe. In order:
      cuda:0) and ``/debug/torch/trace?seconds=1`` during headline calls (a
      trace written; whether it holds the ladder's record);
      ``dryrun_multichip(2)``; ``entry()``; the device probe's PROBE OK;
- 15. runs the mesh path (the lane-split programs) on two virtual shards of
+ 15. runs the commit path: the commit fixtures, built with the port's
+     types alone (``commit_fixtures``: the 10,240-validator ed25519 set of
+     step 3's keys, headers at COMMIT_HEIGHT, +1 and +5 and their commits of
+     canonical precommits, each signed by its validator in a pool of
+     processes; a hop the trusted set cannot trust; a 150-validator commit;
+     a 16-validator BN254 aggregate commit), their build time; then, counts
+     zeroed, ``types/validation`` and ``light/verifier`` under
+     ``set_backend(TorchBackend())``: verify_commit and verify_commit_light
+     of the commit, the adjacent and the skipping hop pass, the commit with
+     5 corrupted signatures names the lowest (the backend's bitmap false at
+     exactly the 5), the commit with just over 1/3 of the power absent gives
+     the exact got and needed, the untrustable hop raises
+     ErrNewValSetCantBeTrusted, and the BN254 aggregate (and a copy with one
+     wrong signer) goes through ``get_bn254_backend()``; one sha512 /
+     decompress / ladder set a commit verification that reaches the backend
+     (two for the skipping hop), one bn254 launch an aggregate, no
+     ChainExhausted fallback; then ``verify_commit_10k_ms``: medians of 5 of
+     each commit check at 10,240 and 150 validators and of both hops, under
+     ``TorchBackend()`` and the process default in turns, each call from
+     freshly decoded objects and an empty verified-triple cache, and one
+     call's stage split (sign bytes, tally and ``bv.add``, cache filter, the
+     backend call with its pack and kernels, the hop's hashes);
+ 16. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -136,7 +160,7 @@ profiling endpoints, ``entry.py`` and the device probe. In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 16. prints the ``kernels`` line (launches summed over the paths, and by
+ 17. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -290,20 +314,20 @@ class FixedBase:
         return acc
 
 
+def sign_known(pure, fb: FixedBase, seed: bytes, pub: bytes, msg: bytes) -> bytes:
+    """The RFC 8032 signature of msg under seed, whose key pub is known
+    (the pure module's sign, with [r]B from the fixed-base table)."""
+    a, prefix = pure.secret_expand(seed)
+    r = pure.sha512_mod_l(prefix, msg)
+    rs = pure.point_compress(fb.mult(r))
+    k = pure.sha512_mod_l(rs, pub, msg)
+    return rs + ((r + k * a) % pure.L).to_bytes(32, "little")
+
+
 def sign_batch(pure, fb: FixedBase, seeds, msgs):
-    """RFC 8032 keys and signatures (the pure module's sign, with [r]B and
-    [a]B from the fixed-base table)."""
-    pubs, sigs = [], []
-    for seed, msg in zip(seeds, msgs):
-        a, prefix = pure.secret_expand(seed)
-        pub = pure.point_compress(fb.mult(a))
-        r = pure.sha512_mod_l(prefix, msg)
-        rs = pure.point_compress(fb.mult(r))
-        k = pure.sha512_mod_l(rs, pub, msg)
-        s = (r + k * a) % pure.L
-        pubs.append(pub)
-        sigs.append(rs + s.to_bytes(32, "little"))
-    return pubs, sigs
+    """RFC 8032 keys and signatures ([a]B from the fixed-base table too)."""
+    pubs = [pure.point_compress(fb.mult(pure.secret_expand(seed)[0])) for seed in seeds]
+    return pubs, [sign_known(pure, fb, *job) for job in zip(seeds, pubs, msgs)]
 
 
 def make_fixtures(pure, n_sigs: int, n_leaves: int):
@@ -1366,7 +1390,7 @@ def drive_chain_path(fixtures, pure, bn_fix, want_root):
     ``build_resilient()`` serves the valid and the corrupted commit and the
     root from ``hybrid``, nothing degraded; the hybrid wrapped in a
     ChaosBackend at error rate 1.0 degrades to ``cpu`` with the same
-    bitmaps; ``ResilientBackend(build_bn254_chain())`` serves the 16-vote
+    bitmaps and root (the native tree); ``ResilientBackend(build_bn254_chain())`` serves the 16-vote
     batch's exact bitmap from ``bn254-device``, then, the device tier
     wrapped at error rate 1.0, from ``bn254-host``. Returns (the launches,
     a record)."""
@@ -1411,8 +1435,14 @@ def drive_chain_path(fixtures, pure, bn_fix, want_root):
         ok, bits = injected.batch_verify(pubs, m, s)
         times[f"injected_{name}"] = (time.perf_counter() - t0) * 1e3
         check(bits == want_bits[name] and ok == all(bits), f"injected chain, {name} commit: bitmap")
+    from cometbft_tpu_torch.crypto import merkle
+
+    t0 = time.perf_counter()
+    check(injected.merkle_root(leaves) == want_root, "injected chain: the degraded root")
+    times["injected_root"] = (time.perf_counter() - t0) * 1e3
+    check(merkle.last_root_path == "host-native", f"the degraded root took {merkle.last_root_path}")
     c = injected.counters()
-    check(c["degraded_calls"] == 2 and chaos.injected["error"] >= 2 and c["crosscheck_catches"] == 0,
+    check(c["degraded_calls"] == 3 and chaos.injected["error"] >= 2 and c["crosscheck_catches"] == 0,
           f"the injected chain did not degrade to cpu on each call: {c}")
     rec["injected"] = c
 
@@ -1808,6 +1838,429 @@ def expect_launches(verify_calls: int, roots: int, bn254: int) -> dict:
     return got
 
 
+# -- the commit path -------------------------------------------------------------
+
+COMMIT_CHAIN_ID = "chip-smoke-chain"
+COMMIT_HEIGHT = 1_000
+COMMIT_T0 = 1_700_000_000
+COMMIT_POWER = 10
+COMMIT_SMALL = 150  # a typical validator set's commit
+# Signers of the hop the trusted set cannot trust: they hold 100 of the new
+# set's power each (the others 1), but only COMMIT_POWER of the trusted set's.
+CANT_TRUST_SIGNERS = 3_000
+N_BN254_COMMIT = 16
+TRUSTING_PERIOD_NS = 14 * 24 * 3600 * 10**9
+CLOCK_DRIFT_NS = 10 * 10**9
+COMMIT_REPS = 5
+SIGN_PROCESSES = min(8, os.cpu_count() or 1)
+
+_worker_fb = None
+
+
+def sign_jobs(jobs) -> list:
+    """Pool worker: the signatures of ("ed25519", seed, pub, msg) and
+    ("bn254", sk, msg) jobs, by the pure modules."""
+    global _worker_fb
+    from cometbft_tpu_torch.crypto import bn254_pure as bn
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+
+    out = []
+    for kind, *args in jobs:
+        if kind == "bn254":
+            out.append(bn.sign(*args))
+            continue
+        if _worker_fb is None:
+            _worker_fb = FixedBase(pure)
+        out.append(sign_known(pure, _worker_fb, *args))
+    return out
+
+
+def commit_fixtures(fixtures) -> dict:
+    """The commit phase's chain, as wire bytes, built with the port's types
+    alone: the 10,240-validator ed25519 set of make_fixtures' seeds at equal
+    power; headers at COMMIT_HEIGHT (h), h + 1 and h + 5 over it and their
+    commits, where each validator signs its own canonical sign bytes
+    (BlockIDFlagCommit, seconds equal, nanos differing, as real precommits
+    are); a header at h + 6 over the same keys with CANT_TRUST_SIGNERS
+    validators holding most of its power and signing, the rest absent; the
+    commit of a COMMIT_SMALL-validator set; and an N_BN254_COMMIT-validator
+    BN254 set's commit in aggregate form, with a copy in which one signer
+    signed other bytes. Every signature is made in a pool of
+    SIGN_PROCESSES processes (spawned; ended when it returns)."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import bn254, ed25519
+    from cometbft_tpu_torch.crypto import bn254_pure as bn
+    from cometbft_tpu_torch.types import (BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig,
+                                          Consensus, Header, PartSetHeader, SignedHeader, Time,
+                                          Validator, ValidatorSet)
+    from cometbft_tpu_torch.types.block import aggregate_commit
+
+    _, seeds, pubs, *_ = fixtures
+    secret = {ed25519.PubKey(p).address(): (s, p) for s, p in zip(seeds, pubs)}
+    vals = ValidatorSet([Validator.new(ed25519.PubKey(p), COMMIT_POWER) for p in pubs])
+    cant = ValidatorSet([Validator.new(v.pub_key, 100 if i < CANT_TRUST_SIGNERS else 1)
+                         for i, v in enumerate(vals.validators)])
+    small = ValidatorSet([Validator.new(ed25519.PubKey(p), COMMIT_POWER)
+                          for p in pubs[:COMMIT_SMALL]])
+    bn_sks = [int.from_bytes(hashlib.sha256(b"chip-smoke-bn254-commit-%d" % i).digest(), "big")
+              % bn.R for i in range(N_BN254_COMMIT)]
+    bn_sk = {bn254.PubKey(bn.public_key(sk)).address(): sk for sk in bn_sks}
+    bn_vals = ValidatorSet([Validator.new(bn254.PubKey(bn.public_key(sk)), COMMIT_POWER)
+                            for sk in bn_sks])
+
+    def unsigned(height, vset, next_set, last_block_id, signers):
+        header = Header(
+            version=Consensus(11, 1), chain_id=COMMIT_CHAIN_ID, height=height,
+            time=Time(COMMIT_T0 + 6 * height, 0), last_block_id=last_block_id,
+            validators_hash=vset.hash(), next_validators_hash=next_set.hash(),
+            app_hash=hashlib.sha256(b"app-%d" % height).digest(),
+            proposer_address=vset.get_proposer().address)
+        block_id = BlockID(header.hash(), PartSetHeader(1, hashlib.sha256(header.hash()).digest()))
+        sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                          Time(COMMIT_T0 + 6 * height + 1, 1_000 + 977 * i), b"")
+                if i < signers else CommitSig.absent() for i, v in enumerate(vset.validators)]
+        return header, Commit(height=height, round=0, block_id=block_id, signatures=sigs)
+
+    h = COMMIT_HEIGHT
+    plan = {"h": unsigned(h, vals, vals, BlockID(), N_SIGS)}
+    plan["h1"] = unsigned(h + 1, vals, vals, plan["h"][1].block_id, N_SIGS)
+    plan["h5"] = unsigned(h + 5, vals, vals, BlockID(), N_SIGS)
+    plan["cant"] = unsigned(h + 6, cant, cant, BlockID(), CANT_TRUST_SIGNERS)
+    plan["small"] = unsigned(h, small, small, BlockID(), COMMIT_SMALL)
+    plan["bn254"] = unsigned(h, bn_vals, bn_vals, BlockID(), N_BN254_COMMIT)
+    jobs, spans = [], {}
+    for name, (_, commit) in plan.items():
+        sign_bytes = commit.vote_sign_bytes_all(COMMIT_CHAIN_ID)
+        start = len(jobs)
+        for cs, msg in zip(commit.signatures, sign_bytes):
+            if not cs.for_block_flag():
+                continue
+            if name == "bn254":
+                jobs.append(("bn254", bn_sk[cs.validator_address], msg))
+            else:
+                jobs.append(("ed25519", *secret[cs.validator_address], msg))
+        spans[name] = (start, len(jobs))
+    wrong_at = N_BN254_COMMIT // 2
+    jobs.append(("bn254", bn_sk[plan["bn254"][1].signatures[wrong_at].validator_address],
+                 b"chip-smoke-not-the-sign-bytes"))
+    # one chunk a bn254 job (each a hash-to-G2 and a G2 multiply), first;
+    # then chunks of 512 ed25519 jobs
+    bn_idx = [i for i, job in enumerate(jobs) if job[0] == "bn254"]
+    ed_idx = [i for i, job in enumerate(jobs) if job[0] != "bn254"]
+    chunks = [[i] for i in bn_idx] + [ed_idx[i : i + 512] for i in range(0, len(ed_idx), 512)]
+    with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
+        results = pool.map(sign_jobs, [[jobs[i] for i in c] for c in chunks], chunksize=1)
+    sig_of = {i: sig for c, res in zip(chunks, results) for i, sig in zip(c, res)}
+
+    def signed(name):
+        header, commit = plan[name]
+        start, _ = spans[name]
+        sigs, k = [], start
+        for cs in commit.signatures:
+            if cs.for_block_flag():
+                cs = CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp, sig_of[k])
+                k += 1
+            sigs.append(cs)
+        return SignedHeader(header, Commit(height=commit.height, round=0,
+                                           block_id=commit.block_id, signatures=sigs))
+
+    out = {name: signed(name).encode() for name in plan if name != "bn254"}
+    bn_sh = signed("bn254")
+    out["bn254"] = SignedHeader(bn_sh.header, aggregate_commit(bn_sh.commit, bn_vals)).encode()
+    wrong = list(bn_sh.commit.signatures)
+    cs = wrong[wrong_at]
+    wrong[wrong_at] = CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                                sig_of[len(jobs) - 1])
+    out["bn254_wrong"] = aggregate_commit(
+        Commit(height=h, round=0, block_id=bn_sh.commit.block_id, signatures=wrong),
+        bn_vals).encode()
+    for name, vset in (("vals", vals), ("cant_vals", cant), ("small_vals", small),
+                       ("bn254_vals", bn_vals)):
+        out[name] = vset.encode()
+
+    good = SignedHeader.decode(out["h"]).commit
+    n = len(good.signatures)
+    bad_at = sorted({17, n // 5, n // 2 + 3, n * 7 // 8, n - 1})
+    sigs = list(good.signatures)
+    for i in bad_at:
+        s = bytearray(sigs[i].signature)
+        s[40] ^= 0x08
+        sigs[i] = CommitSig(sigs[i].block_id_flag, sigs[i].validator_address, sigs[i].timestamp,
+                            bytes(s))
+    out["corrupted"] = Commit(height=h, round=0, block_id=good.block_id, signatures=sigs).encode()
+    out["corrupted_at"] = bad_at
+    # just over 1/3 of the power absent: the last n // 3 + 1 signers
+    absent = n // 3 + 1
+    out["insufficient"] = Commit(height=h, round=0, block_id=good.block_id,
+                                 signatures=good.signatures[: n - absent]
+                                 + [CommitSig.absent()] * absent).encode()
+    out["insufficient_power"] = ((n - absent) * COMMIT_POWER, n * COMMIT_POWER * 2 // 3)
+    return out
+
+
+class BitmapRecorder:
+    """A backend that records each bitmap its inner backend returns."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.bitmaps: list[list] = []
+
+    def batch_verify(self, pubs, msgs, sigs):
+        ok, bits = self.inner.batch_verify(pubs, msgs, sigs)
+        self.bitmaps.append(list(bits))
+        return ok, bits
+
+    def merkle_root(self, leaves):
+        return self.inner.merkle_root(leaves)
+
+
+def raises(exc_type, fn):
+    """The exception of type exc_type that fn() raises; fails otherwise."""
+    try:
+        fn()
+    except exc_type as e:
+        return e
+    fail(f"{getattr(fn, '__name__', fn)} did not raise {exc_type.__name__}")
+
+
+def commit_workloads(cf) -> dict:
+    """name -> (prepare, call): prepare() decodes the workload's objects
+    afresh from cf's bytes (no memo of an earlier call survives) and clears
+    the verified-triple cache; call(objects) runs the user's entry point."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.light import verifier
+    from cometbft_tpu_torch.types import Fraction, SignedHeader, Time, ValidatorSet, validation
+
+    h = COMMIT_HEIGHT
+    now = Time(COMMIT_T0 + 6 * h + 3600, 0)
+
+    def commit_of(key, vals_key):
+        def prepare():
+            ed25519._verified.clear()
+            return ValidatorSet.decode(cf[vals_key]), SignedHeader.decode(cf[key]).commit
+        return prepare
+
+    def hop_of(key, vals_key):
+        def prepare():
+            ed25519._verified.clear()
+            return (SignedHeader.decode(cf["h"]), ValidatorSet.decode(cf["vals"]),
+                    SignedHeader.decode(cf[key]), ValidatorSet.decode(cf[vals_key]))
+        return prepare
+
+    def full(args):
+        vals, commit = args
+        validation.verify_commit(COMMIT_CHAIN_ID, vals, commit.block_id, h, commit)
+
+    def light(args):
+        vals, commit = args
+        validation.verify_commit_light(COMMIT_CHAIN_ID, vals, commit.block_id, h, commit)
+
+    def adjacent(args):
+        trusted, _, untrusted, uvals = args
+        verifier.verify_adjacent(trusted, untrusted, uvals, TRUSTING_PERIOD_NS, now,
+                                 CLOCK_DRIFT_NS)
+
+    def non_adjacent(args):
+        verifier.verify_non_adjacent(*args, TRUSTING_PERIOD_NS, now, CLOCK_DRIFT_NS,
+                                     Fraction(1, 3))
+
+    return {
+        "verify_commit_10k": (commit_of("h", "vals"), full),
+        "verify_commit_light_10k": (commit_of("h", "vals"), light),
+        f"verify_commit_{COMMIT_SMALL}": (commit_of("small", "small_vals"), full),
+        f"verify_commit_light_{COMMIT_SMALL}": (commit_of("small", "small_vals"), light),
+        "hop_adjacent_10k": (hop_of("h1", "vals"), adjacent),
+        "hop_non_adjacent_10k": (hop_of("h5", "vals"), non_adjacent),
+    }
+
+
+def drive_commit_path(cf, torch_backend) -> dict:
+    """The commit phase's gates, launch counts zeroed first: under
+    ``set_backend(TorchBackend())``, verify_commit and verify_commit_light
+    of the good 10,240-validator commit, the adjacent hop (h -> h + 1) and
+    the skipping hop (h -> h + 5, trust level 1/3) pass; the commit with 5
+    corrupted signatures raises "wrong signature (#i)" for the lowest, the
+    backend's bitmap false exactly at the 5; the commit with just over 1/3
+    of the power absent raises ErrNotEnoughVotingPowerSigned with the exact
+    got and needed; the hop to h + 6 raises ErrNewValSetCantBeTrusted; then
+    the BN254 aggregate commit verifies through ``get_bn254_backend()``
+    (the process default, its device tier first) and the copy with one
+    wrong signer raises. One sha512 / decompress / ladder set a commit
+    verification that reaches the backend (two for the skipping hop: its
+    light check sends what the trusting check left uncached), one bn254
+    launch an aggregate, no ChainExhausted fallback."""
+    from cometbft_tpu_torch.crypto import bn254, ed25519
+    from cometbft_tpu_torch.light import verifier
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import (Commit, Fraction, SignedHeader, Time, ValidatorSet,
+                                          validation)
+
+    h = COMMIT_HEIGHT
+    work = commit_workloads(cf)
+    recorder = BitmapRecorder(torch_backend)
+    fallbacks = ed25519.scalar_fallbacks
+    be.set_backend(recorder)
+    _build.reset_launches()
+    try:
+        for name in ("verify_commit_10k", "verify_commit_light_10k", "hop_adjacent_10k",
+                     "hop_non_adjacent_10k"):
+            prepare, call = work[name]
+            call(prepare())
+        sizes = [len(b) for b in recorder.bitmaps]
+        light_n = N_SIGS * 2 // 3 + 1
+        trusting_n = N_SIGS // 3 + 1
+        check(sizes == [N_SIGS, light_n, light_n, trusting_n, light_n - trusting_n]
+              and all(all(b) for b in recorder.bitmaps), f"good commit batches {sizes}")
+
+        vals = ValidatorSet.decode(cf["vals"])
+        ed25519._verified.clear()
+        bad = Commit.decode(cf["corrupted"])
+        e = raises(ValueError, lambda: validation.verify_commit(
+            COMMIT_CHAIN_ID, vals, bad.block_id, h, bad))
+        first = cf["corrupted_at"][0]
+        check(str(e).startswith(f"wrong signature (#{first}): "), f"corrupted commit: {e}")
+        bits = recorder.bitmaps[-1]
+        check([i for i, b in enumerate(bits) if not b] == cf["corrupted_at"],
+              "corrupted commit: the bitmap is not false exactly at the corrupted indices")
+
+        short = Commit.decode(cf["insufficient"])
+        e = raises(validation.ErrNotEnoughVotingPowerSigned, lambda: validation.verify_commit(
+            COMMIT_CHAIN_ID, vals, short.block_id, h, short))
+        check((e.got, e.needed) == cf["insufficient_power"],
+              f"insufficient power: got {e.got}, needed {e.needed}")
+
+        now = Time(COMMIT_T0 + 6 * h + 3600, 0)
+        raises(verifier.ErrNewValSetCantBeTrusted, lambda: verifier.verify_non_adjacent(
+            SignedHeader.decode(cf["h"]), vals, SignedHeader.decode(cf["cant"]),
+            ValidatorSet.decode(cf["cant_vals"]), TRUSTING_PERIOD_NS, now, CLOCK_DRIFT_NS,
+            Fraction(1, 3)))
+        check(len(recorder.bitmaps) == 6, f"{len(recorder.bitmaps)} backend calls, expected 6")
+
+        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FAULTS=None):
+            bn254.set_bn254_backend(None)
+            bn_backend = bn254.get_bn254_backend()
+        bn_vals = ValidatorSet.decode(cf["bn254_vals"])
+        agg = SignedHeader.decode(cf["bn254"]).commit
+        check(agg.is_aggregate(), "the BN254 commit is not in aggregate form")
+        t0 = time.perf_counter()
+        validation.verify_commit(COMMIT_CHAIN_ID, bn_vals, agg.block_id, h, agg)
+        agg_ms = (time.perf_counter() - t0) * 1e3
+        wrong = Commit.decode(cf["bn254_wrong"])
+        e = raises(ValueError, lambda: validation.verify_commit(
+            COMMIT_CHAIN_ID, bn_vals, wrong.block_id, h, wrong))
+        check(str(e) == f"invalid aggregate signature for commit at height {h}",
+              f"wrong BN254 signer: {e}")
+        counters = bn_backend.inner.counters()
+        check(counters["tiers"]["bn254-device"]["calls"] == 2 and counters["degraded_calls"] == 0,
+              f"the BN254 aggregates were not served by bn254-device: {counters}")
+        launches = expect_launches(6, 0, 2)
+    finally:
+        be.set_backend(None)
+        bn254.set_bn254_backend(None)
+    check(ed25519.scalar_fallbacks == fallbacks, "a verification took the ChainExhausted fallback")
+    return {"launches": launches, "batches": [len(b) for b in recorder.bitmaps],
+            "bn254_aggregate_ms": agg_ms, "bn254_chain": counters}
+
+
+def commit_stage_split(cf, torch_backend, dev) -> dict:
+    """One verify_commit of the 10,240-validator commit under
+    ``TorchBackend()``, from a freshly decoded commit and an empty cache,
+    stage by stage, each ended by a synchronize: the sign bytes
+    (``vote_sign_bytes_all``), the tally loop and ``bv.add`` (with the
+    basic checks before it), the cache filter, the backend call (then its
+    pack and kernels, each stage_split's way, on the same triples), the
+    merge into the cache; and the hop's ``ValidatorSet.hash`` and
+    ``Header.hash`` of freshly decoded objects."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import Commit, Header, SignedHeader, ValidatorSet, validation
+
+    marks, box = {}, {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+
+    class Marked:
+        def batch_verify(self, pubs, msgs, sigs):
+            mark("backend_in")
+            out = torch_backend.batch_verify(pubs, msgs, sigs)
+            mark("backend_out")
+            box["triples"] = (pubs, msgs, sigs)
+            return out
+
+    sign_bytes_all, verify = Commit.vote_sign_bytes_all, ed25519.BatchVerifier.verify
+
+    def timed_sign_bytes(commit, chain_id):
+        mark("sign_bytes_in")
+        out = sign_bytes_all(commit, chain_id)
+        mark("sign_bytes_out")
+        return out
+
+    def timed_verify(bv):
+        mark("verify_in")
+        out = verify(bv)
+        mark("verify_out")
+        return out
+
+    vals = ValidatorSet.decode(cf["vals"])
+    commit = SignedHeader.decode(cf["h"]).commit
+    ed25519._verified.clear()
+    be.set_backend(Marked())
+    Commit.vote_sign_bytes_all, ed25519.BatchVerifier.verify = timed_sign_bytes, timed_verify
+    try:
+        mark("start")
+        validation.verify_commit(COMMIT_CHAIN_ID, vals, commit.block_id, COMMIT_HEIGHT, commit)
+        mark("end")
+    finally:
+        Commit.vote_sign_bytes_all, ed25519.BatchVerifier.verify = sign_bytes_all, verify
+        be.set_backend(None)
+    ms = lambda a, b: (marks[b] - marks[a]) * 1e3  # noqa: E731
+    st = {"total": ms("start", "end"), "sign_bytes": ms("sign_bytes_in", "sign_bytes_out"),
+          "tally_and_add": ms("start", "verify_in") - ms("sign_bytes_in", "sign_bytes_out"),
+          "cache_filter": ms("verify_in", "backend_in"),
+          "backend_call": ms("backend_in", "backend_out"),
+          "merge_and_cache_put": ms("backend_out", "verify_out"),
+          "after_verify": ms("verify_out", "end")}
+    pubs, msgs, sigs = box["triples"]
+    inner = stage_split((None, None, pubs, msgs, sigs, [b"\x00"], None), dev)
+    st.update({f"backend_{k}": v for k, v in inner.items() if not k.startswith("merkle")})
+    fresh_vals = ValidatorSet.decode(cf["vals"])
+    fresh_header = Header.decode(SignedHeader.decode(cf["h1"]).header.encode())
+    st["hop_validator_set_hash"] = time_host(fresh_vals.hash)
+    st["hop_header_hash"] = time_host(fresh_header.hash)
+    return st
+
+
+def commit_metrics(cf, torch_backend, auto, dev) -> dict:
+    """Medians of COMMIT_REPS of each workload of ``commit_workloads``
+    under ``set_backend(TorchBackend())`` and under the process default
+    (``auto``, the backend ``CMTPU_BACKEND=auto`` builds), in turns, each
+    call from freshly decoded objects and an empty cache; and the median
+    stage split of 3 calls."""
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    work = commit_workloads(cf)
+    runs = {name: {"torch": [], "auto": []} for name in work}
+    try:
+        for rep in range(COMMIT_REPS):
+            tiers = [("torch", torch_backend), ("auto", auto)]
+            for tier, backend in tiers if rep % 2 == 0 else tiers[::-1]:
+                be.set_backend(backend)
+                for name, (prepare, call) in work.items():
+                    args = prepare()
+                    runs[name][tier].append(time_host(lambda: call(args)))
+    finally:
+        be.set_backend(None)
+    medians = {name: {tier: statistics.median(v) for tier, v in r.items()}
+               for name, r in runs.items()}
+    splits = [commit_stage_split(cf, torch_backend, dev) for _ in range(3)]
+    stages = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    return {"medians_ms": medians, "runs_ms": runs, "stages_ms": stages}
+
+
 N_SHARDS = 2
 
 
@@ -2069,7 +2522,7 @@ def main() -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-12 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-16 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -2240,6 +2693,33 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     by_path["tooling"] = tools.pop("launches")
     print(f"tooling ok (pprof endpoints, dryrun_multichip(2), entry(), the device probe); "
           f"launches {by_path['tooling']}; {json.dumps(tools)}", flush=True)
+
+    commit_start = time.perf_counter()
+    cf = commit_fixtures(fixtures)
+    print(f"commit fixtures: a {N_SIGS}-validator ed25519 set and its commits at heights "
+          f"{COMMIT_HEIGHT}, +1 and +5 ({3 * N_SIGS} canonical precommits), a hop of "
+          f"{CANT_TRUST_SIGNERS} signers, a {COMMIT_SMALL}-validator commit and a "
+          f"{N_BN254_COMMIT}-validator BN254 aggregate commit, signed in {SIGN_PROCESSES} "
+          f"processes, built in {time.perf_counter() - commit_start:.1f} s", flush=True)
+    cp = drive_commit_path(cf, backend)
+    by_path["commit"] = cp.pop("launches")
+    print(f"commit path ok (verify_commit, verify_commit_light and both hops of the "
+          f"{N_SIGS}-validator set; the corrupted commit, the short commit and the hop that "
+          f"cannot be trusted raise as they should; the BN254 aggregate through "
+          f"get_bn254_backend()); launches {by_path['commit']}; {json.dumps(cp)}", flush=True)
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+        auto = be._make_backend()
+    try:
+        cm = commit_metrics(cf, backend, auto, dev)
+    finally:
+        auto.close()
+    print(json.dumps({"metric": "verify_commit_10k_ms",
+                      "value": cm["medians_ms"]["verify_commit_10k"]["torch"], **cm,
+                      "phase_s": time.perf_counter() - commit_start,
+                      "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
 
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(

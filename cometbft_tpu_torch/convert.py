@@ -11,6 +11,12 @@ helpers turn
 them into the port's tensors and back, so the tests can hand one input to
 both implementations. They take numpy arrays and import nothing of the
 reference.
+
+The state of commit verification is its wire bytes: ``commit_from_wire``,
+``signed_header_from_wire`` and ``validator_set_from_wire`` take what the
+reference's ``Commit.encode()``, ``SignedHeader.encode()`` and its
+validators' public-key proto bytes and powers give, and return the port's
+objects, which encode to the same bytes.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cometbft_tpu_torch.crypto import encoding
 from cometbft_tpu_torch.ops import bn254_kernel, merkle_kernel
+from cometbft_tpu_torch.types import Commit, SignedHeader, Validator, ValidatorSet
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -108,3 +116,22 @@ def levels_to_jax(levels) -> tuple:
     if rows[-1][0] + 1 != total or arr.shape[1:] != (8,):
         raise ValueError(f"{tuple(arr.shape)} is not the levels of any tree")
     return tuple(np.ascontiguousarray(arr[base : base + count].T) for base, count in rows)
+
+
+def commit_from_wire(encoded: bytes) -> Commit:
+    """A commit from its proto bytes (the reference's ``Commit.encode()``)."""
+    return Commit.decode(encoded)
+
+
+def signed_header_from_wire(encoded: bytes) -> SignedHeader:
+    """A signed header from its proto bytes (``SignedHeader.encode()``)."""
+    return SignedHeader.decode(encoded)
+
+
+def validator_set_from_wire(validators) -> ValidatorSet:
+    """A validator set from (public-key proto bytes, voting power) pairs,
+    one a validator (the reference's ``pub_key_to_proto(v.pub_key)`` and
+    ``v.voting_power``): the set is built as the reference builds it, so
+    its order, proposer priorities, hash and encoding are the same."""
+    return ValidatorSet([Validator.new(encoding.pub_key_from_proto(pk), power)
+                         for pk, power in validators])

@@ -14,7 +14,13 @@ the port's ``bn254_pure``:
   duck type the supervisor speaks;
 - ``build_bn254_chain``: ``bn254-device`` (the port's ``Bn254DeviceBackend``,
   Miller loops on the card) -> ``bn254-host`` -> the scalar anchor, and
-  ``get_bn254_backend``, the process singleton over it.
+  ``get_bn254_backend``, the process singleton over it;
+- the key type of the crypto registry (``crypto/batch.py``): ``PubKey``
+  (a compressed G1 point; ``verify_signature`` is the scalar pairing
+  check), ``BatchVerifier`` over ``get_bn254_backend()`` with its own
+  verified-triple cache, and ``aggregate_signatures`` /
+  ``aggregate_signatures_compressed``, the G2 sum an aggregate commit
+  carries (``types/block.aggregate_commit``).
 
 Unlike the reference, the device tier is not opt-in and no construction
 error is caught: ``device`` None means ``cuda`` and raises without a card;
@@ -26,8 +32,15 @@ from __future__ import annotations
 import os
 import threading
 
+from cometbft_tpu_torch import crypto
 from cometbft_tpu_torch.crypto import bn254_pure as _b
+from cometbft_tpu_torch.crypto import tmhash
 from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
+
+KEY_TYPE = "bn254"
+PUB_KEY_SIZE = 32
+SIGNATURE_SIZE = _b.SIGNATURE_SIZE
+PUB_KEY_NAME = "tendermint/PubKeyBn254"
 
 
 def verify_aggregate(pub_keys, msgs, agg_sig: bytes) -> bool:
@@ -200,3 +213,117 @@ def set_bn254_backend(b) -> None:
     close = getattr(old, "close", None)
     if close is not None and old is not b:
         close()
+
+
+# -- the key type --------------------------------------------------------------
+
+
+class PubKey(crypto.PubKey):
+    """A BN254 public key: a compressed G1 point (crypto/bn254/bn254.go)."""
+
+    def __init__(self, data: bytes):
+        if len(data) != PUB_KEY_SIZE:
+            raise ValueError(f"bn254 pubkey must be {PUB_KEY_SIZE} bytes")
+        self._bytes = bytes(data)
+
+    def address(self) -> bytes:
+        return tmhash.sum_truncated(self._bytes)
+
+    def bytes(self) -> bytes:
+        return self._bytes
+
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        """The pairing check e(-pk, H(m)) * e(G1, sig) == 1; False on any
+        malformed encoding."""
+        return _scalar_verify(self._bytes, bytes(msg), bytes(sig))
+
+    def type(self) -> str:
+        return KEY_TYPE
+
+
+def _g2_sum(sigs):
+    """The G2 sum of BLS signatures. Every input is checked (on the twist,
+    in the r-torsion): a malformed one raises ValueError."""
+    total = None
+    for s in sigs:
+        total = _b._g2_add(total, _b.g2_unmarshal(bytes(s)))
+    return total
+
+
+def aggregate_signatures(sigs) -> bytes:
+    """The G2 sum of BLS signatures, uncompressed (128 bytes)."""
+    return _b.g2_marshal(_g2_sum(sigs))
+
+
+def aggregate_signatures_compressed(sigs) -> bytes:
+    """The same G2 sum in the 64-byte compressed form a block's commit
+    carries."""
+    return _b.g2_compress(_g2_sum(sigs))
+
+
+# The verified-triple cache of this key type (the ed25519 cache's contract:
+# valid results only, the oldest quarter evicted on overflow).
+_VERIFIED_MAX = int(os.environ.get("CMTPU_VERIFY_CACHE_MAX", "") or 131072)
+_verified: dict[tuple, None] = {}
+_verified_lock = threading.Lock()
+
+
+def _verified_put(key: tuple) -> None:
+    with _verified_lock:
+        if key in _verified:
+            del _verified[key]
+        elif len(_verified) >= _VERIFIED_MAX:
+            for k in list(_verified)[: max(1, _VERIFIED_MAX // 4)]:
+                _verified.pop(k, None)
+        _verified[key] = None
+
+
+class BatchVerifier(crypto.BatchVerifier):
+    """``crypto.BatchVerifier`` over BN254 triples: the verified-triple
+    filter, duplicates within the batch sent once, ``get_bn254_backend()``,
+    and one scalar pairing check a signature when every tier of the chain
+    has failed (``ChainExhausted``)."""
+
+    def __init__(self):
+        self._pubs: list[bytes] = []
+        self._msgs: list[bytes] = []
+        self._sigs: list[bytes] = []
+
+    def add(self, key, msg: bytes, sig: bytes) -> None:
+        if not isinstance(key, PubKey):
+            raise TypeError("bn254.BatchVerifier requires bn254 public keys")
+        if len(sig) != SIGNATURE_SIZE:
+            raise ValueError(f"bn254 signature must be {SIGNATURE_SIZE} bytes")
+        self._pubs.append(key.bytes())
+        self._msgs.append(bytes(msg))
+        self._sigs.append(bytes(sig))
+
+    def verify(self) -> tuple[bool, list]:
+        from cometbft_tpu_torch.sidecar.supervisor import ChainExhausted
+
+        n = len(self._pubs)
+        if n == 0:
+            return False, []
+        keys = list(zip(self._pubs, self._sigs, self._msgs))
+        first_at: dict[tuple, int] = {}
+        sub_idx: list[int] = []
+        for i, key in enumerate(keys):
+            if key not in _verified and key not in first_at:
+                first_at[key] = i
+                sub_idx.append(i)
+        sub_bits: list = []
+        if sub_idx:
+            sub = [keys[i] for i in sub_idx]
+            pubs, sigs, msgs = ([k[j] for k in sub] for j in range(3))
+            try:
+                _, sub_bits = get_bn254_backend().batch_verify(pubs, msgs, sigs)
+                if len(sub_bits) != len(sub_idx):
+                    raise ValueError("backend returned wrong-shaped bitmap")
+            except ChainExhausted:
+                sub_bits = [_scalar_verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+        bit_of = {keys[i]: bool(b) for i, b in zip(sub_idx, sub_bits)}
+        for key, ok in bit_of.items():
+            if ok:
+                _verified_put(key)
+        out = [bit_of.get(key, True) for key in keys]
+        return all(out), out

@@ -1,6 +1,7 @@
 """RFC-6962 Merkle roots and inclusion proofs: the port's host side and
-oracle (hashlib), and the proofs path's selection among the card, the
-native host pass and pure Python (``proofs_from_byte_slices``).
+oracle (hashlib), the roots' selection between the native tree and pure
+Python (``hash_from_byte_slices``), and the proofs path's among the card,
+the native host pass and pure Python (``proofs_from_byte_slices``).
 
 leaf  = SHA256(0x00 || data)
 inner = SHA256(0x01 || left || right)
@@ -46,8 +47,31 @@ def get_split_point(length: int) -> int:
     return k
 
 
+# Which path the last hash_from_byte_slices call took: "host-native" or
+# "pure-python". Observability only.
+last_root_path = "none"
+
+
 def hash_from_byte_slices(items: list[bytes]) -> bytes:
-    """Merkle root of items (RFC 6962)."""
+    """Merkle root of items (RFC 6962), by the path the reference's
+    ``crypto/merkle/tree.py`` takes: the native tree (``native.merkle_root``,
+    its level loop in C) from 32 items, pure Python below. The native path
+    waits for the library's build and raises if it failed; it never falls
+    back to pure Python. Both give the same root."""
+    global last_root_path
+
+    if len(items) >= 32:
+        from cometbft_tpu_torch import native
+
+        last_root_path = "host-native"
+        return native.merkle_root(items)
+    last_root_path = "pure-python"
+    return hash_from_byte_slices_pure(items)
+
+
+def hash_from_byte_slices_pure(items: list[bytes]) -> bytes:
+    """Merkle root of items (RFC 6962), level-synchronous pure Python: the
+    tests' oracle."""
     if not items:
         return empty_hash()
     level = [leaf_hash(it) for it in items]

@@ -55,9 +55,10 @@ _NATIVE_BATCH_MIN = 16
 class CpuBackend(VerifyBackend):
     """The host tier: the native C batch verifier (one random-linear-
     combination equation over a Pippenger MSM) from ``_NATIVE_BATCH_MIN``
-    signatures, the pure ZIP-215 oracle one signature at a time below it.
-    A batch of 16 or more waits for the native build and raises if it
-    failed; it never runs per-signature pure Python."""
+    signatures, the pure ZIP-215 oracle one signature at a time below it;
+    roots by ``hash_from_byte_slices`` (the native tree from 32 leaves). A
+    batch of 16 or more and a root of 32 leaves or more wait for the native
+    build and raise if it failed; neither runs pure Python then."""
 
     name = "cpu"
 

@@ -91,7 +91,16 @@ def submission_class(klass: int):
 
 
 def current_class() -> int:
+    """The class this thread's submissions carry: the port's own tag, else
+    the JAX package's (a reference surface tags requests with that
+    package's ``submission_class``), read through its engine module only
+    when ``sys.modules`` already holds it; else blocksync. The class
+    numbers are the same in both packages."""
     k = getattr(_tls, "klass", None)
+    if k is None:
+        ref = sys.modules.get("cometbft_tpu.sidecar.engine")
+        if ref is not None:
+            k = getattr(ref._tls, "klass", None)
     return CLASS_BLOCKSYNC if k is None else k
 
 

@@ -1,0 +1,371 @@
+"""ValidatorSet: sorted validator array with proposer-priority rotation
+(types/validator_set.go), the port's copy of
+``cometbft_tpu/types/validator_set.py``. Its hash goes through
+``crypto/merkle.hash_from_byte_slices`` (the native tree from 32
+validators) and its ``verify_commit*`` methods through ``types/validation``.
+
+Consensus-critical integer arithmetic ported semantically: int64 overflow
+clipping (safeAddClip/safeSubClip), priority rescaling to a 2*totalPower
+window, and the -1.125*totalPower penalty for newly bonded validators.
+Ordering invariant: validators sorted by voting power descending, ties by
+address ascending (ValidatorsByVotingPower, validator_set.go:755-764).
+"""
+
+from __future__ import annotations
+
+from cometbft_tpu_torch.crypto import merkle
+from cometbft_tpu_torch.types.validator import Validator
+
+INT64_MAX = 2**63 - 1
+INT64_MIN = -(2**63)
+
+MAX_TOTAL_VOTING_POWER = INT64_MAX // 8  # validator_set.go:25
+PRIORITY_WINDOW_SIZE_FACTOR = 2  # validator_set.go:30
+
+
+def safe_add_clip(a: int, b: int) -> int:
+    v = a + b
+    return min(max(v, INT64_MIN), INT64_MAX)
+
+
+def safe_sub_clip(a: int, b: int) -> int:
+    v = a - b
+    return min(max(v, INT64_MIN), INT64_MAX)
+
+
+def safe_mul(a: int, b: int) -> tuple[int, bool]:
+    """(product, overflowed) with int64 semantics (libs/math/safemath.go)."""
+    v = a * b
+    if v > INT64_MAX or v < INT64_MIN:
+        return 0, True
+    return v, False
+
+
+def _go_div(a: int, b: int) -> int:
+    """Go integer division truncates toward zero (Python's // floors)."""
+    q = abs(a) // abs(b)
+    return -q if (a < 0) != (b < 0) else q
+
+
+def _by_voting_power_key(v: Validator):
+    return (-v.voting_power, v.address)
+
+
+class ValidatorSet:
+    """types/validator_set.go:51-97."""
+
+    def __init__(self, validators: list[Validator] | None = None):
+        self.validators: list[Validator] = []
+        self.proposer: Validator | None = None
+        self._total_voting_power = 0
+        # address -> index, built lazily: commit verification looks every
+        # signature's validator up by address, which is O(n^2) per commit as
+        # a linear scan at 4k+ validators.  Invalidated on membership change.
+        self._addr_index: dict[bytes, int] | None = None
+        # Merkle-root memo: the hash covers (pubkey, power) per validator in
+        # order, so it shares _addr_index's invalidation points (membership/
+        # power changes); proposer-priority rotation leaves it intact.
+        self._hash_memo: bytes | None = None
+        if validators:
+            err = self._update_with_change_set(
+                [v.copy() for v in validators], allow_deletes=False
+            )
+            if err is not None:
+                raise ValueError(f"Cannot create validator set: {err}")
+            self.increment_proposer_priority(1)
+
+    # -- basic accessors ----------------------------------------------------
+
+    def is_nil_or_empty(self) -> bool:
+        return len(self.validators) == 0
+
+    def size(self) -> int:
+        return len(self.validators)
+
+    def _index(self) -> dict[bytes, int]:
+        if self._addr_index is None:
+            self._addr_index = {
+                v.address: i for i, v in enumerate(self.validators)
+            }
+        return self._addr_index
+
+    def has_address(self, address: bytes) -> bool:
+        return address in self._index()
+
+    def get_by_address(self, address: bytes):
+        i = self._index().get(address, -1)
+        if i < 0:
+            return -1, None
+        return i, self.validators[i].copy()
+
+    def get_by_index(self, index: int):
+        if index < 0 or index >= len(self.validators):
+            return None, None
+        v = self.validators[index]
+        return v.address, v.copy()
+
+    def copy(self) -> "ValidatorSet":
+        c = ValidatorSet()
+        c.validators = [v.copy() for v in self.validators]
+        c.proposer = self.proposer
+        c._total_voting_power = self._total_voting_power
+        return c
+
+    def total_voting_power(self) -> int:
+        if self._total_voting_power == 0:
+            self._update_total_voting_power()
+        return self._total_voting_power
+
+    def _update_total_voting_power(self) -> None:
+        s = 0
+        for v in self.validators:
+            s = safe_add_clip(s, v.voting_power)
+            if s > MAX_TOTAL_VOTING_POWER:
+                raise OverflowError(
+                    f"Total voting power should be guarded to not exceed "
+                    f"{MAX_TOTAL_VOTING_POWER}; got: {s}"
+                )
+        self._total_voting_power = s
+
+    def get_proposer(self) -> Validator | None:
+        if not self.validators:
+            return None
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return self.proposer.copy()
+
+    def _find_proposer(self) -> Validator:
+        proposer = None
+        for v in self.validators:
+            if proposer is None or v.address != proposer.address:
+                proposer = v.compare_proposer_priority(proposer) if proposer else v
+        return proposer
+
+    def hash(self) -> bytes:
+        """Merkle root over SimpleValidator leaves (validator_set.go:347)."""
+        if self._hash_memo is None:
+            self._hash_memo = merkle.hash_from_byte_slices(
+                [v.bytes() for v in self.validators]
+            )
+        return self._hash_memo
+
+    def validate_basic(self) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("validator set is nil or empty")
+        for idx, v in enumerate(self.validators):
+            try:
+                v.validate_basic()
+            except ValueError as e:
+                raise ValueError(f"invalid validator #{idx}: {e}") from e
+        if self.proposer is None:
+            raise ValueError("proposer failed validate basic, error: nil validator")
+        self.proposer.validate_basic()
+
+    # -- proposer priority rotation (validator_set.go:107-247) ---------------
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        c = self.copy()
+        c.increment_proposer_priority(times)
+        return c
+
+    def increment_proposer_priority(self, times: int) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError(
+                "Cannot call IncrementProposerPriority with non-positive times"
+            )
+        diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        self.rescale_priorities(diff_max)
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = safe_add_clip(v.proposer_priority, v.voting_power)
+        mostest = None
+        for v in self.validators:
+            mostest = v.compare_proposer_priority(mostest) if mostest else v
+        mostest.proposer_priority = safe_sub_clip(
+            mostest.proposer_priority, self.total_voting_power()
+        )
+        return mostest
+
+    def rescale_priorities(self, diff_max: int) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if diff_max <= 0:
+            return
+        diff = self._compute_max_min_priority_diff()
+        ratio = (diff + diff_max - 1) // diff_max
+        if diff > diff_max:
+            for v in self.validators:
+                v.proposer_priority = _go_div(v.proposer_priority, ratio)
+
+    def _compute_max_min_priority_diff(self) -> int:
+        prios = [v.proposer_priority for v in self.validators]
+        diff = max(prios) - min(prios)
+        return -diff if diff < 0 else diff
+
+    def _compute_avg_proposer_priority(self) -> int:
+        n = len(self.validators)
+        s = sum(v.proposer_priority for v in self.validators)
+        # Go big.Int Div is Euclidean-style floor for positive divisor.
+        return s // n
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        avg = self._compute_avg_proposer_priority()
+        for v in self.validators:
+            v.proposer_priority = safe_sub_clip(v.proposer_priority, avg)
+
+    # -- update machinery (validator_set.go:366-660) -------------------------
+
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        err = self._update_with_change_set([v.copy() for v in changes], True)
+        if err is not None:
+            raise ValueError(err)
+
+    def _update_with_change_set(self, changes, allow_deletes: bool):
+        if not changes:
+            return None
+        # processChanges: sort by address, detect duplicates, split.
+        changes = sorted(changes, key=lambda v: v.address)
+        updates, deletes = [], []
+        prev_addr = None
+        for v in changes:
+            if v.address == prev_addr:
+                return f"duplicate entry {v} in {changes}"
+            if v.voting_power < 0:
+                return f"voting power can't be negative: {v.voting_power}"
+            if v.voting_power > MAX_TOTAL_VOTING_POWER:
+                return (
+                    f"to prevent clipping/overflow, voting power can't be higher "
+                    f"than {MAX_TOTAL_VOTING_POWER}, got {v.voting_power}"
+                )
+            if v.voting_power == 0:
+                deletes.append(v)
+            else:
+                updates.append(v)
+            prev_addr = v.address
+        if not allow_deletes and deletes:
+            return f"cannot process validators with voting power 0: {deletes}"
+        num_new = sum(1 for u in updates if not self.has_address(u.address))
+        if num_new == 0 and len(self.validators) == len(deletes):
+            return "applying the validator changes would result in empty set"
+        # verifyRemovals
+        removed_power = 0
+        for d in deletes:
+            _, val = self.get_by_address(d.address)
+            if val is None:
+                return f"failed to find validator {d.address.hex().upper()} to remove"
+            removed_power += val.voting_power
+        if len(deletes) > len(self.validators):
+            raise ValueError("more deletes than validators")
+        # verifyUpdates
+
+        def delta(update: Validator) -> int:
+            _, val = self.get_by_address(update.address)
+            if val is not None:
+                return update.voting_power - val.voting_power
+            return update.voting_power
+
+        tvp_after_removals = self.total_voting_power() - removed_power
+        for upd in sorted(updates, key=delta):
+            tvp_after_removals += delta(upd)
+            if tvp_after_removals > MAX_TOTAL_VOTING_POWER:
+                return (
+                    f"total voting power of resulting valset exceeds max "
+                    f"{MAX_TOTAL_VOTING_POWER}"
+                )
+        tvp_after_updates_before_removals = tvp_after_removals + removed_power
+        # computeNewPriorities: new validators start at -1.125*totalPower.
+        for upd in updates:
+            _, val = self.get_by_address(upd.address)
+            if val is None:
+                upd.proposer_priority = -(
+                    tvp_after_updates_before_removals
+                    + (tvp_after_updates_before_removals >> 3)
+                )
+            else:
+                upd.proposer_priority = val.proposer_priority
+        self._apply_updates(updates)
+        self._apply_removals(deletes)
+        self._update_total_voting_power()
+        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power())
+        self._shift_by_avg_proposer_priority()
+        self.validators.sort(key=_by_voting_power_key)
+        self._addr_index = None
+        self._hash_memo = None
+        return None
+
+    def _apply_updates(self, updates: list[Validator]) -> None:
+        existing = sorted(self.validators, key=lambda v: v.address)
+        merged = []
+        i = j = 0
+        while i < len(existing) and j < len(updates):
+            if existing[i].address < updates[j].address:
+                merged.append(existing[i])
+                i += 1
+            else:
+                merged.append(updates[j])
+                if existing[i].address == updates[j].address:
+                    i += 1
+                j += 1
+        merged.extend(existing[i:])
+        merged.extend(updates[j:])
+        self.validators = merged
+        self._addr_index = None
+        self._hash_memo = None
+
+    def _apply_removals(self, deletes: list[Validator]) -> None:
+        if not deletes:
+            return
+        dset = {d.address for d in deletes}
+        self.validators = [v for v in self.validators if v.address not in dset]
+        self._addr_index = None
+        self._hash_memo = None
+
+    # -- verification wrappers (validator_set.go:662-680) --------------------
+
+    def verify_commit(self, chain_id: str, block_id, height: int, commit) -> None:
+        from cometbft_tpu_torch.types import validation
+
+        validation.verify_commit(chain_id, self, block_id, height, commit)
+
+    def verify_commit_light(self, chain_id: str, block_id, height: int, commit) -> None:
+        from cometbft_tpu_torch.types import validation
+
+        validation.verify_commit_light(chain_id, self, block_id, height, commit)
+
+    def verify_commit_light_trusting(self, chain_id: str, commit, trust_level) -> None:
+        from cometbft_tpu_torch.types import validation
+
+        validation.verify_commit_light_trusting(chain_id, self, commit, trust_level)
+
+    # -- wire ----------------------------------------------------------------
+
+    def encode(self) -> bytes:
+        from cometbft_tpu_torch.wire import proto as wire
+
+        out = b""
+        for v in self.validators:
+            out += wire.field_message(1, v.encode(), emit_empty=True)
+        if self.proposer is not None:
+            out += wire.field_message(2, self.proposer.encode(), emit_empty=True)
+        out += wire.field_varint(3, self.total_voting_power() if self.validators else 0)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ValidatorSet":
+        from cometbft_tpu_torch.wire import proto as wire
+
+        f = wire.decode_fields(data)
+        vs = cls()
+        vs.validators = [Validator.decode(b) for b in wire.get_repeated_bytes(f, 1)]
+        if 2 in f:
+            vs.proposer = Validator.decode(wire.get_bytes(f, 2))
+        vs._total_voting_power = 0
+        return vs

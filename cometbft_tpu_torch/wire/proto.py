@@ -1,13 +1,18 @@
 """Minimal deterministic protobuf encoder and decoder: the subset of the
-proto3 wire format the sidecar's framed protocol uses.
+proto3 wire format the sidecar's framed protocol and the canonical data
+structures (``types/``) use.
 
 Counterpart of ``cometbft_tpu/wire/proto.py`` (its field helpers, stdlib
-only), so the port's server and client put the same bytes on the wire as
-the reference's. Proto3 rules: default-valued scalar fields are omitted
-unless asked for; ``bytes`` and ``string`` are length-delimited.
+only), so the port puts the same bytes on the wire as the reference. Proto3
+rules: default-valued scalar fields are omitted unless asked for; fields go
+out in ascending field-number order; ``bytes``, ``string`` and embedded
+messages are length-delimited; canonical height and round are ``sfixed64``
+(types/canonical.go).
 """
 
 from __future__ import annotations
+
+import struct
 
 # Wire types
 WT_VARINT = 0
@@ -86,6 +91,28 @@ def field_string(field_num: int, value: str, *, emit_default: bool = False) -> b
     return field_bytes(field_num, value.encode("utf-8"), emit_default=emit_default)
 
 
+def field_sfixed64(field_num: int, value: int, *, emit_default: bool = False) -> bytes:
+    if value == 0 and not emit_default:
+        return b""
+    return tag(field_num, WT_FIXED64) + struct.pack("<q", value)
+
+
+def field_message(field_num: int, encoded: bytes | None, *, emit_empty: bool = False) -> bytes:
+    """An embedded message field. None is absent; an empty encoding is
+    still emitted under ``emit_empty`` (gogoproto non-nullable fields)."""
+    if encoded is None:
+        return b""
+    if not encoded and not emit_empty:
+        return b""
+    return tag(field_num, WT_LEN) + encode_uvarint(len(encoded)) + encoded
+
+
+def length_delimited(encoded: bytes) -> bytes:
+    """A whole message behind its uvarint length (protoio.MarshalDelimited),
+    as canonical vote and proposal sign bytes are framed."""
+    return encode_uvarint(len(encoded)) + encoded
+
+
 # -- decoding: a tolerant field walker -> {field_num: [raw values]}, a raw
 # value being an int (varint) or bytes (length-delimited, fixed64, fixed32)
 
@@ -122,6 +149,12 @@ def decode_fields(buf: bytes) -> dict[int, list]:
 
 # Getters raise ValueError on wire-type confusion (a varint where bytes were
 # expected, or the reverse): adversarial inputs fail to decode cleanly.
+
+
+def get_varint(fields: dict, num: int, default: int = 0) -> int:
+    """A signed ``int64`` field (two's complement in 64 bits)."""
+    v = get_uvarint(fields, num, default)
+    return v - (1 << 64) if v >= 1 << 63 else v
 
 
 def get_uvarint(fields: dict, num: int, default: int = 0) -> int:

@@ -1,6 +1,7 @@
 """Boundaries of the port: it imports neither jax nor the JAX package (the
-native loader, the supervisor, chaos, the fleet tier, the BN254 chain and
-the tooling included), it
+native loader, the supervisor, chaos, the fleet tier, the BN254 chain, the
+tooling, the types, commit verification and the light verifier included),
+it
 never falls back to the CPU when CUDA is asked for (the hybrid tier and the
 chains neither), and a missing CUDA compiler is an error, not a silent
 switch to the plain versions."""
@@ -60,7 +61,26 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.libs.pprof",
         "cometbft_tpu_torch.entry",
         "cometbft_tpu_torch.probe.device",
+        "cometbft_tpu_torch.crypto.tmhash",
+        "cometbft_tpu_torch.crypto.ed25519",
+        "cometbft_tpu_torch.crypto.encoding",
+        "cometbft_tpu_torch.crypto.batch",
+        "cometbft_tpu_torch.types",
+        "cometbft_tpu_torch.types.cmttime",
+        "cometbft_tpu_torch.types.block",
+        "cometbft_tpu_torch.types.canonical",
+        "cometbft_tpu_torch.types.vote",
+        "cometbft_tpu_torch.types.validator",
+        "cometbft_tpu_torch.types.validator_set",
+        "cometbft_tpu_torch.types.light_block",
+        "cometbft_tpu_torch.types.validation",
+        "cometbft_tpu_torch.light",
+        "cometbft_tpu_torch.light.verifier",
+        "cometbft_tpu_torch.convert",
     } <= set(mods)
+    from cometbft_tpu_torch.crypto import bn254
+
+    assert bn254.PubKey.__module__ == "cometbft_tpu_torch.crypto.bn254"
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
