@@ -19,9 +19,14 @@ without an injected fault. The auto path is the process default
 (``get_backend()`` under ``CMTPU_BACKEND=auto``), the fanout path the fleet
 tier (two port sidecars, one in another process, and the local hybrid), the
 proofs paths ``crypto/merkle``'s selection, the tooling path the
-profiling endpoints, ``entry.py`` and the device probe, and the commit path
+profiling endpoints, ``entry.py`` and the device probe, the commit path
 commit verification (``types/validation``, ``light/verifier``) of a
-10,240-validator set's commits and hops. In order:
+10,240-validator set's commits and hops, and the blocksync path a fresh
+node syncing a 10,240-validator chain (and a 150-validator one) from peers
+through ``blocksync/reactor.BlocksyncReactor``, which verifies each window
+of commits in one backend call and applies each block through
+``state/execution.BlockExecutor``, the kvstore application and the mempool.
+In order:
 
   1. prints the PyTorch version and the card (name, power limit);
   2. builds the CUDA kernels from ``cometbft_tpu_torch/ops/csrc``; then
@@ -147,7 +152,36 @@ commit verification (``types/validation``, ``light/verifier``) of a
      freshly decoded objects and an empty verified-triple cache, and one
      call's stage split (sign bytes, tally and ``bv.add``, cache filter, the
      backend call with its pack and kernels, the hop's hashes);
- 16. runs the mesh path (the lane-split programs) on two virtual shards of
+ 16. runs the blocksync path: a source node (the port's BlockExecutor,
+     CListMempool and PersistentKVStoreApplication over a MemDB) builds
+     BSYNC_HEIGHTS blocks of the 10,240-validator set of step 3's keys
+     (BSYNC_TXS kvstore transactions of BSYNC_TX_BYTES a block, every
+     validator signing its precommit in the process pool) and
+     BSYNC_SMALL_HEIGHTS blocks of a BSYNC_SMALL-validator set; then a
+     fresh node syncs each through ``BlocksyncReactor`` from two peer
+     doubles that answer block requests through ``receive``. Counts zeroed,
+     pipeline off, the part sets' proofs on the card
+     (``CMTPU_DEVICE_PROOFS=1``), under a recording backend around
+     ``TorchBackend()``, each stage timed: the synced state and stored
+     blocks equal the source's; the window calls carry the window
+     arithmetic's batches (20,480 signatures at 10,240 validators, 4,650 at
+     150) and the later checks send only what no window covered (counted by
+     lanes); each part set took the path its size gives; one sha512 /
+     decompress / ladder set a backend call and two sha256 launches a part
+     set on the card; no error counted. A peer serving one block with a
+     flipped commit signature bit is stopped exactly once and the other
+     completes the sync (``sync_errors`` 1, ``prefetch_errors`` 0). Then
+     ``blocksync_10k_ms_per_block`` and ``blocksync_150_ms_per_block``:
+     the default (pipeline on, the native proofs pass) under
+     ``TorchBackend()`` and the process default in turns, BSYNC_REPS rounds,
+     the pipeline off beside it, ``pipeline_overlap_ms``, the stage split
+     of each height; no ChainExhausted fallback. Last, the three verify
+     kernels at each batch shape the path gave them (both windows, one
+     commit, both light checks: 20,480, 10,240, 6,827, 4,650 and 101 lanes,
+     four lanes of each corrupted), each against its plain version on the
+     same operands with max abs err 0 and the verdicts false at exactly the
+     corrupted lanes, then timed by events;
+ 17. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -160,7 +194,7 @@ commit verification (``types/validation``, ``light/verifier``) of a
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 17. prints the ``kernels`` line (launches summed over the paths, and by
+ 18. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -2261,6 +2295,660 @@ def commit_metrics(cf, torch_backend, auto, dev) -> dict:
     return {"medians_ms": medians, "runs_ms": runs, "stages_ms": stages}
 
 
+# -- the blocksync path ----------------------------------------------------------
+
+BSYNC_CHAIN_ID = "chip-smoke-bsync"
+BSYNC_T0 = 1_700_000_000
+BSYNC_POWER = 10
+# The 10,240-validator chain: the source builds BSYNC_HEIGHTS heights, a
+# fresh node syncs BSYNC_HEIGHTS - 1 of them (the last block's LastCommit
+# verifies the one before it). The 150-validator chain is long enough for one
+# full window of PREFETCH_WINDOW (32) blocks.
+BSYNC_HEIGHTS = 6
+BSYNC_SMALL = COMMIT_SMALL
+BSYNC_SMALL_HEIGHTS = 33
+BSYNC_TXS = 4_096  # within the default mempool.size of 5,000: the proposer reaps them all
+BSYNC_TX_BYTES = 250
+BSYNC_BAD_HEIGHT = 10  # the bad peer's block at this height carries a flipped commit signature
+BSYNC_REPS = 2
+BSYNC_SIGN_CHUNK = 512
+
+
+def bsync_tx(height: int, i: int) -> bytes:
+    """A kvstore transaction of BSYNC_TX_BYTES bytes, ``key=value``; keys
+    rise with the height and index (the app's sorted store appends)."""
+    head = b"h%04d-tx%05d=" % (height, i)
+    return (head + hashlib.sha256(head).hexdigest().encode() * 4)[:BSYNC_TX_BYTES]
+
+
+class BsyncPeer:
+    """A peer double that serves a source chain's blocks: a block request
+    is answered at once, through the syncing reactor's ``receive``, by the
+    encoded ``block_response`` (``corrupt`` maps a height to other bytes)."""
+
+    def __init__(self, peer_id: str, responses: list, corrupt=None):
+        self.id = peer_id
+        self.responses = responses
+        self.corrupt = dict(corrupt or {})
+        self.reactor = None
+        self.stopped = False
+
+    def try_send(self, chan_id: int, msg: bytes) -> bool:
+        from cometbft_tpu_torch.blocksync import reactor as br
+
+        if self.stopped:
+            return False
+        kind, payload = br.decode_message(msg)
+        if kind == "block_request":
+            if payload in self.corrupt:
+                reply = self.corrupt[payload]
+            elif payload <= len(self.responses):
+                reply = self.responses[payload - 1]
+            else:
+                reply = br.encode_no_block_response(payload)
+            self.reactor.receive(chan_id, self, reply)
+        elif kind == "status_request":
+            self.reactor.receive(chan_id, self, br.encode_status_response(len(self.responses), 1))
+        return True
+
+
+class BsyncSwitch:
+    """A switch double: peers by id, and the peers it stopped."""
+
+    def __init__(self, reactor):
+        self.reactor = reactor
+        self.peers: dict = {}
+        self.stops: list = []
+
+    def get_peer(self, peer_id):
+        return self.peers.get(peer_id)
+
+    def broadcast(self, chan_id: int, msg: bytes) -> None:
+        for p in list(self.peers.values()):
+            p.try_send(chan_id, msg)
+
+    def stop_peer_for_error(self, peer, reason) -> None:
+        self.stops.append(peer.id)
+        peer.stopped = True
+        self.peers.pop(peer.id, None)
+        self.reactor.remove_peer(peer, reason)
+
+
+def bsync_node(gen):
+    """A fresh node from genesis: the port's PersistentKVStoreApplication
+    behind the local ABCI client, CListMempool, a MemDB under BlockStore and
+    StateStore, and BlockExecutor (no evidence pool, no event bus)."""
+    from cometbft_tpu_torch.abci.example.kvstore import PersistentKVStoreApplication
+    from cometbft_tpu_torch.config import MempoolConfig
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.mempool import CListMempool
+    from cometbft_tpu_torch.proxy import AppConns, local_client_creator
+    from cometbft_tpu_torch.state import BlockExecutor, StateStore, make_genesis_state
+    from cometbft_tpu_torch.store import BlockStore
+
+    state = make_genesis_state(gen)
+    conns = AppConns(local_client_creator(PersistentKVStoreApplication()))
+    conns.start()
+    mempool = CListMempool(MempoolConfig(), conns.mempool)
+    db = MemDB()
+    ss, bs = StateStore(db), BlockStore(db)
+    ss.save(state)
+    return {"state": state, "executor": BlockExecutor(ss, conns.consensus, mempool, None, bs),
+            "block_store": bs, "state_store": ss, "mempool": mempool, "db": db}
+
+
+def bsync_source(seeds, pubs, n_heights: int, n_txs: int, pool) -> dict:
+    """A source node's chain: a genesis of the given keys at equal power,
+    then n_heights blocks, each proposed by the port's BlockExecutor from
+    n_txs kvstore transactions admitted to its CListMempool, applied to its
+    PersistentKVStoreApplication, and committed by every validator (each
+    signs its canonical precommit in the process pool). Returns the genesis,
+    each block's encoded block_response, the source's state after each
+    height (store bytes), its blocks' bytes and its part counts."""
+    from cometbft_tpu_torch.blocksync import reactor as br
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.state import store as state_store
+    from cometbft_tpu_torch.types import BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig, Time
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    secret = {ed25519.PubKey(p).address(): (s, p) for s, p in zip(seeds, pubs)}
+    gen = GenesisDoc(chain_id=BSYNC_CHAIN_ID, genesis_time=Time(BSYNC_T0, 0), validators=[
+        GenesisValidator(ed25519.PubKey(p).address(), ed25519.PubKey(p), BSYNC_POWER, "")
+        for p in pubs])
+    gen.validate_and_complete()
+    node = bsync_node(gen)
+    state, ex, mempool = node["state"], node["executor"], node["mempool"]
+    last_commit = Commit(height=0, round=0)
+    responses, states, blocks, parts_count = [], [], [], []
+    for h in range(1, n_heights + 1):
+        for i in range(n_txs):
+            mempool.check_tx(bsync_tx(h, i))
+        block = ex.create_proposal_block(h, state, last_commit,
+                                         state.validators.get_proposer().address)
+        check(len(block.data.txs) == n_txs, f"height {h}: the proposer reaped "
+              f"{len(block.data.txs)} of {n_txs} transactions")
+        parts = block.make_part_set()
+        bid = BlockID(block.hash(), parts.header())
+        unsigned = Commit(height=h, round=0, block_id=bid, signatures=[
+            CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, block.header.time.add_nanos(
+                10**9 + 977 * i), b"") for i, v in enumerate(state.validators.validators)])
+        msgs = unsigned.vote_sign_bytes_all(BSYNC_CHAIN_ID)
+        jobs = [("ed25519", *secret[cs.validator_address], m)
+                for cs, m in zip(unsigned.signatures, msgs)]
+        chunks = [jobs[i : i + BSYNC_SIGN_CHUNK] for i in range(0, len(jobs), BSYNC_SIGN_CHUNK)]
+        sigs = [s for chunk in pool.map(sign_jobs, chunks, chunksize=1) for s in chunk]
+        commit = Commit(height=h, round=0, block_id=bid, signatures=[
+            CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp, sig)
+            for cs, sig in zip(unsigned.signatures, sigs)])
+        node["block_store"].save_block(block, parts, commit)
+        state, _ = ex.apply_block(state, bid, block)
+        responses.append(br.encode_block_response(block))
+        blocks.append(block.encode())
+        states.append(state_store._encode_state(state))
+        parts_count.append(parts.total)
+        last_commit = commit
+    return {"gen": gen, "responses": responses, "states": states, "blocks": blocks,
+            "parts": parts_count, "n_vals": len(pubs)}
+
+
+def bsync_flipped(source, height: int) -> bytes:
+    """The source's block at height as a block_response whose LastCommit's
+    first signature has one bit flipped (the header left as it was)."""
+    from cometbft_tpu_torch.blocksync import reactor as br
+    from cometbft_tpu_torch.types.block import Block, Commit, CommitSig
+
+    block = Block.decode(source["blocks"][height - 1])
+    sigs = list(block.last_commit.signatures)
+    cs = sigs[0]
+    sigs[0] = CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                        bytes([cs.signature[0] ^ 0x01]) + cs.signature[1:])
+    block.last_commit = Commit(height=block.last_commit.height, round=block.last_commit.round,
+                               block_id=block.last_commit.block_id, signatures=sigs)
+    return br.encode_block_response(block)
+
+
+class BsyncRecorder:
+    """A backend that records the size of each batch it is asked to verify
+    and which check asked (``BsyncStages.check``): the window, the light
+    check or validate_block's full check."""
+
+    def __init__(self, inner, stages=None):
+        self.inner = inner
+        self.stages = stages
+        self.calls: list = []
+
+    def batch_verify(self, pubs, msgs, sigs):
+        who = self.stages.check if self.stages is not None else None
+        self.calls.append((who, len(pubs)))
+        return self.inner.batch_verify(pubs, msgs, sigs)
+
+    def merkle_root(self, leaves):
+        return self.inner.merkle_root(leaves)
+
+
+class BsyncStages:
+    """Wraps the sync loop's stages with timers, each stage ended by a
+    synchronize: a block_response's decode (in ``receive``), then per applied height
+    ``make_part_set`` (with the proofs path it took), the window
+    (``_prefetch_verify_window``, its sign bytes, ``bv.add`` and the backend
+    call), ``verify_commit_light``, ``validate_block`` (twice a height: the
+    reactor's, then ``apply_block``'s) with its set hashes and its
+    ``verify_commit``, ``save_block`` and ``apply_block``. It also counts the
+    lanes each check sends (through a BsyncRecorder). Installed on the
+    port's classes for one run (``with``)."""
+
+    def __init__(self):
+        self.decode: list = []
+        self.heights: list = []
+        self.check = None
+        self.lanes: list = []  # (height index, check, lanes) of each backend call
+        self._cur = None
+        self._saved = []
+
+    def _wrap(self, owner, name, stage, check=None):
+        orig = getattr(owner, name)
+        timer = self
+
+        def wrapper(*args, **kwargs):
+            prev = timer.check
+            if check is not None:
+                timer.check = check
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                timer.check = prev
+                timer.add(stage, ms)
+                if stage == "make_part_set" and timer._cur is not None:
+                    from cometbft_tpu_torch.crypto import merkle
+
+                    timer._cur["proofs_path"] = merkle.last_proofs_path
+
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, wrapper)
+
+    def add(self, stage, ms):
+        if self._cur is not None:
+            self._cur.setdefault(stage, []).append(ms)
+
+    def __enter__(self):
+        from cometbft_tpu_torch.blocksync import reactor as br
+        from cometbft_tpu_torch.state import BlockExecutor
+        from cometbft_tpu_torch.store import BlockStore
+        from cometbft_tpu_torch.types import ValidatorSet
+        from cometbft_tpu_torch.types.block import Block
+
+        timer = self
+        orig_try = br.BlocksyncReactor._try_sync_one
+
+        def try_sync_one(reactor):
+            timer._cur = {}
+            ok = orig_try(reactor)
+            if ok:
+                timer.heights.append(timer._cur)
+            timer._cur = None
+            return ok
+
+        self._saved.append((br.BlocksyncReactor, "_try_sync_one", orig_try))
+        br.BlocksyncReactor._try_sync_one = try_sync_one
+        orig_decode = br.decode_message
+
+        def decode_message(data):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig_decode(data)
+            torch.cuda.synchronize()
+            if out[0] == "block_response":
+                timer.decode.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self._saved.append((br, "decode_message", orig_decode))
+        br.decode_message = decode_message
+        self._wrap(Block, "make_part_set", "make_part_set")
+        self._wrap(br.BlocksyncReactor, "_prefetch_verify_window", "window", "window")
+        self._wrap(ValidatorSet, "verify_commit_light", "verify_commit_light", "light")
+        self._wrap(BlockExecutor, "validate_block", "validate_block")
+        self._wrap(ValidatorSet, "hash", "validator_set_hash")
+        self._wrap(ValidatorSet, "verify_commit", "verify_commit", "full")
+        self._wrap(BlockStore, "save_block", "save_block")
+        self._wrap(BlockExecutor, "apply_block", "apply_block")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved.clear()
+
+
+def bsync_run(source, backend, pipeline: bool, corrupt=None) -> dict:
+    """Sync a fresh node from two peer doubles serving the source (``p1``
+    with ``corrupt``'s blocks in place of the source's), through the port's
+    BlocksyncReactor under ``set_backend(backend)``, driven on this thread:
+    make the requests, try sync steps until none applies, until caught up.
+    Returns the wall time over the applied heights, the heights, the stops,
+    the reactor's counters and the node."""
+    from cometbft_tpu_torch.blocksync import reactor as br
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    node = bsync_node(source["gen"])
+    peers = [BsyncPeer("p1", source["responses"], corrupt), BsyncPeer("p2", source["responses"])]
+    applied = []
+    with environ(CMTPU_BLOCKSYNC_PIPELINE="1" if pipeline else "0"):
+        reactor = br.BlocksyncReactor(state=node["state"], block_exec=node["executor"],
+                                      block_store=node["block_store"], block_sync=True)
+    switch = BsyncSwitch(reactor)
+    reactor.set_switch(switch)
+    be.set_backend(backend)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in peers:
+            p.reactor = reactor
+            switch.peers[p.id] = p
+            reactor.add_peer(p)
+        while True:
+            reactor.pool.make_requests()
+            progressed = False
+            while True:
+                h = reactor.pool.height
+                if not reactor._try_sync_one():
+                    break
+                applied.append(h)
+                progressed = True
+            if reactor.pool.is_caught_up() or not progressed:
+                break
+        reactor._pipeline_wait()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        be.set_backend(None)
+    return {"wall_ms": wall, "ms_per_block": wall / max(1, len(applied)), "applied": applied,
+            "stops": list(switch.stops), "prefetch_errors": reactor.prefetch_errors,
+            "sync_errors": reactor.sync_errors, "last_sync_error": repr(reactor.last_sync_error),
+            "last_prefetch_error": repr(reactor.last_prefetch_error),
+            "pipeline_overlap_ms": reactor.pipeline_overlap_ms, "node": node,
+            "state": reactor.state}
+
+
+def bsync_same_chain(source, run, upto: int) -> None:
+    """The synced node's state is the source's after height upto, and its
+    stored blocks, metas and commits are the source's bytes."""
+    from cometbft_tpu_torch.state import store as state_store
+    from cometbft_tpu_torch.types.block import Block
+
+    check(run["applied"] == list(range(1, upto + 1)), f"applied heights {run['applied']}")
+    check(state_store._encode_state(run["state"]) == source["states"][upto - 1],
+          f"the synced state differs from the source's at height {upto}")
+    stored = run["node"]["state_store"]._db.get(b"stateKey")
+    check(stored == source["states"][upto - 1], "the synced node's stored state differs")
+    bs = run["node"]["block_store"]
+    for h in range(1, upto + 1):
+        check(bs.load_block(h).encode() == source["blocks"][h - 1],
+              f"stored block {h} differs from the source's")
+        check(bs.load_block_meta(h).block_id.hash == Block.decode(source["blocks"][h - 1]).hash(),
+              f"stored meta {h} differs")
+
+
+def bsync_gates(source, torch_backend, stages: BsyncStages) -> dict:
+    """The counted run of one chain: pipeline off (the batches are then
+    deterministic), under a BsyncRecorder around ``TorchBackend()``, stages
+    timed. Gates: the chain synced whole; the window's batches are the
+    window arithmetic (PREFETCH_MAX_SIGS // n blocks a window, a window
+    covers one block fewer than it holds: at 10,240 validators two commits,
+    20,480 lanes, at heights 1 and 3, and none at 5 where two blocks are left;
+    at 150 one window of 31 commits, 4,650 lanes); the checks after a window
+    send nothing (the verified-triple cache), but the last height's light
+    check, which no window covered (2/3 of the set + 1 lanes); no error."""
+    from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor
+
+    n, heights = source["n_vals"], len(source["blocks"])
+    recorder = BsyncRecorder(torch_backend, stages)
+    with stages:
+        run = bsync_run(source, recorder, pipeline=False)
+    bsync_same_chain(source, run, heights - 1)
+    check((run["prefetch_errors"], run["sync_errors"], run["stops"]) == (0, 0, []),
+          f"errors in a clean sync: {run['prefetch_errors']}, {run['sync_errors']}, "
+          f"{run['stops']}, {run['last_prefetch_error']}, {run['last_sync_error']}")
+    # The window arithmetic, height by height as the reactor goes.
+    wb = min(BlocksyncReactor.PREFETCH_WINDOW, BlocksyncReactor.PREFETCH_MAX_SIGS // n)
+    light_n = n * 2 // 3 + 1
+    want_windows, covered, sent = [], set(), {}
+    want_later = {"light": [], "full": []}
+    prefetched_to = 0
+    for h in range(1, heights):
+        if h >= prefetched_to and heights - h + 1 >= 3:  # a window needs 3 blocks
+            k = min(wb, heights - h + 1) - 1
+            want_windows.append(k * n)
+            covered.update(range(h, h + k))
+            prefetched_to = h + k
+        if h not in covered:  # the light check of commit h, second.LastCommit
+            want_later["light"].append(light_n)
+            sent[h] = light_n
+        if h >= 2 and h - 1 not in covered and sent.get(h - 1, 0) < n:
+            want_later["full"].append(n - sent.get(h - 1, 0))  # commit h - 1, once
+            sent[h - 1] = n
+    windows = [k for who, k in recorder.calls if who == "window"]
+    later = {who: [k for w, k in recorder.calls if w == who] for who in ("light", "full")}
+    check(windows == want_windows, f"window batches {windows}, expected {want_windows}")
+    check(later == want_later, f"the checks after the windows sent {later}; the window "
+          f"arithmetic leaves {want_later}")
+    checks = sum(len(h.get("verify_commit_light", [])) + len(h.get("verify_commit", []))
+                 for h in stages.heights)
+    paths = [h.get("proofs_path") for h in stages.heights]
+    want_paths = ["device" if p >= 32 else "pure-python" for p in source["parts"][:-1]]
+    check(paths == want_paths, f"proofs paths {paths}, expected {want_paths}")
+    return {"run": run, "calls": recorder.calls, "windows": windows, "later_lanes": later,
+            "lanes_sent": sum(k for _, k in recorder.calls), "checks": checks,
+            "checks_answered_by_the_cache": checks - sum(len(v) for v in later.values()),
+            "proofs_paths": paths}
+
+
+def bsync_stage_table(stages: BsyncStages) -> dict:
+    """Per applied height: ms by stage (summed where a stage ran more than
+    once a height, with its count), and the medians over the heights."""
+    rows = [{k: sum(v) for k, v in h.items() if k != "proofs_path"} for h in stages.heights]
+    counts = [{k: len(v) for k, v in h.items() if k != "proofs_path"} for h in stages.heights]
+    keys = sorted({k for r in rows for k in r})
+    med = {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
+    return {"per_height_ms": rows, "counts": counts, "median_ms": med,
+            "proofs_paths": [h.get("proofs_path") for h in stages.heights],
+            "decode_ms": stages.decode, "decode_median_ms": statistics.median(stages.decode)}
+
+
+def bsync_window_triples(source, heights):
+    """(pubs, msgs, sigs) of the source's commits at the given heights, each
+    as the next block's LastCommit carries it."""
+    from cometbft_tpu_torch.state import make_genesis_state
+    from cometbft_tpu_torch.types.block import Block
+
+    vals = make_genesis_state(source["gen"]).validators.validators
+    pubs, msgs, sigs = [], [], []
+    for h in heights:
+        commit = Block.decode(source["blocks"][h]).last_commit
+        for v, cs, m in zip(vals, commit.signatures, commit.vote_sign_bytes_all(BSYNC_CHAIN_ID)):
+            pubs.append(v.pub_key.bytes())
+            msgs.append(bytes(m))
+            sigs.append(cs.signature)
+    return pubs, msgs, sigs
+
+
+def bsync_batches(big, small) -> dict:
+    """The batch shapes the blocksync path gives the verify kernels: the
+    10,240-validator window (commits 1-2, 20,480 lanes in the 32,768
+    bucket), one commit, the light check no window covers (2/3 of the set +
+    1 lanes), the 150-validator window (commits 1-31, 4,650 lanes) and its
+    light check. Each batch has four lanes corrupted: a flipped bit in R,
+    in the message, in S and in A, at the first, a third, a half and the
+    last lane. Returns label -> (pubs, msgs, sigs, the corrupted lanes)."""
+
+    def flip(b: bytes, at: int) -> bytes:
+        return b[:at] + bytes([b[at] ^ 0x01]) + b[at + 1:]
+
+    from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor as R
+
+    def first_window(source):  # commits 1..k, as bsync_gates's arithmetic gives
+        wb = min(R.PREFETCH_WINDOW, R.PREFETCH_MAX_SIGS // source["n_vals"])
+        return bsync_window_triples(source, range(1, min(wb, len(source["blocks"]))))
+
+    w10k, w150 = first_window(big), first_window(small)
+    out = {}
+    for src, n in ((w10k, len(w10k[0])), (w10k, big["n_vals"]),
+                   (w10k, big["n_vals"] * 2 // 3 + 1), (w150, len(w150[0])),
+                   (w150, small["n_vals"] * 2 // 3 + 1)):
+        pubs, msgs, sigs = (list(x[:n]) for x in src)
+        bad = (0, n // 3, n // 2, n - 1)
+        sigs[bad[0]] = flip(sigs[bad[0]], 0)
+        msgs[bad[1]] = flip(msgs[bad[1]], len(msgs[bad[1]]) - 1)
+        sigs[bad[2]] = flip(sigs[bad[2]], 33)
+        pubs[bad[3]] = flip(pubs[bad[3]], 0)
+        out[str(n)] = (pubs, msgs, sigs, set(bad))
+    return out
+
+
+def bsync_compare_kernels(batches, dev) -> dict:
+    """Each verify kernel against its plain version on the same device
+    operands at each blocksync batch (``bsync_batches``, padded by
+    ``pack_batch`` to its bucket): challenge_digits, decompress_words (the
+    points through point_freeze, and ok) and verify_lanes (the verdicts and
+    the accumulator). Requires max_abs_err 0 for each, and the kernel's
+    verdicts false at exactly the corrupted lanes. Returns label -> {bucket,
+    lanes, corrupted, max_abs_err by kernel} and the device operands."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import edwards as ed
+    from cometbft_tpu_torch.ops import ladder
+    from cometbft_tpu_torch.ops import sha512_kernel as s5
+
+    out, operands = {}, {}
+    for label, (pubs, msgs, sigs, bad) in batches.items():
+        n = len(pubs)
+        packed, host_ok = ek.pack_batch(pubs, msgs, sigs)
+        a_w, r_w, s_w, msg_w, msg_nb = ek.operands_to_device(packed, dev)
+        s_dig, k_dig = s5.challenge_digits(msg_w, msg_nb, s_w)
+        err_sha = max_abs_err(torch.stack([s_dig, k_dig]),
+                              torch.stack(s5.challenge_digits_plain(msg_w, msg_nb, s_w)))
+        pt, ok = ed.decompress_words(a_w, r_w)
+        pt_p, ok_p = ed.decompress_words_plain(a_w, r_w)
+        err_dec = max(max_abs_err(torch.stack(ed.point_freeze(pt)),
+                                  torch.stack(ed.point_freeze(pt_p))), max_abs_err(ok, ok_p))
+        got, acc = ladder.verify_lanes(s_dig, k_dig, pt, ok, with_acc=True)
+        want, acc_p = ladder.verify_lanes_plain(s_dig, k_dig, pt, ok)
+        err_lad = max(max_abs_err(got, want), max_abs_err(torch.stack(ed.point_freeze(acc)),
+                                                          torch.stack(ed.point_freeze(acc_p))))
+        errs = {"sha512": err_sha, "decompress": err_dec, "ladder": err_lad}
+        check(all(e == 0 for e in errs.values()),
+              f"blocksync batch of {n}: a kernel != plain (max abs err {errs})")
+        verdicts = (got.cpu().numpy() & host_ok)[:n]
+        rejected = set(np.nonzero(~verdicts)[0].tolist())
+        check(rejected == bad, f"blocksync batch of {n}: rejected lanes {sorted(rejected)[:8]}, "
+              f"corrupted {sorted(bad)}")
+        out[label] = {"lanes": n, "bucket": int(a_w.shape[1]), "corrupted": sorted(bad),
+                      "max_abs_err": errs}
+        operands[label] = (msg_w, msg_nb, s_w, a_w, r_w, s_dig, k_dig, pt, ok)
+    return out, operands
+
+
+def bsync_window_kernels(batches, dev) -> dict:
+    """The verify kernels at the blocksync path's batches: each held against
+    its plain version (``bsync_compare_kernels``), then timed by CUDA events
+    (20 back-to-back launches each, the batches in turns, median of 3)."""
+    from cometbft_tpu_torch.ops import edwards as ed
+    from cometbft_tpu_torch.ops import ladder
+    from cometbft_tpu_torch.ops import sha512_kernel as s5
+
+    out, operands = bsync_compare_kernels(batches, dev)
+    fns = {}
+    for label, (msg_w, msg_nb, s_w, a_w, r_w, s_dig, k_dig, pt, ok) in operands.items():
+        fns[label] = {
+            "sha512": lambda m=msg_w, b=msg_nb, sw=s_w: s5.challenge_digits(m, b, sw),
+            "decompress": lambda a=a_w, r=r_w: ed.decompress_words(a, r),
+            "ladder": lambda sd=s_dig, kd=k_dig, p=pt, o=ok: ladder.verify_lanes(sd, kd, p, o),
+        }
+        out[label]["ms"] = {k: [] for k in fns[label]}
+    for _ in range(3):
+        for label, fn in fns.items():
+            for k, f in fn.items():
+                out[label]["ms"][k].append(time_cuda(f, 20))
+    for rec in out.values():
+        rec["ms"] = {k: statistics.median(v) for k, v in rec["ms"].items()}
+    return out
+
+
+def drive_blocksync_path(fixtures, torch_backend, dev) -> dict:
+    """The blocksync phase (module docstring, step 16): returns its
+    launches, gates, stage splits, timings and the window's kernel times."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    _, seeds, pubs, *_ = fixtures
+    fallbacks = ed25519.scalar_fallbacks
+    t0 = time.perf_counter()
+    be.set_backend(torch_backend)  # the source verifies each LastCommit it applies
+    try:
+        with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
+            big = bsync_source(seeds, pubs, BSYNC_HEIGHTS, BSYNC_TXS, pool)
+            small = bsync_source(seeds[:BSYNC_SMALL], pubs[:BSYNC_SMALL], BSYNC_SMALL_HEIGHTS,
+                                 BSYNC_TXS, pool)
+    finally:
+        be.set_backend(None)
+    fixtures_s = time.perf_counter() - t0
+    print(f"blocksync fixtures: {len(pubs)} validators x {BSYNC_HEIGHTS} heights and "
+          f"{BSYNC_SMALL} x {BSYNC_SMALL_HEIGHTS}, {BSYNC_TXS} transactions of {BSYNC_TX_BYTES} B a "
+          f"block, blocks of {len(big['blocks'][-1])} / {len(small['blocks'][-1])} bytes in "
+          f"{big['parts'][-1]} / {small['parts'][-1]} parts, built in {fixtures_s:.1f} s",
+          flush=True)
+
+    # The counted runs: launch counts zeroed, pipeline off, the part sets'
+    # proofs on the card (CMTPU_DEVICE_PROOFS=1: the sha256 levels entry).
+    ed25519._verified.clear()
+    _build.reset_launches()
+    gates = {}
+    with environ(CMTPU_DEVICE_PROOFS="1"):
+        for name, source in (("10k", big), ("150", small)):
+            ed25519._verified.clear()
+            stages = BsyncStages()
+            gates[name] = bsync_gates(source, torch_backend, stages)
+            gates[name]["stages"] = bsync_stage_table(stages)
+    device_parts = sum(1 for p in big["parts"][:-1] if p >= 32) + sum(
+        1 for p in small["parts"][:-1] if p >= 32)
+    # One sha512 / decompress / ladder set a backend call, two sha256 launches
+    # a part set of 32 parts or more.
+    launches = expect_launches(sum(len(g["calls"]) for g in gates.values()), device_parts, 0)
+
+    # The bad peer: p1 serves the 150-validator chain with one flipped
+    # signature bit in the LastCommit of the block at BSYNC_BAD_HEIGHT; p2 the
+    # honest chain.
+    ed25519._verified.clear()
+    bad = bsync_run(small, torch_backend, pipeline=True,
+                    corrupt={BSYNC_BAD_HEIGHT: bsync_flipped(small, BSYNC_BAD_HEIGHT)})
+    bsync_same_chain(small, bad, BSYNC_SMALL_HEIGHTS - 1)
+    check(bad["stops"] == ["p1"], f"stopped peers {bad['stops']}, expected p1 once")
+    check((bad["prefetch_errors"], bad["sync_errors"]) == (0, 1),
+          f"bad peer: prefetch_errors {bad['prefetch_errors']}, sync_errors {bad['sync_errors']}")
+    check("wrong signature (#0)" in bad["last_sync_error"], f"bad peer: {bad['last_sync_error']}")
+
+    # Timed: the default (pipeline on, the native proofs pass), in turns
+    # under TorchBackend() and the process default, BSYNC_REPS rounds; and
+    # the pipeline off under TorchBackend() in each round (the counted runs
+    # above are pipeline off too, but staged and with the card's proofs:
+    # kept apart as torch_pipeline_off_staged).
+    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+        auto = be._make_backend()
+    runs = {name: {"torch": [], "auto": [], "torch_pipeline_off": []} for name in ("10k", "150")}
+    for name in runs:
+        runs[name]["torch_pipeline_off_staged"] = [gates[name]["run"]["ms_per_block"]]
+    overlap = {name: [] for name in runs}
+
+    def timed(name, source, backend, pipeline):
+        ed25519._verified.clear()
+        r = bsync_run(source, backend, pipeline=pipeline)
+        bsync_same_chain(source, r, len(source["blocks"]) - 1)
+        check((r["prefetch_errors"], r["sync_errors"], r["stops"]) == (0, 0, []),
+              f"{name}: errors {r['last_prefetch_error']} {r['last_sync_error']} {r['stops']}")
+        return r
+
+    try:
+        for rep in range(BSYNC_REPS):
+            tiers = [("torch", torch_backend), ("auto", auto)]
+            for tier, backend in tiers if rep % 2 == 0 else tiers[::-1]:
+                for name, source in (("10k", big), ("150", small)):
+                    r = timed(name, source, backend, True)
+                    runs[name][tier].append(r["ms_per_block"])
+                    if tier == "torch":
+                        overlap[name].append(r["pipeline_overlap_ms"])
+            for name, source in (("10k", big), ("150", small)):
+                runs[name]["torch_pipeline_off"].append(
+                    timed(name, source, torch_backend, False)["ms_per_block"])
+    finally:
+        auto.close()
+    check(ed25519.scalar_fallbacks == fallbacks, "a verification took the ChainExhausted fallback")
+
+    # The verify kernels at the batches the path gave them (both windows,
+    # one commit, both light checks), each held against its plain version
+    # with corrupted lanes, then timed in turns.
+    window_kernels = bsync_window_kernels(bsync_batches(big, small), dev)
+    return {
+        "fixtures_s": fixtures_s, "launches": launches,
+        "blocks_bytes": {"10k": len(big["blocks"][-1]), "150": len(small["blocks"][-1])},
+        "parts": {"10k": big["parts"], "150": small["parts"]},
+        "gates": {name: {k: v for k, v in g.items() if k not in ("run", "stages")}
+                  for name, g in gates.items()},
+        "stages": {name: g["stages"] for name, g in gates.items()},
+        "bad_peer": {k: v for k, v in bad.items() if k not in ("node", "state")},
+        "ms_per_block_runs": runs,
+        "ms_per_block": {name: {tier: statistics.median(v) for tier, v in r.items() if v}
+                         for name, r in runs.items()},
+        "pipeline_overlap_ms": overlap,
+        "window_kernels": window_kernels,
+    }
+
+
 N_SHARDS = 2
 
 
@@ -2522,7 +3210,7 @@ def main() -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-16 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-17 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -2719,6 +3407,34 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     print(json.dumps({"metric": "verify_commit_10k_ms",
                       "value": cm["medians_ms"]["verify_commit_10k"]["torch"], **cm,
                       "phase_s": time.perf_counter() - commit_start,
+                      "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+
+    bsync_start = time.perf_counter()
+    bs_out = drive_blocksync_path(fixtures, backend, dev)
+    by_path["blocksync"] = bs_out.pop("launches")
+    for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in bs_out["window_kernels"].values()])
+    print(f"blocksync path ok (a fresh node synced the {N_SIGS}-validator chain's "
+          f"{BSYNC_HEIGHTS - 1} heights and the {BSYNC_SMALL}-validator chain's "
+          f"{BSYNC_SMALL_HEIGHTS - 1} from two peer doubles, state and blocks equal to the "
+          f"source's; window batches {bs_out['gates']['10k']['windows']} and "
+          f"{bs_out['gates']['150']['windows']}, later checks "
+          f"{bs_out['gates']['10k']['later_lanes']} and {bs_out['gates']['150']['later_lanes']}; "
+          f"the bad peer stopped once); launches {by_path['blocksync']}", flush=True)
+    for name, n in (("10k", N_SIGS), ("150", BSYNC_SMALL)):
+        print(json.dumps({
+            "metric": f"blocksync_{name}_ms_per_block",
+            "value": bs_out["ms_per_block"][name]["torch"],
+            "validators": n, "by_backend": bs_out["ms_per_block"][name],
+            "runs_ms": bs_out["ms_per_block_runs"][name],
+            "pipeline_overlap_ms": bs_out["pipeline_overlap_ms"][name],
+            "gates": bs_out["gates"][name],
+            "stages_pipeline_off": bs_out["stages"][name],
+            "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    print(json.dumps({"blocksync": {k: v for k, v in bs_out.items()
+                                    if k not in ("gates", "stages", "ms_per_block_runs")},
+                      "phase_s": time.perf_counter() - bsync_start,
                       "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
 
     mesh_start = time.perf_counter()

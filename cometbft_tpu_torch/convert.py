@@ -17,6 +17,14 @@ The state of commit verification is its wire bytes: ``commit_from_wire``,
 reference's ``Commit.encode()``, ``SignedHeader.encode()`` and its
 validators' public-key proto bytes and powers give, and return the port's
 objects, which encode to the same bytes.
+
+The state of blocksync is a node's blocks and its stores: ``block_from_wire``
+takes a block's proto bytes (a ``block_response``'s payload, the reference's
+``Block.encode()``), ``state_from_store_bytes`` the bytes a state store keeps
+under ``stateKey``, and ``stores_from_items`` a database's key-value items
+(a reference node's ``MemDB.iterator()``), which it copies into a port
+``MemDB`` under a port ``BlockStore`` and ``StateStore``: the keys and values
+are the same bytes in both packages.
 """
 
 from __future__ import annotations
@@ -135,3 +143,30 @@ def validator_set_from_wire(validators) -> ValidatorSet:
     its order, proposer priorities, hash and encoding are the same."""
     return ValidatorSet([Validator.new(encoding.pub_key_from_proto(pk), power)
                          for pk, power in validators])
+
+
+def block_from_wire(encoded: bytes):
+    """A block from its proto bytes (``Block.encode()``)."""
+    from cometbft_tpu_torch.types.block import Block
+
+    return Block.decode(encoded)
+
+
+def state_from_store_bytes(raw: bytes):
+    """The chain state a state store keeps under ``stateKey``."""
+    from cometbft_tpu_torch.state.store import _decode_state
+
+    return _decode_state(raw)
+
+
+def stores_from_items(items):
+    """(BlockStore, StateStore) over a port ``MemDB`` holding ``items``, the
+    (key, value) pairs of a node's database."""
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store import BlockStore
+
+    db = MemDB()
+    for k, v in items:
+        db.set(bytes(k), bytes(v))
+    return BlockStore(db), StateStore(db)

@@ -327,3 +327,30 @@ class BatchVerifier(crypto.BatchVerifier):
                 _verified_put(key)
         out = [bit_of.get(key, True) for key in keys]
         return all(out), out
+
+
+# The proof of possession a bn254 validator carries in genesis: its signature
+# over POP_DST || its key, which plain BLS aggregation needs against the
+# rogue-key attack (types/genesis.py checks it).
+POP_DST = b"CMTPU-BN254-POP-V1|"
+
+
+def pop_sign_bytes(pub_key_bytes: bytes) -> bytes:
+    return POP_DST + bytes(pub_key_bytes)
+
+
+def verify_possession(pub_key_bytes: bytes, pop: bytes) -> bool:
+    """One pairing check; accepts either G2 wire form. Never raises:
+    malformed input is an invalid proof."""
+    if len(pop) not in (_b.SIGNATURE_SIZE, _b.SIGNATURE_SIZE_COMPRESSED):
+        return False
+    try:
+        pk = _b.g1_decompress(bytes(pub_key_bytes))
+        s = _b.g2_unmarshal(bytes(pop))
+        if pk is None or s is None:
+            return False
+        hm = _b._hash_to_g2_cached(pop_sign_bytes(pub_key_bytes))
+        neg_pk = (pk[0], (_b.P - pk[1]) % _b.P)
+        return _b.pairing_check_fast([(neg_pk, hm), (_b.G1, s)])
+    except (ValueError, TypeError):
+        return False

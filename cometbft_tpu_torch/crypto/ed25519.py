@@ -56,6 +56,49 @@ class PubKey(crypto.PubKey):
         return f"PubKeyEd25519{{{self._bytes.hex().upper()}}}"
 
 
+SEED_SIZE = 32
+PRIVATE_KEY_SIZE = 64
+
+
+class PrivKey:
+    """A 64-byte key, seed || public key (ed25519.go:48-120). ``sign`` is
+    RFC 8032 in pure Python (``ed25519_pure.sign``): deterministic, so the
+    same seed signs the same bytes as any other RFC 8032 signer."""
+
+    def __init__(self, data: bytes):
+        if len(data) != PRIVATE_KEY_SIZE:
+            raise ValueError(f"ed25519 privkey must be {PRIVATE_KEY_SIZE} bytes")
+        self._bytes = bytes(data)
+
+    def bytes(self) -> bytes:
+        return self._bytes
+
+    def sign(self, msg: bytes) -> bytes:
+        return ed25519_pure.sign(self._bytes[:SEED_SIZE], self._bytes[SEED_SIZE:], msg)
+
+    def pub_key(self) -> PubKey:
+        if not any(self._bytes[SEED_SIZE:]):
+            raise ValueError("expected ed25519 PrivKey to include concatenated pubkey bytes")
+        return PubKey(self._bytes[SEED_SIZE:])
+
+    def type(self) -> str:
+        return KEY_TYPE
+
+
+def gen_priv_key() -> PrivKey:
+    """GenPrivKey (ed25519.go:124-135): a random seed."""
+    return _from_seed(os.urandom(SEED_SIZE))
+
+
+def gen_priv_key_from_secret(secret: bytes) -> PrivKey:
+    """GenPrivKeyFromSecret (ed25519.go:141-148): seed = SHA256(secret)."""
+    return _from_seed(tmhash.sum(secret))
+
+
+def _from_seed(seed: bytes) -> PrivKey:
+    return PrivKey(seed + ed25519_pure.public_key(seed))
+
+
 # The verified-triple cache: (pub, sig, msg) tuples that verified, so that a
 # commit checked twice (blocksync's light check, then the full check when
 # the block is applied; a light hop's trusting and light checks) reaches the
@@ -115,6 +158,9 @@ class BatchVerifier(crypto.BatchVerifier):
         self._pubs.append(pk)
         self._msgs.append(bytes(message))
         self._sigs.append(bytes(signature))
+
+    def __len__(self) -> int:
+        return len(self._pubs)
 
     def verify(self) -> tuple[bool, list[bool]]:
         global scalar_fallbacks

@@ -1,7 +1,9 @@
-"""The data types commit verification needs (types/ in CometBFT), the port's
-copies of ``cometbft_tpu/types``: headers, commits and their canonical sign
-bytes, votes, validators and validator sets, light blocks, and the three
-commit-verification modes."""
+"""The data types of blocks and commit verification (types/ in CometBFT), the
+port's copies of ``cometbft_tpu/types``: blocks and their parts, headers,
+commits and their canonical sign bytes, votes, validators and validator
+sets, light blocks, and the three commit-verification modes; the modules
+``params``, ``tx``, ``evidence``, ``part_set``, ``genesis``, ``results`` and
+``priv_validator`` hold the rest that blocks need."""
 
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_ABSENT,
@@ -9,10 +11,13 @@ from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_NIL,
     PRECOMMIT_TYPE,
     PREVOTE_TYPE,
+    Block,
     BlockID,
+    BlockMeta,
     Commit,
     CommitSig,
     Consensus,
+    Data,
     Header,
     PartSetHeader,
     SignedHeader,
@@ -35,10 +40,13 @@ __all__ = [
     "BLOCK_ID_FLAG_NIL",
     "PRECOMMIT_TYPE",
     "PREVOTE_TYPE",
+    "Block",
     "BlockID",
+    "BlockMeta",
     "Commit",
     "CommitSig",
     "Consensus",
+    "Data",
     "Fraction",
     "Header",
     "LightBlock",

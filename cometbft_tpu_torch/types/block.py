@@ -1,6 +1,6 @@
-"""Header, Commit, BlockID and SignedHeader (types/block.go), the port's
-copy of what commit verification needs of ``cometbft_tpu/types/block.py``
-(``Data``, ``Block``, ``BlockMeta`` and part sets are not ported yet).
+"""Block, Data, BlockMeta, Header, Commit, BlockID and SignedHeader
+(types/block.go, types/block_meta.go), the port's copy of
+``cometbft_tpu/types/block.py``.
 
 Wire layouts follow proto/tendermint/types/types.proto; hashes follow
 CometBFT exactly: Header.Hash is the Merkle root over the 14
@@ -19,9 +19,17 @@ from cometbft_tpu_torch.crypto import merkle, tmhash
 from cometbft_tpu_torch.types.cmttime import Time
 from cometbft_tpu_torch.wire import proto as wire
 
+MAX_HEADER_BYTES = 626  # types/block.go MaxHeaderBytes
+
 BLOCK_ID_FLAG_ABSENT = 1
 BLOCK_ID_FLAG_COMMIT = 2
 BLOCK_ID_FLAG_NIL = 3
+
+# Blocks are gossiped in parts of this size (types/params.go:20 BlockPartSizeBytes).
+BLOCK_PART_SIZE_BYTES = 65536
+
+MAX_COMMIT_OVERHEAD_BYTES = 94  # types/block.go MaxCommitOverheadBytes
+MAX_COMMIT_SIG_BYTES = 109  # types/block.go MaxCommitSigBytes
 
 
 def cdc_encode_bytes(b: bytes) -> bytes:
@@ -107,6 +115,11 @@ class BlockID:
         return wire.field_bytes(1, self.hash) + wire.field_message(
             2, self.part_set_header.encode(), emit_empty=True
         )
+
+    def key(self) -> bytes:
+        """Map key: hash || proto(PartSetHeader) (types/block.go Key), the
+        order of a DuplicateVoteEvidence's two votes."""
+        return self.hash + self.part_set_header.encode()
 
     @classmethod
     def decode(cls, data: bytes) -> "BlockID":
@@ -681,3 +694,121 @@ class SignedHeader:
         hhash = self.header.hash()
         if hhash != self.commit.block_id.hash:
             raise ValueError("commit signs block which doesn't match the header")
+
+
+@dataclass
+class Data:
+    """Block transactions (types/block.go Data)."""
+
+    txs: list = dfield(default_factory=list)
+    _hash: bytes | None = dfield(default=None, compare=False, repr=False)
+
+    def hash(self) -> bytes:
+        from cometbft_tpu_torch.types.tx import txs_hash
+
+        if self._hash is None:
+            self._hash = txs_hash(self.txs)
+        return self._hash
+
+    def encode(self) -> bytes:
+        return b"".join(wire.field_bytes(1, tx, emit_default=True) for tx in self.txs)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Data":
+        f = wire.decode_fields(data)
+        return cls(txs=wire.get_repeated_bytes(f, 1))
+
+
+@dataclass
+class Block:
+    """types/block.go:43-170."""
+
+    header: Header = dfield(default_factory=Header)
+    data: Data = dfield(default_factory=Data)
+    evidence: list = dfield(default_factory=list)  # list of Evidence
+    last_commit: Commit | None = None
+    _hash: bytes | None = dfield(default=None, compare=False, repr=False)
+
+    def hash(self) -> bytes | None:
+        """Header hash (types/block.go:123)."""
+        if self.last_commit is None and self.header.height > 1:
+            return None
+        return self.header.hash()
+
+    def validate_basic(self) -> None:
+        """Re-derives LastCommitHash/DataHash/EvidenceHash (types/block.go:56-107)."""
+        self.header.validate_basic()
+        if self.header.height > 1:
+            if self.last_commit is None:
+                raise ValueError("nil LastCommit")
+            self.last_commit.validate_basic()
+        if self.last_commit is not None:
+            if self.header.last_commit_hash != self.last_commit.hash():
+                raise ValueError("wrong Header.LastCommitHash")
+        elif self.header.last_commit_hash:
+            raise ValueError("wrong Header.LastCommitHash")
+        if self.header.data_hash != self.data.hash():
+            raise ValueError("wrong Header.DataHash")
+        from cometbft_tpu_torch.types.evidence import evidence_list_hash
+
+        if self.header.evidence_hash != evidence_list_hash(self.evidence):
+            raise ValueError("wrong Header.EvidenceHash")
+
+    def encode(self) -> bytes:
+        from cometbft_tpu_torch.types.evidence import encode_evidence_list
+
+        out = wire.field_message(1, self.header.encode(), emit_empty=True)
+        out += wire.field_message(2, self.data.encode(), emit_empty=True)
+        out += wire.field_message(3, encode_evidence_list(self.evidence), emit_empty=True)
+        if self.last_commit is not None:
+            out += wire.field_message(4, self.last_commit.encode(), emit_empty=True)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Block":
+        from cometbft_tpu_torch.types.evidence import decode_evidence_list
+
+        f = wire.decode_fields(data)
+        last_commit = None
+        if 4 in f:
+            last_commit = Commit.decode(wire.get_bytes(f, 4))
+        return cls(
+            header=Header.decode(wire.get_bytes(f, 1)),
+            data=Data.decode(wire.get_bytes(f, 2)),
+            evidence=decode_evidence_list(wire.get_bytes(f, 3)),
+            last_commit=last_commit,
+        )
+
+    def make_part_set(self, part_size: int = BLOCK_PART_SIZE_BYTES):
+        """The block's parts and their proofs (``PartSet.from_data``, whose
+        proofs take ``crypto/merkle.proofs_from_byte_slices``)."""
+        from cometbft_tpu_torch.types.part_set import PartSet
+
+        return PartSet.from_data(self.encode(), part_size)
+
+
+@dataclass(frozen=True)
+class BlockMeta:
+    """types/block_meta.go."""
+
+    block_id: BlockID
+    block_size: int
+    header: Header
+    num_txs: int
+
+    def encode(self) -> bytes:
+        out = wire.field_message(1, self.block_id.encode(), emit_empty=True)
+        out += wire.field_varint(2, self.block_size)
+        out += wire.field_message(3, self.header.encode(), emit_empty=True)
+        out += wire.field_varint(4, self.num_txs)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "BlockMeta":
+        f = wire.decode_fields(data)
+        return cls(
+            block_id=BlockID.decode(wire.get_bytes(f, 1)),
+            block_size=wire.get_varint(f, 2),
+            header=Header.decode(wire.get_bytes(f, 3)),
+            num_txs=wire.get_varint(f, 4),
+        )

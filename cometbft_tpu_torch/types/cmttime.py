@@ -48,6 +48,50 @@ class Time:
         f = wire.decode_fields(data)
         return cls(wire.get_varint(f, 1), wire.get_varint(f, 2))
 
+    # -- RFC 3339 (genesis JSON) -------------------------------------------
+
+    def rfc3339(self) -> str:
+        secs = self.seconds
+        frac = ""
+        if self.nanos:
+            frac = "." + f"{self.nanos:09d}".rstrip("0")
+        st = _time.gmtime(secs) if secs >= 0 else _gmtime_neg(secs)
+        return (
+            f"{st[0]:04d}-{st[1]:02d}-{st[2]:02d}T"
+            f"{st[3]:02d}:{st[4]:02d}:{st[5]:02d}{frac}Z"
+        )
+
+    @classmethod
+    def parse_rfc3339(cls, s: str) -> "Time":
+        import calendar
+        import datetime as dt
+        import re
+
+        s = s.strip()
+        offset_sec = 0
+        if s.endswith(("Z", "z")):
+            s = s[:-1]
+        else:
+            m = re.search(r"([+-])(\d{2}):(\d{2})$", s)
+            if m:
+                offset_sec = (int(m.group(2)) * 3600 + int(m.group(3)) * 60) * (
+                    1 if m.group(1) == "+" else -1
+                )
+                s = s[: m.start()]
+        nanos = 0
+        if "." in s:
+            s, frac = s.split(".")
+            nanos = int((frac + "0" * 9)[:9])
+        d = dt.datetime.strptime(s, "%Y-%m-%dT%H:%M:%S")
+        return cls(calendar.timegm(d.timetuple()) - offset_sec, nanos)
+
+
+def _gmtime_neg(secs: int):
+    import datetime as dt
+
+    d = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc) + dt.timedelta(seconds=secs)
+    return (d.year, d.month, d.day, d.hour, d.minute, d.second)
+
 
 # The source behind now(): the wall clock unless a caller installs another
 # (a virtual clock makes timestamps deterministic).

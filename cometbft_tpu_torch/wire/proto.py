@@ -107,6 +107,12 @@ def field_message(field_num: int, encoded: bytes | None, *, emit_empty: bool = F
     return tag(field_num, WT_LEN) + encode_uvarint(len(encoded)) + encoded
 
 
+def encode_bytes_len_prefixed(bz: bytes) -> bytes:
+    """uvarint length prefix + raw bytes (types/encoding_helper.go
+    cdcEncode-style helpers / libs protoio delimited writing)."""
+    return encode_uvarint(len(bz)) + bz
+
+
 def length_delimited(encoded: bytes) -> bytes:
     """A whole message behind its uvarint length (protoio.MarshalDelimited),
     as canonical vote and proposal sign bytes are framed."""

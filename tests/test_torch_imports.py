@@ -77,6 +77,36 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.light",
         "cometbft_tpu_torch.light.verifier",
         "cometbft_tpu_torch.convert",
+        "cometbft_tpu_torch.config",
+        "cometbft_tpu_torch.types.params",
+        "cometbft_tpu_torch.types.tx",
+        "cometbft_tpu_torch.types.evidence",
+        "cometbft_tpu_torch.types.part_set",
+        "cometbft_tpu_torch.types.genesis",
+        "cometbft_tpu_torch.types.results",
+        "cometbft_tpu_torch.types.priv_validator",
+        "cometbft_tpu_torch.libs.bit_array",
+        "cometbft_tpu_torch.libs.db",
+        "cometbft_tpu_torch.libs.fail",
+        "cometbft_tpu_torch.wire.types",
+        "cometbft_tpu_torch.state",
+        "cometbft_tpu_torch.state.state",
+        "cometbft_tpu_torch.state.validation",
+        "cometbft_tpu_torch.state.store",
+        "cometbft_tpu_torch.state.execution",
+        "cometbft_tpu_torch.store",
+        "cometbft_tpu_torch.abci",
+        "cometbft_tpu_torch.abci.types",
+        "cometbft_tpu_torch.abci.client",
+        "cometbft_tpu_torch.abci.example.kvstore",
+        "cometbft_tpu_torch.proxy",
+        "cometbft_tpu_torch.mempool",
+        "cometbft_tpu_torch.mempool.clist_mempool",
+        "cometbft_tpu_torch.blocksync",
+        "cometbft_tpu_torch.blocksync.pool",
+        "cometbft_tpu_torch.blocksync.reactor",
+        "cometbft_tpu_torch.p2p",
+        "cometbft_tpu_torch.p2p.reactor",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
@@ -93,6 +123,28 @@ def test_every_module_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_blocksync_verifies_on_the_card_by_default(monkeypatch):
+    """The blocksync path verifies through ``crypto/ed25519.BatchVerifier``
+    and the process default (``get_backend()``, ``CMTPU_BACKEND=auto``):
+    without a card that raises, it does not drop to the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the no-fallback path is not reachable")
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.sidecar import backend
+
+    monkeypatch.delenv("CMTPU_BACKEND", raising=False)
+    prev = backend._backend
+    backend._backend = None
+    try:
+        bv = ed25519.BatchVerifier()
+        bv.add(ed25519.PubKey(bytes(32)), b"never-cached", bytes(64))
+        assert len(bv) == 1
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bv.verify()
+    finally:
+        backend._backend = prev
 
 
 def test_cuda_request_raises_without_a_card():
