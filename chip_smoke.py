@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bn254-lanes   # only the bn254 kernel's times
+    python3 chip_smoke.py --light         # only the light path (and what it needs)
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -21,11 +22,14 @@ tier (two port sidecars, one in another process, and the local hybrid), the
 proofs paths ``crypto/merkle``'s selection, the tooling path the
 profiling endpoints, ``entry.py`` and the device probe, the commit path
 commit verification (``types/validation``, ``light/verifier``) of a
-10,240-validator set's commits and hops, and the blocksync path a fresh
+10,240-validator set's commits and hops, the blocksync path a fresh
 node syncing a 10,240-validator chain (and a 150-validator one) from peers
 through ``blocksync/reactor.BlocksyncReactor``, which verifies each window
 of commits in one backend call and applies each block through
-``state/execution.BlockExecutor``, the kvstore application and the mempool.
+``state/execution.BlockExecutor``, the kvstore application and the mempool,
+and the light path the light client (``light/client.Client``: bisection
+whose descent prewarms a whole hop chain's commits in one backend call),
+its gateway, the detector and the evidence pool over those chains.
 In order:
 
   1. prints the PyTorch version and the card (name, power limit);
@@ -181,7 +185,41 @@ In order:
      four lanes of each corrupted), each against its plain version on the
      same operands with max abs err 0 and the verdicts false at exactly the
      corrupted lanes, then timed by events;
- 17. runs the mesh path (the lane-split programs) on two virtual shards of
+ 17. runs the light path (``light/``, ``evidence/``, ``crypto/sigbatch``):
+     fixtures built with the port's types (``light_fixtures``): a
+     10,240-validator chain of LIGHT_HEIGHTS heights whose set rotates
+     LIGHT_ROTATE keys a height (height 1's set is step 3's keys; only the
+     heights the walk fetches, LIGHT_SIGNED, are signed), a 150-validator
+     chain of LIGHT_SMALL_HEIGHTS rotating LIGHT_SMALL_ROTATE a height, and
+     conflicting tips of step 16's two source chains, every signature in the
+     process pool; then, counts zeroed, under a recording backend around
+     ``TorchBackend()``: a client syncs the 10,240-validator chain from
+     height 1 to 9 (skipping, trust level 1/3, an honest witness), and the
+     150-validator chain's skipping (1 to 100), sequential (1 to 20) and
+     backwards (50 to 40) clients; each trace equals the same client's
+     under ``CpuBackend()`` and the walk's arithmetic (``light_walk``: the
+     pivots fetched, the descents, the lanes of every backend call, so that
+     the hop checks after a prewarm send none); LIGHT_SWARM clients on
+     threads cold-sync the 150-validator chain through one ``LightGateway``
+     under the port's ``CoalescingScheduler``, in plan mode and in MMR proof
+     mode (one plan computed, the rest shared, one trace, at most one lone
+     client's lanes plus the gateway's prewarm, every launch from the one
+     device-owner thread); a witness serving a conflicting tip of step 16's
+     150-validator source is caught (ErrLightClientAttack), the evidence
+     reaches an ``EvidencePool`` over the source's stores and the source's
+     executor commits it in the next block; a 10,240-validator attack
+     evidence verifies (3,414 lanes); a duplicate vote verifies through
+     sigbatch under ``TorchBackend()`` (its private window) and the process
+     default (its engine), a flipped copy is refused; every error counter
+     as planted (none), one sha512 / decompress / ladder set a card call.
+     Then ``light_sync_10k_ms``, ``light_sync_150_ms`` and
+     ``evidence_verify_10k_ms`` (medians of LIGHT_REPS, ``TorchBackend()``
+     and the process default in turns, cold caches), ``light_gateway_64_ms``
+     in each mode, the 10,240 sync's stage split, the lanes of every call by
+     its caller; last, the three verify kernels at the path's own batches
+     (the largest prewarm at each size, the evidence check), four lanes of
+     each corrupted, held to their plain versions and timed;
+ 18. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -194,7 +232,7 @@ In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 18. prints the ``kernels`` line (launches summed over the paths, and by
+ 19. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -1893,7 +1931,8 @@ _worker_fb = None
 
 def sign_jobs(jobs) -> list:
     """Pool worker: the signatures of ("ed25519", seed, pub, msg) and
-    ("bn254", sk, msg) jobs, by the pure modules."""
+    ("bn254", sk, msg) jobs and the public keys of ("pub", seed) jobs, by
+    the pure modules."""
     global _worker_fb
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
@@ -1905,6 +1944,9 @@ def sign_jobs(jobs) -> list:
             continue
         if _worker_fb is None:
             _worker_fb = FixedBase(pure)
+        if kind == "pub":  # the public key of a seed
+            out.append(pure.point_compress(_worker_fb.mult(pure.secret_expand(args[0])[0])))
+            continue
         out.append(sign_known(pure, _worker_fb, *args))
     return out
 
@@ -2310,7 +2352,7 @@ BSYNC_SMALL_HEIGHTS = 33
 BSYNC_TXS = 4_096  # within the default mempool.size of 5,000: the proposer reaps them all
 BSYNC_TX_BYTES = 250
 BSYNC_BAD_HEIGHT = 10  # the bad peer's block at this height carries a flipped commit signature
-BSYNC_REPS = 2
+BSYNC_REPS = 1  # timed rounds: one keeps the whole run, light phase included, near 630 s
 BSYNC_SIGN_CHUNK = 512
 
 
@@ -2404,7 +2446,9 @@ def bsync_source(seeds, pubs, n_heights: int, n_txs: int, pool) -> dict:
     PersistentKVStoreApplication, and committed by every validator (each
     signs its canonical precommit in the process pool). Returns the genesis,
     each block's encoded block_response, the source's state after each
-    height (store bytes), its blocks' bytes and its part counts."""
+    height (store bytes), its blocks' bytes and its part counts, and the
+    node itself (its stores and executor) with its last state, which the
+    light phase goes on with."""
     from cometbft_tpu_torch.blocksync import reactor as br
     from cometbft_tpu_torch.crypto import ed25519
     from cometbft_tpu_torch.state import store as state_store
@@ -2448,7 +2492,7 @@ def bsync_source(seeds, pubs, n_heights: int, n_txs: int, pool) -> dict:
         parts_count.append(parts.total)
         last_commit = commit
     return {"gen": gen, "responses": responses, "states": states, "blocks": blocks,
-            "parts": parts_count, "n_vals": len(pubs)}
+            "parts": parts_count, "n_vals": len(pubs), "node": node, "state": state}
 
 
 def bsync_flipped(source, height: int) -> bytes:
@@ -2740,12 +2784,8 @@ def bsync_batches(big, small) -> dict:
     10,240-validator window (commits 1-2, 20,480 lanes in the 32,768
     bucket), one commit, the light check no window covers (2/3 of the set +
     1 lanes), the 150-validator window (commits 1-31, 4,650 lanes) and its
-    light check. Each batch has four lanes corrupted: a flipped bit in R,
-    in the message, in S and in A, at the first, a third, a half and the
-    last lane. Returns label -> (pubs, msgs, sigs, the corrupted lanes)."""
-
-    def flip(b: bytes, at: int) -> bytes:
-        return b[:at] + bytes([b[at] ^ 0x01]) + b[at + 1:]
+    light check. Each batch has four lanes corrupted (``corrupt_four``).
+    Returns label -> (pubs, msgs, sigs, the corrupted lanes)."""
 
     from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor as R
 
@@ -2758,14 +2798,26 @@ def bsync_batches(big, small) -> dict:
     for src, n in ((w10k, len(w10k[0])), (w10k, big["n_vals"]),
                    (w10k, big["n_vals"] * 2 // 3 + 1), (w150, len(w150[0])),
                    (w150, small["n_vals"] * 2 // 3 + 1)):
-        pubs, msgs, sigs = (list(x[:n]) for x in src)
-        bad = (0, n // 3, n // 2, n - 1)
-        sigs[bad[0]] = flip(sigs[bad[0]], 0)
-        msgs[bad[1]] = flip(msgs[bad[1]], len(msgs[bad[1]]) - 1)
-        sigs[bad[2]] = flip(sigs[bad[2]], 33)
-        pubs[bad[3]] = flip(pubs[bad[3]], 0)
-        out[str(n)] = (pubs, msgs, sigs, set(bad))
+        out[str(n)] = corrupt_four(*(x[:n] for x in src))
     return out
+
+
+def corrupt_four(pubs, msgs, sigs):
+    """Copies of a batch with four lanes corrupted: a flipped bit in R, in
+    the message, in S and in A, at the first, a third, a half and the last
+    lane. Returns (pubs, msgs, sigs, the corrupted lanes)."""
+
+    def flip(b: bytes, at: int) -> bytes:
+        return b[:at] + bytes([b[at] ^ 0x01]) + b[at + 1:]
+
+    pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
+    n = len(pubs)
+    bad = (0, n // 3, n // 2, n - 1)
+    sigs[bad[0]] = flip(sigs[bad[0]], 0)
+    msgs[bad[1]] = flip(msgs[bad[1]], len(msgs[bad[1]]) - 1)
+    sigs[bad[2]] = flip(sigs[bad[2]], 33)
+    pubs[bad[3]] = flip(pubs[bad[3]], 0)
+    return pubs, msgs, sigs, set(bad)
 
 
 def bsync_compare_kernels(batches, dev) -> dict:
@@ -2836,17 +2888,16 @@ def bsync_window_kernels(batches, dev) -> dict:
     return out
 
 
-def drive_blocksync_path(fixtures, torch_backend, dev) -> dict:
-    """The blocksync phase (module docstring, step 16): returns its
-    launches, gates, stage splits, timings and the window's kernel times."""
+def bsync_sources(fixtures, torch_backend) -> dict:
+    """The blocksync phase's two source chains (``bsync_source``), the
+    10,240-validator one of BSYNC_HEIGHTS and the BSYNC_SMALL-validator one
+    of BSYNC_SMALL_HEIGHTS, their validators signing in a pool of
+    SIGN_PROCESSES processes; the light phase goes on with them."""
     import multiprocessing
 
-    from cometbft_tpu_torch.crypto import ed25519
-    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.sidecar import backend as be
 
     _, seeds, pubs, *_ = fixtures
-    fallbacks = ed25519.scalar_fallbacks
     t0 = time.perf_counter()
     be.set_backend(torch_backend)  # the source verifies each LastCommit it applies
     try:
@@ -2862,6 +2913,19 @@ def drive_blocksync_path(fixtures, torch_backend, dev) -> dict:
           f"block, blocks of {len(big['blocks'][-1])} / {len(small['blocks'][-1])} bytes in "
           f"{big['parts'][-1]} / {small['parts'][-1]} parts, built in {fixtures_s:.1f} s",
           flush=True)
+    return {"10k": big, "150": small, "fixtures_s": fixtures_s}
+
+
+def drive_blocksync_path(sources, torch_backend, dev) -> dict:
+    """The blocksync phase (module docstring, step 16) over the sources of
+    ``bsync_sources``: returns its launches, gates, stage splits, timings
+    and the window's kernel times."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    fallbacks = ed25519.scalar_fallbacks
+    big, small, fixtures_s = sources["10k"], sources["150"], sources["fixtures_s"]
 
     # The counted runs: launch counts zeroed, pipeline off, the part sets'
     # proofs on the card (CMTPU_DEVICE_PROOFS=1: the sha256 levels entry).
@@ -2946,6 +3010,894 @@ def drive_blocksync_path(fixtures, torch_backend, dev) -> dict:
                          for name, r in runs.items()},
         "pipeline_overlap_ms": overlap,
         "window_kernels": window_kernels,
+    }
+
+
+# -- the light path ---------------------------------------------------------------
+
+LIGHT_CHAIN_ID = "chip-smoke-light"
+LIGHT_T0 = 1_700_000_000
+LIGHT_POWER = 10
+# The 10,240-validator chain: height 1's set is the commit phase's keys; each
+# next height drops the first LIGHT_ROTATE of the set's keys (20%) and takes
+# as many fresh ones. A client trusting height 1 verifies height 9 with trust
+# level 1/3: over 1/3 of a set survives two heights, not four, so the walk is
+# 1 -> 9 and 1 -> 5 refused, 1 -> 3, 3 -> 5, 5 -> 9 refused, 5 -> 7, 7 -> 9
+# (light_walk), and only heights 1, 3, 5, 7 and 9 need signed commits.
+LIGHT_HEIGHTS = 9
+LIGHT_ROTATE = 2_048
+LIGHT_SIGNED = (1, 3, 5, 7, 9)
+# The 150-validator chain (a typical set, as blocksync's): 15 keys (10%)
+# rotate a height over 100 heights, every height signed.
+LIGHT_SMALL = COMMIT_SMALL
+LIGHT_SMALL_HEIGHTS = 100
+LIGHT_SMALL_ROTATE = 15
+LIGHT_SEQ_TO = 20  # a sequential client verifies 1 -> 20
+LIGHT_BACK = (50, 40)  # a client trusting height 50 verifies height 40 backwards
+LIGHT_SWARM = 64  # clients at once through one gateway: the default CMTPU_LIGHTGW_SESSIONS
+LIGHT_REPS = 3
+LIGHT_NOW_S = LIGHT_T0 + 3_600
+LIGHT_DUP_HEIGHT = 10  # the duplicate votes' height on the 150-validator blocksync chain
+LIGHT_SIGN_CHUNK = 512
+
+
+class LightWire:
+    """A provider of light blocks from their wire bytes, as a node's RPC
+    hands them over: each fetch decodes a fresh LightBlock (timed as the
+    stage ``fetch_decode`` when ``stages`` is given), and the fetched heights
+    are kept. A height it does not hold raises ErrLightBlockNotFound. Its
+    ``header_hash`` and ``base_height`` are a node's block store's, for a
+    gateway over it."""
+
+    def __init__(self, chain_id: str, encoded: dict, stages=None):
+        self._chain_id = chain_id
+        self.encoded = encoded
+        self.stages = stages
+        self.fetched: list[int] = []
+        self.evidences: list = []
+
+    def chain_id(self) -> str:
+        return self._chain_id
+
+    def light_block(self, height: int):
+        from cometbft_tpu_torch.light.provider import ErrLightBlockNotFound
+        from cometbft_tpu_torch.types import LightBlock
+
+        h = height or max(self.encoded)
+        self.fetched.append(h)
+        raw = self.encoded.get(h)
+        if raw is None:
+            raise ErrLightBlockNotFound(f"no light block at height {h}")
+        if self.stages is None:
+            return LightBlock.decode(raw)
+        with self.stages.stage("fetch_decode"):
+            return LightBlock.decode(raw)
+
+    def report_evidence(self, ev) -> None:
+        self.evidences.append(ev)
+
+    def base_height(self) -> int:
+        return min(self.encoded)
+
+    def header_hash(self, height: int) -> bytes | None:
+        """The header's hash from its bytes alone, as a node's block store
+        gives it (``BlockStoreProvider.header_hash``): the MMR's catch-up
+        decodes no commit and no validator set."""
+        from cometbft_tpu_torch.types import Header
+        from cometbft_tpu_torch.wire import proto as wire
+
+        raw = self.encoded.get(height)
+        if raw is None:
+            return None
+        signed_header = wire.get_bytes(wire.decode_fields(raw), 1)
+        return Header.decode(wire.get_bytes(wire.decode_fields(signed_header), 1)).hash()
+
+
+class LightRecorder:
+    """A backend that records each call it is asked to verify: the caller's
+    engine class (``light``: a descent's or the gateway's prewarm), its
+    lanes and wall ms (ended by a synchronize); with ``keep``, its triples
+    too (the kernel comparisons run on them). Everything else goes to the
+    backend it wraps."""
+
+    def __init__(self, inner, keep: bool = False):
+        self.inner = inner
+        self.keep = keep
+        self.calls: list = []
+        self.triples: list = []
+
+    def batch_verify(self, pubs, msgs, sigs):
+        from cometbft_tpu_torch.sidecar import engine
+
+        klass = engine.CLASS_NAMES[engine.current_class()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner.batch_verify(pubs, msgs, sigs)
+        torch.cuda.synchronize()
+        self.calls.append({"class": klass, "lanes": len(pubs),
+                           "ms": (time.perf_counter() - t0) * 1e3})
+        if self.keep:
+            self.triples.append((list(pubs), list(msgs), list(sigs)))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def lanes(self, klass=None) -> list:
+        return [c["lanes"] for c in self.calls if klass is None or c["class"] == klass]
+
+
+class LightStages:
+    """Times a light sync's stages, each ended by a synchronize: the
+    provider's fetch and decode (LightWire), ``LightBlock.validate_basic``,
+    ``ValidatorSet.hash``, the descent's prewarm (``_speculate_descent``) and
+    inside it ``speculative_verify_triples`` and the backend call
+    (``BatchVerifier.verify`` of light class; ``bv.add`` is the rest), each
+    hop's trusting and light checks on the cache (with ``BatchVerifier.verify``
+    outside a prewarm: the cache filter), the store's save and the
+    detector. Stages nest as the calls do. Installed on the port's classes
+    for one run (``with``)."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(list)
+        self._saved = []
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+
+    def _wrap(self, owner, attr, name):
+        orig = getattr(owner, attr)
+        stages = self
+
+        def wrapper(*args, **kwargs):
+            label = name(*args) if callable(name) else name
+            with stages.stage(label):
+                return orig(*args, **kwargs)
+
+        self._saved.append((owner, attr, orig))
+        setattr(owner, attr, wrapper)
+
+    def __enter__(self):
+        from cometbft_tpu_torch.crypto import ed25519
+        from cometbft_tpu_torch.light import client, detector
+        from cometbft_tpu_torch.light.store import LightStore
+        from cometbft_tpu_torch.sidecar import engine
+        from cometbft_tpu_torch.types import LightBlock, ValidatorSet, validation
+
+        self._wrap(LightBlock, "validate_basic", "validate_basic")
+        self._wrap(ValidatorSet, "hash", "validator_set_hash")
+        self._wrap(client.Client, "_speculate_descent", "prewarm")
+        self._wrap(validation, "speculative_verify_triples", "prewarm_triples")
+        self._wrap(ed25519.BatchVerifier, "verify", lambda bv: (
+            "prewarm_backend" if engine.current_class() == engine.CLASS_LIGHT
+            else "hop_cache_filter"))
+        self._wrap(validation, "verify_commit_light_trusting", "hop_trusting_check")
+        self._wrap(validation, "verify_commit_light", "hop_light_check")
+        self._wrap(LightStore, "save_light_block", "store_save")
+        self._wrap(detector, "detect_divergence", "detector")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+        self._saved.clear()
+
+    def table(self) -> dict:
+        out = {k: {"ms": sum(v), "calls": len(v)} for k, v in sorted(self.ms.items())}
+        pre = out.get("prewarm", {}).get("ms", 0.0)
+        out["prewarm_bv_add"] = {"ms": pre - out.get("prewarm_triples", {}).get("ms", 0.0)
+                                 - out.get("prewarm_backend", {}).get("ms", 0.0),
+                                 "calls": out.get("prewarm", {}).get("calls", 0)}
+        return out
+
+
+def light_keys(seeds, pubs, pool) -> dict:
+    """Each light chain's keys by height, (seed, pub) pairs: height 1's are
+    the first n of the commit phase's; each next height drops the first
+    `rotate` and appends `rotate` fresh keys (seeds from fixed tags, public
+    keys derived in the pool)."""
+    plans = {"10k": (N_SIGS, LIGHT_ROTATE, LIGHT_HEIGHTS),
+             "150": (LIGHT_SMALL, LIGHT_SMALL_ROTATE, LIGHT_SMALL_HEIGHTS)}
+    fresh = {name: [hashlib.sha256(b"chip-smoke-light-%s-%d-%d" % (name.encode(), SEED, i)).digest()
+                    for i in range(rot * (heights - 1))]
+             for name, (_, rot, heights) in plans.items()}
+    every = [s for name in plans for s in fresh[name]]
+    chunks = [[("pub", s) for s in every[i : i + LIGHT_SIGN_CHUNK]]
+              for i in range(0, len(every), LIGHT_SIGN_CHUNK)]
+    derived = dict(zip(every, (p for c in pool.map(sign_jobs, chunks, chunksize=1) for p in c)))
+    out = {}
+    for name, (n, rot, heights) in plans.items():
+        keys = [list(zip(seeds[:n], pubs[:n]))]
+        for h in range(1, heights):
+            new = fresh[name][(h - 1) * rot : h * rot]
+            keys.append(keys[-1][rot:] + [(s, derived[s]) for s in new])
+        out[name] = keys
+    return out
+
+
+def light_headers(key_lists):
+    """A light chain's validator sets and headers: height h's set is
+    key_lists[h - 1] at equal power; its header names the next height's
+    set (the last height its own) and the previous header's BlockID."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.types import BlockID, Consensus, Header, PartSetHeader, Time, Validator
+    from cometbft_tpu_torch.types import ValidatorSet
+
+    sets = [ValidatorSet([Validator.new(ed25519.PubKey(p), LIGHT_POWER) for _, p in keys])
+            for keys in key_lists]
+    headers, last = [], BlockID()
+    for h, vset in enumerate(sets, 1):
+        nxt = sets[h] if h < len(sets) else vset
+        header = Header(version=Consensus(11, 1), chain_id=LIGHT_CHAIN_ID, height=h,
+                        time=Time(LIGHT_T0 + 6 * h, 0), last_block_id=last,
+                        validators_hash=vset.hash(), next_validators_hash=nxt.hash(),
+                        app_hash=hashlib.sha256(b"light-app-%d" % h).digest(),
+                        proposer_address=vset.get_proposer().address)
+        headers.append(header)
+        last = BlockID(header.hash(), PartSetHeader(1, hashlib.sha256(header.hash()).digest()))
+    return sets, headers
+
+
+def light_unsigned(header, vset, bid=None):
+    """The commit of header (under ``bid``, by default one naming a single
+    part) that every validator of vset signs (canonical precommits, seconds
+    equal, nanos differing), signatures empty."""
+    from cometbft_tpu_torch.types import (BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig,
+                                          PartSetHeader, Time)
+
+    if bid is None:
+        bid = BlockID(header.hash(), PartSetHeader(1, hashlib.sha256(header.hash()).digest()))
+    return Commit(height=header.height, round=0, block_id=bid, signatures=[
+        CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, Time(header.time.seconds + 1, 1_000 + 977 * i),
+                  b"") for i, v in enumerate(vset.validators)])
+
+
+def sign_commits(plan, secret, pool) -> dict:
+    """plan: (key, chain id, unsigned commit) entries; every commit's
+    validators sign their canonical precommits in the pool. Returns key ->
+    the signed Commit."""
+    from cometbft_tpu_torch.types import Commit, CommitSig
+
+    jobs, start = [], {}
+    for key, chain_id, commit in plan:
+        start[key] = len(jobs)
+        jobs += [("ed25519", *secret[cs.validator_address], m)
+                 for cs, m in zip(commit.signatures, commit.vote_sign_bytes_all(chain_id))]
+    chunks = [jobs[i : i + LIGHT_SIGN_CHUNK] for i in range(0, len(jobs), LIGHT_SIGN_CHUNK)]
+    sigs = [s for c in pool.map(sign_jobs, chunks, chunksize=1) for s in c]
+    out = {}
+    for key, _, commit in plan:
+        k = start[key]
+        out[key] = Commit(height=commit.height, round=commit.round, block_id=commit.block_id,
+                          signatures=[CommitSig(cs.block_id_flag, cs.validator_address,
+                                                cs.timestamp, sigs[k + i])
+                                      for i, cs in enumerate(commit.signatures)])
+    return out
+
+
+def forged_tip(source, height: int):
+    """The source's header at height with another app hash, and the commit
+    its validators sign for it (unsigned): a light-client attack's
+    conflicting block, before signing."""
+    import dataclasses
+
+    meta = source["node"]["block_store"].load_block_meta(height)
+    vals = source["node"]["state_store"].load_validators(height)
+    header = dataclasses.replace(meta.header, app_hash=b"\xee" * 32)
+    return header, vals, light_unsigned(header, vals)
+
+
+def light_fixtures(fixtures, sources, pool) -> dict:
+    """The light phase's chains as wire bytes: the 10,240-validator chain's
+    signed heights (LIGHT_SIGNED) and the 150-validator chain's 100, their
+    validator sets; the conflicting tips of the two blocksync sources (the
+    150-validator chain's last height for the attack, the 10,240-validator
+    chain's for the evidence check) signed by the same validators."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.types import LightBlock, SignedHeader
+
+    _, seeds, pubs, *_ = fixtures
+    t0 = time.perf_counter()
+    keys = light_keys(seeds, pubs, pool)
+    keys_s = time.perf_counter() - t0
+    secret = {ed25519.PubKey(p).address(): (s, p)
+              for ks in keys.values() for hk in ks for s, p in hk}
+    chains, plan = {}, []
+    for name, signed in (("10k", LIGHT_SIGNED), ("150", range(1, LIGHT_SMALL_HEIGHTS + 1))):
+        sets, headers = light_headers(keys[name])
+        chains[name] = {"sets": sets, "headers": headers, "signed": tuple(signed)}
+        plan += [((name, h), LIGHT_CHAIN_ID, light_unsigned(headers[h - 1], sets[h - 1]))
+                 for h in signed]
+    tips = {}
+    for name, source in (("attack", sources["150"]), ("evidence", sources["10k"])):
+        tip_h = len(source["blocks"])
+        header, vals, unsigned = forged_tip(source, tip_h)
+        tips[name] = (header, vals)
+        plan.append(((name, tip_h), BSYNC_CHAIN_ID, unsigned))
+    t1 = time.perf_counter()
+    signed = sign_commits(plan, secret, pool)
+    sign_s = time.perf_counter() - t1
+    out = {"keys_s": keys_s, "sign_s": sign_s, "signatures": sum(
+        len(c.signatures) for c in signed.values()), "secret": secret}
+    for name, ch in chains.items():
+        ch["encoded"] = {h: LightBlock(SignedHeader(ch["headers"][h - 1], signed[(name, h)]),
+                                       ch["sets"][h - 1]).encode() for h in ch["signed"]}
+        out[name] = ch
+    for name, (header, vals) in tips.items():
+        key = next(k for k in signed if k[0] == name)
+        out[name] = LightBlock(SignedHeader(header, signed[key]), vals).encode()
+    return out
+
+
+def light_walk(sets, trusted: int, target: int) -> dict:
+    """The skipping walk's arithmetic over equal-power sets (the client's
+    _verify_skipping and _speculate_descent, by sets and counts): a
+    non-adjacent hop is trusted when at least k_t = floor(total / 3) / power
+    + 1 of the lower set signed the upper commit; its light check needs the
+    first k = floor(2 total / 3) / power + 1 signatures in commit order and
+    its trusting check the first k_t signers of the lower set; a refused hop
+    fetches the midpoint and prewarms the optimistic chain's union, of which
+    only what the cache lacks goes out. Returns the pivots fetched, the
+    trace, the descents and the lanes of each backend call, in order, as
+    (class, lanes)."""
+    addr = [[v.address for v in s.validators] for s in sets]
+    members = [set(a) for a in addr]
+
+    def k_light(h):
+        return (len(addr[h - 1]) * LIGHT_POWER * 2 // 3) // LIGHT_POWER + 1
+
+    def k_trust(h):
+        return (len(addr[h - 1]) * LIGHT_POWER // 3) // LIGHT_POWER + 1
+
+    def signers_of(lower, upper):
+        return [i for i, a in enumerate(addr[upper - 1]) if a in members[lower - 1]]
+
+    def trusted_ok(lower, upper):
+        return upper == lower + 1 or len(signers_of(lower, upper)) >= k_trust(lower)
+
+    def light_part(upper):
+        return {(upper, i) for i in range(k_light(upper))}
+
+    def trust_part(lower, upper):
+        return {(upper, i) for i in signers_of(lower, upper)[: k_trust(lower)]}
+
+    def hop(lower, upper):
+        if upper == lower + 1:
+            return light_part(upper)
+        return light_part(upper) | trust_part(lower, upper)
+
+    cache, fetched, trace, calls, descents = set(), [], [], [], 0
+    current, stack = trusted, [target]
+    while stack:
+        cand = stack[-1]
+        if trusted_ok(current, cand):
+            checks = [light_part(cand)] if cand == current + 1 else [
+                trust_part(current, cand), light_part(cand)]
+            for part in checks:
+                if part - cache:
+                    calls.append(("blocksync", len(part - cache)))
+                cache |= part
+            current = cand
+            stack.pop()
+            trace.append(cand)
+            continue
+        pivot = (current + cand) // 2
+        check(pivot not in (current, cand), f"the walk cannot bisect {current} -> {cand}")
+        fetched.append(pivot)
+        stack.append(pivot)
+        union, lower = set(), current
+        for upper in reversed(stack):
+            union |= hop(lower, upper)
+            lower = upper
+        if union:
+            descents += 1
+            if union - cache:
+                calls.append(("light", len(union - cache)))
+            cache |= union
+    return {"fetched": fetched, "trace": trace, "descents": descents, "calls": calls}
+
+
+def light_client(chain, provider, trust_height=1, witnesses=(), **kw):
+    """The port's Client over ``provider``, trusting the chain's height
+    ``trust_height``, a fresh MemDB store, the trusting period of the commit
+    phase."""
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.types import LightBlock
+
+    anchor = LightBlock.decode(chain["encoded"][trust_height])
+    return Client(LIGHT_CHAIN_ID, TrustOptions(TRUSTING_PERIOD_NS, trust_height, anchor.hash()),
+                  provider, list(witnesses), LightStore(MemDB()), **kw)
+
+
+def light_sync(chain, backend, target, trust_height=1, witness=False, stages=None, **kw):
+    """One client's sync of ``chain`` to ``target`` under
+    ``set_backend(backend)`` from an empty verified-triple cache, timed
+    (the verify call alone, ended by a synchronize). Returns the client, its
+    providers, the wall ms and the trace (stored heights and hashes)."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import Time
+
+    primary = LightWire(LIGHT_CHAIN_ID, chain["encoded"], stages)
+    witnesses = [LightWire(LIGHT_CHAIN_ID, chain["encoded"], stages)] if witness else []
+    be.set_backend(backend)
+    try:
+        client = light_client(chain, primary, trust_height, witnesses, **kw)
+        ed25519._verified.clear()
+        primary.fetched.clear()
+        ctx = stages if stages is not None else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lb = client.verify_light_block_at_height(target, Time(LIGHT_NOW_S, 0))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        be.set_backend(None)
+    check(lb.height == target, f"synced to {lb.height}, not {target}")
+    trace = [(h, client.store.light_block(h).hash().hex()) for h in client.store._heights()]
+    return {"client": client, "primary": primary, "witnesses": witnesses, "ms": wall,
+            "trace": trace}
+
+
+def light_counts_clean(client, what: str) -> None:
+    check(client.speculation["errors"] == 0 and client.detector_errors == 0,
+          f"{what}: speculation errors {client.speculation['errors']} "
+          f"({client.last_speculation_error!r}), detector errors {client.detector_errors} "
+          f"({client.last_detector_error!r})")
+
+
+def light_gates(lf, torch_backend) -> dict:
+    """The counted clients under a LightRecorder around ``TorchBackend()``:
+    the 10,240-validator sync with an honest witness, the 150-validator
+    skipping, sequential and backwards clients. Each trace equals the host
+    path's (the same client under ``CpuBackend()``, the native batch
+    verifier) and the walk's arithmetic; each backend call is the
+    arithmetic's, by class and lanes, so that every hop check after a
+    prewarm sent no lane; no error counted."""
+    from cometbft_tpu_torch.sidecar.backend import CpuBackend
+
+    host = CpuBackend()
+    out, recorders = {}, {}
+    cases = {
+        "10k": (lf["10k"], LIGHT_HEIGHTS, 1, True, {}),
+        "150": (lf["150"], LIGHT_SMALL_HEIGHTS, 1, False, {}),
+        "150_sequential": (lf["150"], LIGHT_SEQ_TO, 1, False, {"skip_verification": "sequential"}),
+        "150_backwards": (lf["150"], LIGHT_BACK[1], LIGHT_BACK[0], False, {}),
+    }
+    for name, (chain, target, trust_h, witness, kw) in cases.items():
+        rec = LightRecorder(torch_backend, keep=True)
+        run = light_sync(chain, rec, target, trust_h, witness, **kw)
+        on_host = light_sync(chain, host, target, trust_h, witness, **kw)
+        check(run["trace"] == on_host["trace"], f"{name}: the card's trace differs from the host's")
+        c = run["client"]
+        light_counts_clean(c, name)
+        got = [(k["class"], k["lanes"]) for k in rec.calls]
+        if kw.get("skip_verification") == "sequential":
+            want = {"fetched": [target] + list(range(trust_h + 1, target)),
+                    "trace": list(range(trust_h + 1, target + 1)), "descents": 0,
+                    "calls": [("blocksync", LIGHT_SMALL * 2 // 3 + 1)] * (target - trust_h)}
+        elif target < trust_h:
+            want = {"fetched": [target] + list(range(trust_h - 1, target, -1)),
+                    "trace": [target], "descents": 0, "calls": []}
+        else:
+            want = light_walk(chain["sets"], trust_h, target)
+            want["fetched"] = [target] + want["fetched"]
+        stored = [h for h, _ in run["trace"]]
+        check(stored == sorted({trust_h, *want["trace"]}),
+              f"{name}: stored heights {stored}, the arithmetic gives {want['trace']}")
+        check(run["primary"].fetched == want["fetched"],
+              f"{name}: fetched {run['primary'].fetched}, the arithmetic gives {want['fetched']}")
+        check(got == want["calls"], f"{name}: backend calls {got}, the arithmetic gives "
+              f"{want['calls']}")
+        check(c.speculation["descents"] == want["descents"],
+              f"{name}: {c.speculation['descents']} descents, the arithmetic gives "
+              f"{want['descents']}")
+        first_prewarm = next((i for i, k in enumerate(got) if k[0] == "light"), len(got))
+        check(all(k[0] == "light" for k in got[first_prewarm:]),
+              f"{name}: a hop check sent lanes after the first prewarm: {got}")
+        if witness:
+            check(run["witnesses"][0].fetched == [target] and c.witnesses,
+                  f"{name}: the witness was asked for {run['witnesses'][0].fetched}")
+        recorders[name] = rec
+        out[name] = {"trace_heights": stored, "fetched": run["primary"].fetched, "calls": got,
+                     "speculation": dict(c.speculation), "ms": run["ms"], "host_ms": on_host["ms"]}
+    check(lf["10k"]["signed"] == tuple(sorted({1, *out["10k"]["fetched"]})),
+          f"the 10k client fetched {out['10k']['fetched']}, not exactly the signed heights")
+    return out, recorders
+
+
+def light_swarm(lf, torch_backend, proofs: bool) -> dict:
+    """LIGHT_SWARM clients on threads cold-sync the 150-validator chain from
+    height 1 to the tip at once through one LightGateway, each client over
+    its own provider of the chain's wire bytes, under the port's
+    CoalescingScheduler around a LightRecorder around ``TorchBackend()``,
+    from an empty cache. Every kernel launch of the run is recorded with
+    its thread. Returns the wall ms, the traces, the gateway's stats and
+    the scheduler's counters."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.light.gateway import LightGateway
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.sidecar.scheduler import CoalescingScheduler
+    from cometbft_tpu_torch.types import Time
+
+    chain = lf["150"]
+    rec = LightRecorder(torch_backend)
+    sched = CoalescingScheduler(rec)
+    gw = LightGateway(LIGHT_CHAIN_ID, LightWire(LIGHT_CHAIN_ID, chain["encoded"]))
+    clients = [light_client(chain, LightWire(LIGHT_CHAIN_ID, chain["encoded"]), 1, [],
+                            gateway=gw, gateway_proofs=proofs) for _ in range(LIGHT_SWARM)]
+    results = [None] * LIGHT_SWARM
+    barrier = threading.Barrier(LIGHT_SWARM + 1)
+    threads_seen = collections.Counter()
+    orig_check = _build.check_launch
+
+    def check_launch(kernel, rc):
+        threads_seen[threading.current_thread().name] += 1
+        return orig_check(kernel, rc)
+
+    def sync(i):
+        try:
+            barrier.wait(timeout=60)
+            lb = clients[i].verify_light_block_at_height(LIGHT_SMALL_HEIGHTS, Time(LIGHT_NOW_S, 0))
+            results[i] = ("ok", lb.hash().hex())
+        except Exception as e:  # noqa: BLE001 - reported by the gate below
+            results[i] = ("error", repr(e))
+
+    ed25519._verified.clear()
+    be.set_backend(sched)
+    _build.check_launch = check_launch
+    threads = [threading.Thread(target=sync, args=(i,), name=f"light-{i}")
+               for i in range(LIGHT_SWARM)]
+    try:
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        _build.check_launch = orig_check
+        be.set_backend(None)
+        sched.close()
+    check(all(r is not None and r[0] == "ok" for r in results),
+          f"swarm: {[r for r in results if r is None or r[0] != 'ok'][:3]}")
+    traces = {tuple((h, c.store.light_block(h).hash().hex()) for h in c.store._heights())
+              for c in clients}
+    for c in clients:
+        light_counts_clean(c, "swarm")
+    check(len(traces) == 1, f"swarm: {len(traces)} different traces")
+    st = gw.stats()
+    check(st["speculate_errors"] == 0 and gw.header_errors == 0,
+          f"swarm: gateway prewarm errors {st['speculate_errors']} ({gw.last_speculate_error!r})")
+    check(st["plan_misses"] == 1 and st["plan_hits"] + st["plan_waits"] == LIGHT_SWARM - 1,
+          f"swarm: plans {st['plan_misses']} computed, {st['plan_hits']} hits, "
+          f"{st['plan_waits']} waits")
+    check(set(threads_seen) <= {"cmtpu-torch-dev"},
+          f"swarm: kernels launched from {dict(threads_seen)}, not the one device-owner thread")
+    stats = [dict(c.gateway_stats) for c in clients]
+    want = ({"plan_syncs": 1, "proof_rejects": 1, "fallbacks": 0} if proofs
+            else {"plan_syncs": 1, "proof_rejects": 0, "fallbacks": 0})
+    check(all({k: s[k] for k in want} == want for s in stats),
+          f"swarm: client stats {stats[0]}, expected {want}")
+    return {"ms": wall, "trace": sorted(traces)[0], "gateway": st, "lanes": rec.lanes(),
+            "lanes_total": sum(rec.lanes()), "scheduler": sched.counters(),
+            "engine_classes": sched.engine.class_counters_, "client_stats": stats[0],
+            "launch_threads": dict(threads_seen)}
+
+
+def light_attack(sources, lf, torch_backend, signers) -> dict:
+    """An attack, end to end, on the 150-validator blocksync source: a
+    client trusting its height 1 through BlockStoreProvider (reporting to
+    an EvidencePool over the source's stores) verifies the tip; a witness
+    serves the source's chain but a conflicting tip signed by the same
+    validators. Exactly one ErrLightClientAttack; the evidence is pending;
+    the source's executor proposes the next height with it (its commit
+    signed by the validators), saves and applies the block, and the pool
+    marks the evidence committed; the stored block carries it."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.detector import ErrLightClientAttack
+    from cometbft_tpu_torch.light.provider import BlockStoreProvider
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import BlockID, LightBlock
+    from cometbft_tpu_torch.types.evidence import encode_evidence
+
+    source = sources["150"]
+    node, state = source["node"], source["state"]
+    tip = len(source["blocks"])
+    pool = EvidencePool(MemDB(), node["state_store"], node["block_store"])
+
+    class Primary(BlockStoreProvider):
+        def report_evidence(self, ev):
+            pool.add_evidence(ev)
+
+    primary = Primary(BSYNC_CHAIN_ID, node["block_store"], node["state_store"])
+    forged = LightBlock.decode(lf["attack"])
+
+    class Witness:
+        def __init__(self):
+            self.evidences = []
+
+        def chain_id(self):
+            return BSYNC_CHAIN_ID
+
+        def light_block(self, height):
+            return forged if height == tip else primary.light_block(height)
+
+        def report_evidence(self, ev):
+            self.evidences.append(ev)
+
+    witness = Witness()
+    rec = LightRecorder(torch_backend)
+    ed25519._verified.clear()
+    be.set_backend(rec)
+    try:
+        client = Client(BSYNC_CHAIN_ID, TrustOptions(TRUSTING_PERIOD_NS, 1,
+                                                     primary.light_block(1).hash()),
+                        primary, [witness], LightStore(MemDB()))
+        now = state.last_block_time.add_nanos(60 * 10**9)
+        err = raises(ErrLightClientAttack, lambda: client.verify_light_block_at_height(tip, now))
+        light_counts_clean(client, "attack")
+        pending, _ = pool.pending_evidence(-1)
+        check(len(pending) == 1
+          and pending[0].conflicting_block.signed_header.header.hash() == forged.hash(),
+              f"attack: {len(pending)} pending evidence")
+        check(len(witness.evidences) == 1, "attack: the witness got no evidence of the primary")
+        ev_bytes = encode_evidence(pending[0])
+        ex = node["executor"]
+        ex.evpool = pool
+        last_commit = node["block_store"].load_seen_commit(tip)
+        block = ex.create_proposal_block(tip + 1, state, last_commit,
+                                         state.validators.get_proposer().address)
+        check([encode_evidence(e) for e in block.evidence] == [ev_bytes],
+              "attack: the proposal does not carry the evidence")
+        parts = block.make_part_set()
+        bid = BlockID(block.hash(), parts.header())
+        commit = sign_commits([("next", BSYNC_CHAIN_ID, light_unsigned(
+            block.header, state.validators, bid))], lf["secret"], signers)["next"]
+        node["block_store"].save_block(block, parts, commit)
+        new_state, _ = ex.apply_block(state, bid, block)
+    finally:
+        be.set_backend(None)
+    stored = node["block_store"].load_block(tip + 1)
+    check([encode_evidence(e) for e in stored.evidence] == [ev_bytes],
+          "attack: the stored block does not carry the evidence")
+    check(pool._is_committed(pending[0]) and pool.pending_count() == 0,
+          f"attack: the evidence is not committed ({pool.stats_snapshot()})")
+    source["state"] = new_state
+    return {"error": str(err), "evidence_bytes": len(ev_bytes), "block_height": tip + 1,
+            "pool": pool.stats_snapshot(), "calls": [(k["class"], k["lanes"]) for k in rec.calls],
+            "byzantine": len(pending[0].byzantine_validators)}
+
+
+def light_evidence_10k(sources, lf, backend) -> dict:
+    """The 10,240-validator blocksync source's tip, conflicting, signed by
+    its validators, as LightClientAttackEvidence against height 1
+    (``make_attack_evidence``: every signer byzantine): ``add_evidence`` of
+    a fresh pool over the source's stores, from objects decoded anew and an
+    empty cache, under ``set_backend(backend)``. Returns the wall ms, the
+    backend's calls and the evidence's bytes."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.light.detector import make_attack_evidence
+    from cometbft_tpu_torch.light.provider import BlockStoreProvider
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import LightBlock
+    from cometbft_tpu_torch.types.evidence import decode_evidence, encode_evidence
+
+    node = sources["10k"]["node"]
+    common = BlockStoreProvider(BSYNC_CHAIN_ID, node["block_store"],
+                                node["state_store"]).light_block(1)
+    raw = encode_evidence(make_attack_evidence(LightBlock.decode(lf["evidence"]), common))
+    rec = LightRecorder(backend, keep=True)
+    ev = decode_evidence(raw)
+    pool = EvidencePool(MemDB(), node["state_store"], node["block_store"])
+    ed25519._verified.clear()
+    be.set_backend(rec)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.add_evidence(ev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        be.set_backend(None)
+    check(pool.pending_count() == 1, "the 10,240-validator attack evidence was not accepted")
+    return {"ms": wall, "calls": [(k["class"], k["lanes"]) for k in rec.calls],
+            "bytes": len(raw), "byzantine": len(ev.byzantine_validators), "recorder": rec}
+
+
+def light_duplicate_votes(sources, lf, fixtures, torch_backend, auto) -> dict:
+    """Validator 0 of the 150-validator blocksync source precommits two
+    blocks at LIGHT_DUP_HEIGHT; a fresh EvidencePool over the source's
+    stores verifies the DuplicateVoteEvidence through a fresh sigbatch,
+    under ``TorchBackend()`` (no engine: the private window, one backend
+    call) and under the process default (its CoalescingScheduler's engine,
+    consensus class); a copy with one flipped signature bit is refused with
+    the reference's text. Returns the counters of each path."""
+    import dataclasses
+
+    from cometbft_tpu_torch.crypto import ed25519, sigbatch
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.sidecar import engine
+    from cometbft_tpu_torch.types import PRECOMMIT_TYPE, BlockID, PartSetHeader, Vote
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from cometbft_tpu_torch.types.vote import VoteError
+
+    node = sources["150"]["node"]
+    h = LIGHT_DUP_HEIGHT
+    vals = node["state_store"].load_validators(h)
+    t = node["block_store"].load_block_meta(h).header.time
+    val = vals.validators[0]
+    seed, pub = lf["secret"][val.address]
+    votes = []
+    for mark in (b"\xaa", b"\xbb"):
+        v = Vote(type=PRECOMMIT_TYPE, height=h, round=0,
+                 block_id=BlockID(mark * 32, PartSetHeader(1, mark * 32)), timestamp=t,
+                 validator_address=val.address, validator_index=0)
+        votes.append(v.with_signature(sign_known(pure, fixtures[0], seed, pub,
+                                                 v.sign_bytes(BSYNC_CHAIN_ID))))
+    ev = DuplicateVoteEvidence.new(votes[0], votes[1], t, vals)
+    sig = bytearray(ev.vote_b.signature)
+    sig[9] ^= 0x04
+    bad = dataclasses.replace(ev, vote_b=dataclasses.replace(ev.vote_b, signature=bytes(sig)))
+    out = {}
+    for name, backend in (("torch", torch_backend), ("auto", auto)):
+        old = sigbatch.set_batcher(None)
+        ed25519._verified.clear()
+        be.set_backend(backend)
+        eng = engine.engine_of(backend)
+        admitted = eng.class_counters_[engine.CLASS_CONSENSUS]["admitted"] if eng else 0
+        launches = dict(_build.LAUNCHES)
+        try:
+            EvidencePool(MemDB(), node["state_store"], node["block_store"]).add_evidence(ev)
+            err = raises(VoteError, lambda: EvidencePool(
+                MemDB(), node["state_store"], node["block_store"]).add_evidence(bad))
+            counters = sigbatch.counters()
+        finally:
+            be.set_backend(None)
+            sigbatch.set_batcher(old)
+        check(str(err) == "invalid signature", f"duplicate vote, {name}: {err!r}")
+        check(counters["fallbacks"] == 0 and counters["dispatches"] == 2,
+              f"duplicate vote, {name}: sigbatch {counters}")
+        sets = {k: _build.LAUNCHES[k] - launches[k] for k in ("sha512", "decompress", "ladder")}
+        rec = {"sigbatch": counters, "launch_sets": sets["ladder"],
+               "engine": eng is not None}
+        if name == "torch":
+            check(eng is None and sets == {"sha512": 2, "decompress": 2, "ladder": 2},
+                  f"duplicate vote under TorchBackend(): engine {eng}, launches {sets}")
+        else:
+            check(eng is not None and eng.class_counters_[engine.CLASS_CONSENSUS]["admitted"]
+                  == admitted + 2, "duplicate vote under the default: not through its engine")
+            hybrid = be._hybrid_tier(backend.inner)
+            rec["hybrid_share_of_the_last"] = hybrid.last_share
+        out[name] = rec
+    return out
+
+
+def light_kernel_batches(gates, ev10k) -> dict:
+    """The batches the light path handed the verify kernels: the largest
+    descent prewarm at 10,240 validators, the largest at 150, and the
+    evidence check at 10,240; each with four lanes corrupted
+    (``corrupt_four``). Returns label -> (pubs, msgs, sigs, corrupted)."""
+    out = {}
+    for label, rec in (("10k_prewarm", gates[1]["10k"]), ("150_prewarm", gates[1]["150"]),
+                       ("10k_evidence", ev10k["recorder"])):
+        pubs, msgs, sigs = max(rec.triples, key=lambda t: len(t[0]))
+        out[f"{label}_{len(pubs)}"] = corrupt_four(pubs, msgs, sigs)
+    return out
+
+
+def light_metrics(lf, sources, torch_backend, auto) -> dict:
+    """Medians of LIGHT_REPS cold syncs (fresh client, empty cache) under
+    ``TorchBackend()`` and the process default in turns: the 10,240-
+    validator client to height 9 and the 150-validator client to 100; the
+    10,240-validator evidence check; then the 10,240 sync's stage split
+    (one staged run under ``TorchBackend()``)."""
+    runs = {k: {"torch": [], "auto": []} for k in ("10k", "150", "evidence_10k")}
+    for rep in range(LIGHT_REPS):
+        tiers = [("torch", torch_backend), ("auto", auto)]
+        for tier, backend in tiers if rep % 2 == 0 else tiers[::-1]:
+            runs["10k"][tier].append(light_sync(lf["10k"], backend, LIGHT_HEIGHTS, witness=True)["ms"])
+            runs["150"][tier].append(light_sync(lf["150"], backend, LIGHT_SMALL_HEIGHTS)["ms"])
+            runs["evidence_10k"][tier].append(light_evidence_10k(sources, lf, backend)["ms"])
+    stages = LightStages()
+    staged = light_sync(lf["10k"], LightRecorder(torch_backend), LIGHT_HEIGHTS, witness=True,
+                        stages=stages)
+    return {"runs_ms": runs,
+            "medians_ms": {k: {t: statistics.median(v) for t, v in r.items()}
+                           for k, r in runs.items()},
+            "stages_10k": {"wall_ms": staged["ms"], "stages": stages.table()}}
+
+
+def drive_light_path(fixtures, sources, torch_backend, dev) -> dict:
+    """The light phase (module docstring, step 17): returns its launches,
+    gates, metrics and the kernels at the path's own batches."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import ed25519, sigbatch
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    fallbacks = ed25519.scalar_fallbacks
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
+        lf = light_fixtures(fixtures, sources, pool)
+        fixtures_s = time.perf_counter() - t0
+        print(f"light fixtures: {N_SIGS} validators x {LIGHT_HEIGHTS} heights rotating "
+              f"{LIGHT_ROTATE} a height (heights {LIGHT_SIGNED} signed), {LIGHT_SMALL} x "
+              f"{LIGHT_SMALL_HEIGHTS} rotating {LIGHT_SMALL_ROTATE}, two conflicting tips: "
+              f"{lf['signatures']} signatures, keys {lf['keys_s']:.1f} s, signing "
+              f"{lf['sign_s']:.1f} s, built in {fixtures_s:.1f} s", flush=True)
+
+        # The counted run: launch counts zeroed just before, read just after.
+        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                     CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+            auto = be._make_backend()
+        try:
+            _build.reset_launches()
+            gates = light_gates(lf, torch_backend)
+            swarm = {mode: light_swarm(lf, torch_backend, mode == "mmr")
+                     for mode in ("plan", "mmr")}
+            attack = light_attack(sources, lf, torch_backend, pool)
+            ev10k = light_evidence_10k(sources, lf, torch_backend)
+            dup = light_duplicate_votes(sources, lf, fixtures, torch_backend, auto)
+            launches = dict(_build.LAUNCHES)
+            calls = (sum(len(r.calls) for r in gates[1].values())
+                     + sum(len(s["lanes"]) for s in swarm.values()) + len(attack["calls"])
+                     + len(ev10k["calls"]) + dup["torch"]["launch_sets"]
+                     + dup["auto"]["launch_sets"])
+            check(launches == {"ladder": calls, "decompress": calls, "sha512": calls,
+                               "sha256": 0, "bn254": 0},
+                  f"light path launches {launches}: expected one sha512 / decompress / ladder "
+                  f"set a card call ({calls})")
+            check(ev10k["calls"] == [("blocksync", N_SIGS // 3 + 1)],
+                  f"the evidence check's calls {ev10k['calls']}")
+            lone = sum(gates[1]["150"].lanes())
+            for mode, s in swarm.items():
+                check(s["lanes_total"] <= lone + s["gateway"]["prewarmed_sigs"],
+                      f"swarm ({mode}): {s['lanes_total']} lanes, more than one lone client's "
+                      f"{lone} plus the gateway's prewarm {s['gateway']['prewarmed_sigs']}")
+            check(ed25519.scalar_fallbacks == fallbacks,
+                  "a light-path verification took the ChainExhausted fallback")
+            metrics = light_metrics(lf, sources, torch_backend, auto)
+        finally:
+            auto.close()
+    check(ed25519.scalar_fallbacks == fallbacks,
+          "a light-path verification took the ChainExhausted fallback")
+    check(sigbatch.counters()["fallbacks"] == 0, "a sigbatch fallback on the light path")
+    kernels = bsync_window_kernels(light_kernel_batches(gates, ev10k), dev)
+    ev10k.pop("recorder")
+    return {
+        "fixtures_s": fixtures_s, "signatures": lf["signatures"], "launches": launches,
+        "gates": gates[0], "swarm": swarm, "attack": attack, "evidence_10k": ev10k,
+        "duplicate_votes": dup, "metrics": metrics, "kernels": kernels,
+        "lanes_by_caller": {
+            **{name: r.calls for name, r in gates[1].items()},
+            **{f"swarm_{m}": s["lanes"] for m, s in swarm.items()},
+            "attack": attack["calls"], "evidence_10k": ev10k["calls"]},
     }
 
 
@@ -3170,6 +4122,55 @@ def time_bn254_lanes() -> int:
     return 0
 
 
+def light_phase(fixtures, sources, backend, dev, card, records) -> dict:
+    """Runs the light path (step 17), prints its metrics and gates, merges
+    its kernel comparisons into ``records``; returns its launches."""
+    start = time.perf_counter()
+    out = drive_light_path(fixtures, sources, backend, dev)
+    for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in out["kernels"].values()])
+    g, sw, med = out["gates"], out["swarm"], out["metrics"]["medians_ms"]
+    print(f"light path ok (the {N_SIGS}-validator client fetched {g['10k']['fetched']}, backend "
+          f"calls {g['10k']['calls']}; the {LIGHT_SMALL}-validator skipping, sequential and "
+          f"backwards clients as the arithmetic gives; {LIGHT_SWARM} clients through one gateway "
+          f"share one plan in each mode; the attack detected, its evidence committed at height "
+          f"{out['attack']['block_height']}; duplicate votes accepted and the flipped copy "
+          f"refused on both paths); launches {out['launches']}", flush=True)
+    common = {"device": torch.cuda.get_device_name(0), "card": card}
+    for name, key, n in (("light_sync_10k_ms", "10k", N_SIGS),
+                         ("light_sync_150_ms", "150", LIGHT_SMALL),
+                         ("evidence_verify_10k_ms", "evidence_10k", N_SIGS)):
+        print(json.dumps({"metric": name, "value": med[key]["torch"], "validators": n,
+                          "by_backend": med[key], "runs_ms": out["metrics"]["runs_ms"][key],
+                          **common}), flush=True)
+    print(json.dumps({"metric": "light_gateway_64_ms", "value": sw["plan"]["ms"],
+                      "clients": LIGHT_SWARM, "by_mode": {m: s["ms"] for m, s in sw.items()},
+                      "swarm": {m: {k: v for k, v in s.items() if k != "trace"}
+                                for m, s in sw.items()}, **common}), flush=True)
+    print(json.dumps({"light_stages_10k": out["metrics"]["stages_10k"], **common}), flush=True)
+    print(json.dumps({"light": {k: v for k, v in out.items() if k not in ("swarm", "metrics")},
+                      "phase_s": time.perf_counter() - start, **common}), flush=True)
+    return out["launches"]
+
+
+def light_only(card, dev) -> int:
+    """``--light``: the fixtures, the blocksync sources and the light phase
+    alone (a quick check of that phase on the card; no result line)."""
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    backend = TorchBackend()
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
+    launches = light_phase(fixtures, bsync_sources(fixtures, backend), backend, dev, card,
+                           records)
+    print(json.dumps({"light_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a GPU",
@@ -3199,6 +4200,8 @@ def main() -> int:
             print(f"  {name}" + (f"<{', '.join(args)}>" if args else ""))
         elif line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
+    if sys.argv[1:] == ["--light"]:
+        return light_only(card, dev)
     procs: list = []  # every process the phases start, ended here
     try:
         return run_phases(card, dev, props, clock_hz, so, procs)
@@ -3210,7 +4213,7 @@ def main() -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-17 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-18 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -3410,7 +4413,8 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                       "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
 
     bsync_start = time.perf_counter()
-    bs_out = drive_blocksync_path(fixtures, backend, dev)
+    sources = bsync_sources(fixtures, backend)
+    bs_out = drive_blocksync_path(sources, backend, dev)
     by_path["blocksync"] = bs_out.pop("launches")
     for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
         records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
@@ -3436,6 +4440,8 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                                     if k not in ("gates", "stages", "ms_per_block_runs")},
                       "phase_s": time.perf_counter() - bsync_start,
                       "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+
+    by_path["light"] = light_phase(fixtures, sources, backend, dev, card, records)
 
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(

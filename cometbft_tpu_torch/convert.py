@@ -25,6 +25,14 @@ under ``stateKey``, and ``stores_from_items`` a database's key-value items
 (a reference node's ``MemDB.iterator()``), which it copies into a port
 ``MemDB`` under a port ``BlockStore`` and ``StateStore``: the keys and values
 are the same bytes in both packages.
+
+The light client's state is wire bytes and a file: ``light_block_from_wire``
+takes a light block's proto bytes (``LightBlock.encode()``, a light store's
+values), ``evidence_from_wire`` an evidence's ``Evidence`` oneof bytes
+(``types/evidence.encode_evidence``, an evidence pool's values), and
+``mmr_from_state_file`` / ``mmr_to_state_file`` read and write the MMR
+state file the gateway and the bundle origin share, byte-identical in both
+packages.
 """
 
 from __future__ import annotations
@@ -170,3 +178,34 @@ def stores_from_items(items):
     for k, v in items:
         db.set(bytes(k), bytes(v))
     return BlockStore(db), StateStore(db)
+
+
+def light_block_from_wire(encoded: bytes):
+    """A light block from its proto bytes (``LightBlock.encode()``)."""
+    from cometbft_tpu_torch.types.light_block import LightBlock
+
+    return LightBlock.decode(encoded)
+
+
+def evidence_from_wire(encoded: bytes):
+    """Duplicate-vote or light-client-attack evidence from its ``Evidence``
+    oneof bytes (``encode_evidence(ev)``)."""
+    from cometbft_tpu_torch.types.evidence import decode_evidence
+
+    return decode_evidence(encoded)
+
+
+def mmr_from_state_file(path: str):
+    """The MMR a state file holds (``light/mmr.save_state``'s layout);
+    raises ``MMRStateError`` on a file that does not check."""
+    from cometbft_tpu_torch.light.mmr import load_state
+
+    return load_state(path)
+
+
+def mmr_to_state_file(mmr, path: str) -> None:
+    """Write ``mmr``'s state file, which the JAX package's ``load_state``
+    reads."""
+    from cometbft_tpu_torch.light.mmr import save_state
+
+    save_state(mmr, path)

@@ -1,0 +1,575 @@
+"""Light client with skipping (bisection) verification (light/client.go),
+the port's copy of ``cometbft_tpu/light/client.py``.
+
+The client keeps a trusted store of verified LightBlocks. To verify a new
+header it first tries one non-adjacent jump from the latest trusted block;
+if fewer than 1/3 of the trusted validators persist
+(ErrNewValSetCantBeTrusted) it bisects: fetch the midpoint, verify trusted
+-> pivot, then pivot -> target (light/client.go:706 verifySkipping). After
+each pivot fetch the commits of the whole optimistic hop chain are
+verified in ONE backend call of light class (``_speculate_descent``: the
+card's ``sha512`` -> ``decompress`` -> ``ladder`` by default), so that the
+hop checks that decide land on the verified-triple cache. Witness
+cross-checking (``detector.py``) runs after the primary's header verifies.
+
+Counted and kept, where the JAX package tolerates an exception unseen: a
+failed prewarm (``speculation["errors"]``, ``last_speculation_error``),
+the detector's tolerated errors (``detector_errors``,
+``last_detector_error``), and the cause of a refused bundle, gateway proof
+or plan (``last_bundle_error``, ``last_gateway_error``; the counts are the
+JAX package's ``gateway_stats``). The verdicts are the JAX package's.
+"""
+from __future__ import annotations
+
+import secrets
+from dataclasses import dataclass
+
+from cometbft_tpu_torch.light import verifier
+from cometbft_tpu_torch.light.provider import Provider
+from cometbft_tpu_torch.light.store import LightStore
+from cometbft_tpu_torch.sidecar import engine
+from cometbft_tpu_torch.types import cmttime
+from cometbft_tpu_torch.types.cmttime import Time
+from cometbft_tpu_torch.types.light_block import LightBlock
+from cometbft_tpu_torch.types.validation import Fraction
+
+DEFAULT_PRUNING_SIZE = 1000
+DEFAULT_MAX_CLOCK_DRIFT_NS = 10 * 10**9
+DEFAULT_MAX_RETRY_ATTEMPTS = 10
+
+
+@dataclass
+class TrustOptions:
+    """light/client.go TrustOptions: root of trust from a social checkpoint."""
+
+    period_ns: int
+    height: int
+    hash: bytes
+
+    def validate_basic(self) -> None:
+        if self.period_ns <= 0:
+            raise ValueError("negative or zero trusting period")
+        if self.height <= 0:
+            raise ValueError("negative or zero height")
+        if len(self.hash) != 32:
+            raise ValueError(f"expected hash size to be 32 bytes, got {len(self.hash)}")
+
+
+class ErrNoWitnesses(Exception):
+    pass
+
+
+class Client:
+    """light/client.go Client."""
+
+    def __init__(
+        self,
+        chain_id: str,
+        trust_options: TrustOptions,
+        primary: Provider,
+        witnesses: list[Provider],
+        store: LightStore,
+        trust_level: Fraction = verifier.DEFAULT_TRUST_LEVEL,
+        max_clock_drift_ns: int = DEFAULT_MAX_CLOCK_DRIFT_NS,
+        pruning_size: int = DEFAULT_PRUNING_SIZE,
+        skip_verification: str = "skipping",  # or "sequential"
+        gateway=None,  # LightGateway / RemoteGateway: untrusted accelerator
+        gateway_proofs: bool | None = None,  # try the MMR proof path first
+        bundle_source=None,  # checkpoint-bundle source (light/bundle.py)
+        logger=None,
+    ):
+        verifier.validate_trust_level(trust_level)
+        trust_options.validate_basic()
+        self.chain_id = chain_id
+        self.trusting_period_ns = trust_options.period_ns
+        self.trust_level = trust_level
+        self.max_clock_drift_ns = max_clock_drift_ns
+        self.primary = primary
+        self.witnesses = list(witnesses)
+        self.had_witnesses = bool(witnesses)
+        self.store = store
+        self.pruning_size = pruning_size
+        self.mode = skip_verification
+        self.gateway = gateway
+        if gateway_proofs is None:
+            from cometbft_tpu_torch.light.gateway import proof_mode
+
+            gateway_proofs = proof_mode() == "mmr"
+        self.gateway_proofs = gateway_proofs
+        self.bundle_source = bundle_source
+        # p2p re-serving: the raw bytes of the last bundle THIS client
+        # verified — handed onward unchanged via self.bundle().
+        self._held_bundle: bytes | None = None
+        self.logger = logger
+        # Speculative-bisection counters; "errors" counts failed prewarms.
+        self.speculation = {"descents": 0, "prewarmed_sigs": 0, "errors": 0}
+        self.last_speculation_error: BaseException | None = None
+        self.detector_errors = 0
+        self.last_detector_error: BaseException | None = None
+        self.last_bundle_error: BaseException | None = None
+        self.last_gateway_error: BaseException | None = None
+        # Gateway-assisted sync counters: which path served each forward
+        # verification, and what a rejected/unavailable gateway cost.
+        self.gateway_stats = {
+            "plan_syncs": 0,
+            "proof_syncs": 0,
+            "proof_rejects": 0,
+            "fallbacks": 0,
+            "proof_bytes": 0,
+            "bundle_syncs": 0,
+            "bundle_rejects": 0,
+            "bundle_bytes": 0,
+        }
+        self._init_trust(trust_options)
+
+    # -- initialization (client.go:266-360) -----------------------------------
+
+    def _init_trust(self, opts: TrustOptions) -> None:
+        existing = self.store.light_block(opts.height)
+        if existing is not None:
+            if existing.hash() != opts.hash:
+                raise ValueError(
+                    f"stored header hash {existing.hash().hex()} does not match "
+                    f"trust option hash {opts.hash.hex()} at height {opts.height}"
+                )
+            return
+        lb = self.primary.light_block(opts.height)
+        if lb.hash() != opts.hash:
+            raise ValueError(
+                f"primary's header hash {lb.hash().hex()} does not match trust "
+                f"option hash {opts.hash.hex()} at height {opts.height}"
+            )
+        lb.validate_basic(self.chain_id)
+        self.store.save_light_block(lb)
+
+    # -- public API -----------------------------------------------------------
+
+    def trusted_light_block(self, height: int) -> LightBlock | None:
+        """client.go TrustedLightBlock: from the store only."""
+        if height == 0:
+            h = self.store.last_light_block_height()
+            if h < 0:
+                return None
+            height = h
+        return self.store.light_block(height)
+
+    def latest_trusted(self) -> LightBlock | None:
+        h = self.store.last_light_block_height()
+        return self.store.light_block(h) if h >= 0 else None
+
+    def update(self, now: Time | None = None) -> LightBlock | None:
+        """client.go Update: verify the primary's latest header."""
+        now = now or cmttime.now()
+        latest = self.primary.light_block(0)
+        trusted = self.latest_trusted()
+        if trusted is not None and latest.height <= trusted.height:
+            return None
+        return self.verify_light_block_at_height(latest.height, now, _latest=latest)
+
+    def verify_light_block_at_height(
+        self, height: int, now: Time | None = None, _latest: LightBlock | None = None
+    ) -> LightBlock:
+        """client.go VerifyLightBlockAtHeight: fetch + verify + cross-check."""
+        if height <= 0:
+            raise ValueError("height must be positive")
+        now = now or cmttime.now()
+        existing = self.store.light_block(height)
+        if existing is not None:
+            return existing
+        target = _latest if _latest is not None and _latest.height == height else (
+            self.primary.light_block(height)
+        )
+        target.validate_basic(self.chain_id)
+        self.verify_header(target, now)
+        return target
+
+    def verify_header(self, new_lb: LightBlock, now: Time) -> None:
+        """client.go:525 VerifyHeader (with the provided validator set)."""
+        trusted = self.latest_trusted()
+        if trusted is None:
+            raise RuntimeError("no trusted state to verify from")
+        if new_lb.height > trusted.height:
+            if self.mode == "sequential":
+                trace = self._verify_sequential(trusted, new_lb, now)
+            else:
+                # Cold-sync ladder: checkpoint bundle (zero interactivity,
+                # tried before any CMTPU_LIGHTGW_PROOF mode) -> gateway
+                # proof/plan -> local bisection.  Every rung re-derives
+                # the same trust check, so a refusal only costs the next
+                # rung, never the decision.
+                trace = None
+                if self.bundle_source is not None:
+                    trace = self._try_verify_bundle(trusted, new_lb, now)
+                if trace is None:
+                    if self.gateway is not None:
+                        trace = self._verify_with_gateway(trusted, new_lb, now)
+                    else:
+                        trace = self._verify_skipping(trusted, new_lb, now)
+            for lb in trace:
+                self.store.save_light_block(lb)
+        elif new_lb.height < self.store.first_light_block_height():
+            self._verify_backwards(new_lb)
+            self.store.save_light_block(new_lb)
+        else:
+            # Height within the trusted range but not stored: verify forward
+            # from the closest lower trusted block.
+            base = self.store.light_block_before(new_lb.height)
+            if base is None:
+                raise RuntimeError(f"no trusted block below {new_lb.height}")
+            trace = self._verify_skipping(base, new_lb, now)
+            for lb in trace:
+                self.store.save_light_block(lb)
+        self._detect_divergence(new_lb, now)
+        self.store.prune(self.pruning_size)
+
+    # -- verification strategies ----------------------------------------------
+
+    def _verify_sequential(self, trusted: LightBlock, target: LightBlock, now: Time):
+        """client.go:613 verifySequential: every height in order."""
+        trace = []
+        current = trusted
+        for h in range(trusted.height + 1, target.height + 1):
+            lb = target if h == target.height else self.primary.light_block(h)
+            lb.validate_basic(self.chain_id)
+            verifier.verify_adjacent(
+                current.signed_header,
+                lb.signed_header,
+                lb.validator_set,
+                self.trusting_period_ns,
+                now,
+                self.max_clock_drift_ns,
+            )
+            current = lb
+            trace.append(lb)
+        return trace
+
+    def _verify_skipping(self, trusted: LightBlock, target: LightBlock, now: Time):
+        """client.go:706 verifySkipping: bisection on ErrNewValSetCantBeTrusted.
+
+        With speculative bisection: after each pivot fetch, the commits the
+        descent will verify if the optimistic path holds (pivot, then every
+        block still on the stack) are batch-prewarmed through the backend in
+        one dispatch (`_speculate_descent`), so the sequential hop checks
+        below run as verified-triple cache hits.  The decision logic is
+        untouched — speculation only ever inserts VALID triples into the
+        cache, so the trace is bit-identical to the unspeculated walk."""
+        trace = []
+        current = trusted
+        stack = [target]
+        fetches = 0
+        while stack:
+            candidate = stack[-1]
+            try:
+                verifier.verify(
+                    current.signed_header,
+                    current.validator_set,
+                    candidate.signed_header,
+                    candidate.validator_set,
+                    self.trusting_period_ns,
+                    now,
+                    self.max_clock_drift_ns,
+                    self.trust_level,
+                )
+            except verifier.ErrNewValSetCantBeTrusted:
+                pivot = (current.height + candidate.height) // 2
+                if pivot in (current.height, candidate.height):
+                    raise
+                fetches += 1
+                if fetches > DEFAULT_MAX_RETRY_ATTEMPTS * 4:
+                    raise RuntimeError("bisection: too many pivot fetches")
+                lb = self.primary.light_block(pivot)
+                lb.validate_basic(self.chain_id)
+                stack.append(lb)
+                self._speculate_descent(current, stack)
+                continue
+            current = candidate
+            stack.pop()
+            trace.append(candidate)
+        return trace
+
+    def _speculate_descent(self, current: LightBlock, stack: list) -> None:
+        """Prewarm the verified-triple cache for the descent's optimistic
+        hop chain: (current -> stack[-1]), (stack[-1] -> stack[-2]), ...,
+        (stack[1] -> stack[0]).  One BatchVerifier call carries every hop's
+        union prefix — when the process backend is the coalescing scheduler
+        this also merges with other clients' concurrent descents.  Errors
+        are counted and tolerated: speculation is an accelerator, never an
+        arbiter (the sequential checks in _verify_skipping re-derive every
+        verdict)."""
+        try:
+            from cometbft_tpu_torch.crypto import ed25519
+            from cometbft_tpu_torch.types import validation
+
+            triples: list[tuple] = []
+            lower = current
+            for upper in reversed(stack):
+                adjacent = upper.height == lower.height + 1
+                triples.extend(
+                    validation.speculative_verify_triples(
+                        self.chain_id,
+                        lower.validator_set,
+                        upper.validator_set,
+                        upper.signed_header.commit,
+                        None if adjacent else self.trust_level,
+                    )
+                )
+                lower = upper
+            if not triples:
+                return
+            bv = ed25519.BatchVerifier()
+            for pub, msg, sig in triples:
+                try:
+                    bv.add(pub, msg, sig)
+                except (TypeError, ValueError):
+                    continue  # non-ed25519 or malformed entry: engine's call
+            if len(bv):
+                self.speculation["descents"] += 1
+                self.speculation["prewarmed_sigs"] += len(bv)
+                # Light-class engine admission: speculative descent is
+                # opportunistic prewarm, lowest on the priority ladder.
+                with engine.submission_class(engine.CLASS_LIGHT):
+                    bv.verify()  # cache-filters, dedups, populates _verified
+        except Exception as e:
+            self.speculation["errors"] += 1
+            self.last_speculation_error = e
+
+    # -- checkpoint-bundle cold sync (light/bundle.py; static artifact) -------
+
+    def _try_verify_bundle(self, trusted: LightBlock, target: LightBlock,
+                           now: Time):
+        """Zero-interactivity cold sync off a checkpoint bundle; returns a
+        trace or None (refusal -> the caller falls through to the gateway
+        or bisection — a forged/stale bundle can never cause a wrong
+        accept, only this fallback).
+
+        Acceptance is Bundle.verify: our OWN trust anchor must be a
+        ladder rung with our OWN stored hash, every rung must prove into
+        the root the shipped peaks bag to, and the anchor light block
+        must pass the standard trusting-overlap + commit check — the
+        exact interactive-path predicate, so decisions stay
+        bit-identical.  When the checkpoint sits below the target the
+        verified anchor becomes the new trusted base and the remaining
+        span rides the normal paths."""
+        from cometbft_tpu_torch.light.bundle import Bundle
+
+        try:
+            raw = self.bundle_source.bundle(target.height)
+            if raw is None:
+                raise ValueError("no bundle available")
+            bundle = raw if isinstance(raw, Bundle) else Bundle.decode(raw)
+            data = bundle.encode() if isinstance(raw, Bundle) else raw
+            if bundle.anchor.height > target.height:
+                raise ValueError(
+                    f"bundle checkpoint {bundle.anchor.height} above "
+                    f"target {target.height}"
+                )
+            anchor = bundle.verify(
+                self.chain_id, trusted, now, self.trusting_period_ns,
+                self.max_clock_drift_ns, self.trust_level,
+            )
+            if anchor.height == target.height and \
+                    anchor.hash() != target.hash():
+                # The artifact verified but names a different header than
+                # our primary at the same height — a conflict the bundle
+                # path must not arbitrate.  Refuse; the interactive walk
+                # (and the detector) handles it against the primary.
+                raise ValueError("bundle anchor disagrees with primary")
+        except Exception as e:
+            self.gateway_stats["bundle_rejects"] += 1
+            self.last_bundle_error = e
+            if self.logger:
+                self.logger.info(
+                    "checkpoint bundle rejected; falling back",
+                    module="light", err=repr(e),
+                )
+            return None
+        self.gateway_stats["bundle_syncs"] += 1
+        self.gateway_stats["bundle_bytes"] += len(data)
+        self._held_bundle = data
+        if anchor.height == target.height:
+            # Keep OUR target object as the decision object (hash-equal).
+            return [target]
+        trace = [anchor]
+        if self.gateway is not None:
+            trace.extend(self._verify_with_gateway(anchor, target, now))
+        else:
+            trace.extend(self._verify_skipping(anchor, target, now))
+        return trace
+
+    def bundle(self, height: int = 0) -> bytes | None:
+        """BundleSource duck type: peer-to-peer re-serving.  A synced
+        client hands the exact bytes it verified onward — the next client
+        re-derives everything, so relaying costs no trust."""
+        if self._held_bundle is None:
+            return None
+        if height:
+            from cometbft_tpu_torch.light.bundle import Bundle
+
+            if Bundle.decode(self._held_bundle).anchor.height > height:
+                return None
+        return self._held_bundle
+
+    # -- gateway-assisted sync (light/gateway.py; untrusted accelerator) ------
+
+    def _verify_with_gateway(self, trusted: LightBlock, target: LightBlock,
+                             now: Time):
+        """Gateway-assisted forward verification with guaranteed fallback.
+
+        Proof mode first (when enabled): O(log n) MMR inclusion proofs
+        binding the gateway's history to both our trust anchor and the
+        target, plus the standard one-hop trust check of the target
+        against OUR trusted validator set — rejected proofs NEVER degrade
+        the decision, they only cost the fallback.
+        Plan mode next: the gateway's memoized descent plan prefetches the
+        pivots and prewarms the shared verified-triple cache, then the
+        bit-identical local _verify_skipping walk re-verifies every hop
+        (a poisoned plan block fails that walk and we fall back to the
+        real primary).  Any gateway failure -> plain local bisection."""
+        if self.gateway_proofs:
+            try:
+                return self._verify_gateway_proof(trusted, target, now)
+            except Exception as e:
+                self.gateway_stats["proof_rejects"] += 1
+                self.last_gateway_error = e
+                if self.logger:
+                    self.logger.info(
+                        "gateway proof rejected; falling back",
+                        module="light", err=repr(e),
+                    )
+        try:
+            plan = self.gateway.sync_plan(trusted.height, target.height, now)
+            by_height = {}
+            for lb in plan:
+                lb.validate_basic(self.chain_id)
+                by_height[lb.height] = lb
+            # The gateway's copy of the target must BE our target — the
+            # decision object stays the one our primary handed us.
+            if target.height in by_height and \
+                    by_height[target.height].hash() != target.hash():
+                raise ValueError("gateway plan disagrees on target header")
+            old_primary = self.primary
+            self.primary = _PlanProvider(self.chain_id, by_height, old_primary)
+            try:
+                trace = self._verify_skipping(trusted, target, now)
+            finally:
+                self.primary = old_primary
+            self.gateway_stats["plan_syncs"] += 1
+            return trace
+        except Exception as e:
+            self.gateway_stats["fallbacks"] += 1
+            self.last_gateway_error = e
+            if self.logger:
+                self.logger.info(
+                    "gateway sync failed; local bisection",
+                    module="light", err=repr(e),
+                )
+            return self._verify_skipping(trusted, target, now)
+
+    def _verify_gateway_proof(self, trusted: LightBlock, target: LightBlock,
+                              now: Time):
+        """Cold-sync acceptance = the standard one-hop verification
+        (verifier.verify: trusting-overlap against OUR trusted validator
+        set, then the target's own +2/3 commit) PLUS accumulator
+        membership: both our trust anchor and the target must prove into
+        ONE gateway root.  Inclusion under a gateway-supplied root is
+        history-binding, never trust — it can only narrow acceptance, so
+        a gateway forging a self-signed history proves inclusion of
+        garbage and still dies on the trusted-set overlap.  Everything is
+        re-derived client-side from the response; any failure (including
+        ErrNewValSetCantBeTrusted when rotation diluted the anchor's
+        overlap) raises and the caller falls back to plan mode, whose
+        walk bisects."""
+        from cometbft_tpu_torch.light.mmr import verify_inclusion
+
+        if verifier.header_expired(trusted.signed_header,
+                                   self.trusting_period_ns, now):
+            raise verifier.ErrOldHeaderExpired(
+                trusted.signed_header.header.time.add_nanos(
+                    self.trusting_period_ns
+                ),
+                now,
+            )
+        resp = self.gateway.prove(target.height, anchor_height=trusted.height)
+        size, root = int(resp["size"]), resp["root"]
+        anchor = resp.get("anchor")
+        if anchor is None:
+            raise ValueError("gateway proof lacks the trust-anchor branch")
+        if int(resp["target"]["index"]) != target.height - 1 or \
+                int(anchor["index"]) != trusted.height - 1:
+            raise ValueError("gateway proof indexes do not match heights")
+        verify_inclusion(root, size, trusted.height - 1, anchor["aunts"],
+                         trusted.hash())
+        verify_inclusion(root, size, target.height - 1,
+                         resp["target"]["aunts"], target.hash())
+        verifier.verify(
+            trusted.signed_header,
+            trusted.validator_set,
+            target.signed_header,
+            target.validator_set,
+            self.trusting_period_ns,
+            now,
+            self.max_clock_drift_ns,
+            self.trust_level,
+        )
+        self.gateway_stats["proof_syncs"] += 1
+        self.gateway_stats["proof_bytes"] += int(resp.get("bytes", 0))
+        return [target]
+
+    def _verify_backwards(self, target: LightBlock) -> None:
+        """client.go backwards: hash-chain from the earliest trusted header."""
+        first_h = self.store.first_light_block_height()
+        current = self.store.light_block(first_h)
+        for h in range(first_h - 1, target.height - 1, -1):
+            lb = target if h == target.height else self.primary.light_block(h)
+            lb.validate_basic(self.chain_id)
+            verifier.verify_backwards(lb.header, current.header)
+            current = lb
+
+    # -- witness cross-check (detector.go) ------------------------------------
+
+    def _detect_divergence(self, new_lb: LightBlock, now: Time) -> None:
+        from cometbft_tpu_torch.light.detector import ErrNoWitnesses, detect_divergence
+
+        if not self.witnesses:
+            if self.had_witnesses:
+                # client.go errNoWitnesses: a client that HAD witnesses but
+                # lost them all must not silently trust the primary forever.
+                raise ErrNoWitnesses(
+                    "all witnesses removed; reset the light client"
+                )
+            return
+        detect_divergence(self, new_lb, now)
+
+    def remove_witness(self, witness: Provider) -> None:
+        self.witnesses = [w for w in self.witnesses if w is not witness]
+
+
+class _PlanProvider(Provider):
+    """Primary wrapper for one gateway-assisted descent: pivots named by
+    the plan are served from memory, anything else (a plan that guessed
+    wrong, latest-height probes) falls through to the real primary — so a
+    stale or partial plan degrades to extra fetches, never to a different
+    verification outcome."""
+
+    def __init__(self, chain_id: str, blocks: dict[int, LightBlock], primary):
+        self._chain_id = chain_id
+        self._blocks = blocks
+        self._primary = primary
+
+    def chain_id(self) -> str:
+        return self._chain_id
+
+    def light_block(self, height: int) -> LightBlock:
+        lb = self._blocks.get(height) if height else None
+        return lb if lb is not None else self._primary.light_block(height)
+
+    def report_evidence(self, ev) -> None:
+        self._primary.report_evidence(ev)
+
+
+def random_witness_order(n: int) -> list[int]:
+    order = list(range(n))
+    for i in range(n - 1, 0, -1):
+        j = secrets.randbelow(i + 1)
+        order[i], order[j] = order[j], order[i]
+    return order

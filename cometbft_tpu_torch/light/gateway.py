@@ -1,0 +1,515 @@
+"""Light-client gateway: one node's shared verification service for many
+syncing light clients, the port's copy of ``cometbft_tpu/light/gateway.py``.
+
+Three layers of sharing turn N identical bisections into about one:
+
+- **Plan cache + single-flight.** A descent plan (the pivot heights a
+  skipping verification from trusted height T to target H will fetch)
+  depends only on (T, H) and the chain, so it is kept in an LRU
+  (refresh-on-reput, as the verified-triple cache). Concurrent misses on
+  one key wait behind one computation.
+- **Shared verified-triple cache.** The gateway verifies each plan's hop
+  commits while computing it (the client's speculative prewarm, in one
+  BatchVerifier call of light class); every client's own re-verify of the
+  same hops then hits ``crypto/ed25519._verified`` instead of the card.
+- **The coalescing scheduler underneath.** The gateway's verification
+  goes through the process backend (the port's ``CoalescingScheduler``
+  over the supervised chain under ``CMTPU_BACKEND=auto``), so plan
+  computations for different keys merge into one call with whatever else
+  is queued; every call reaches the card's ``sha512`` -> ``decompress`` ->
+  ``ladder`` through the one device-owner thread.
+
+Cold clients can skip bisection: the gateway keeps an append-only RFC-6962
+Merkle Mountain Range over committed header hashes (``light/mmr.py``) and
+serves "header h is in the history that holds your trust anchor" as two
+O(log n) inclusion proofs under one root, with the target light block. The
+client checks both proofs AND runs the standard one-hop trust check itself.
+
+Trust model (the detector's): the gateway is an untrusted accelerator. A
+poisoned plan fails the client's own hop verification and the client falls
+back to its primary; a proof is accepted only when both inclusions and the
+one-hop check (overlap against the client's OWN trusted set, then the
+target's +2/3 commit) hold client-side. Any failure falls back toward local
+bisection; the detector runs unchanged either way.
+
+A failed prewarm is tolerated, as in the JAX package, but counted
+(``stats()["speculate_errors"]``, the last exception in
+``last_speculate_error``), and so is a header hash the source cannot give
+while the accumulator resumes (``header_errors``, ``last_header_error``).
+
+Knobs: CMTPU_LIGHTGW (enable, default on), CMTPU_LIGHTGW_SESSIONS (max
+concurrent sessions, default 64), CMTPU_LIGHTGW_PLAN_CACHE (plan LRU cap,
+default 256), CMTPU_LIGHTGW_PROOF (mmr | plan: whether clients try the MMR
+proof path first, default mmr).
+"""
+from __future__ import annotations
+
+import base64
+import os
+import threading
+
+from cometbft_tpu_torch.light import verifier
+from cometbft_tpu_torch.sidecar import engine
+from cometbft_tpu_torch.light import mmr as mmr_mod
+from cometbft_tpu_torch.light.provider import Provider
+from cometbft_tpu_torch.types.light_block import LightBlock
+from cometbft_tpu_torch.types.validation import Fraction
+
+# Generous simulation horizon: the gateway's descent simulation must not
+# enforce trust expiry (that is the client's job on re-verify) — it only
+# discovers which pivots the client's own walk will fetch.
+_SIM_PERIOD_NS = 10 * 365 * 24 * 3600 * 10**9
+_MAX_PLAN_FETCHES = 64
+_MMR_CATCHUP_CHUNK = 256
+
+
+class GatewayError(Exception):
+    """Gateway unavailable / overloaded / asked for the impossible; clients
+    treat any of these as 'fall back to local bisection'."""
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, str(default)))
+    except ValueError:
+        return default
+
+
+def proof_mode() -> str:
+    """mmr (clients try the accumulator proof first) | plan."""
+    mode = os.environ.get("CMTPU_LIGHTGW_PROOF", "mmr").strip().lower()
+    return mode if mode in ("mmr", "plan") else "mmr"
+
+
+class LightGateway:
+    """Node-side fan-in service; see module docstring for the design."""
+
+    def __init__(
+        self,
+        chain_id: str,
+        source: Provider,
+        max_sessions: int | None = None,
+        plan_cache: int | None = None,
+        trust_level: Fraction = verifier.DEFAULT_TRUST_LEVEL,
+        state_path: str | None = None,
+        logger=None,
+    ):
+        self.chain_id = chain_id
+        self.source = source
+        self.trust_level = trust_level
+        self.state_path = state_path
+        self.logger = logger
+        self.max_sessions = max_sessions if max_sessions is not None else max(
+            1, _env_int("CMTPU_LIGHTGW_SESSIONS", 64)
+        )
+        self.plan_cache_max = plan_cache if plan_cache is not None else max(
+            1, _env_int("CMTPU_LIGHTGW_PLAN_CACHE", 256)
+        )
+        # Lazy: resumed from the persisted state file (if any) on first
+        # proof — see _ensure_mmr.
+        self._mmr: mmr_mod.MMR | None = None
+        self._mmr_lock = threading.Lock()
+        # (trusted_height, target_height) -> tuple of plan heights (sorted,
+        # target included). Insertion-ordered dict as LRU, refresh-on-reput.
+        self._plans: dict[tuple[int, int], tuple[int, ...]] = {}
+        self._plan_lock = threading.Lock()
+        # Single-flight: key -> Event the computing session sets when done.
+        self._inflight: dict[tuple[int, int], threading.Event] = {}
+        self._sessions = threading.Semaphore(self.max_sessions)
+        self._stats_lock = threading.Lock()
+        self._stats = {
+            "sessions_total": 0,
+            "sessions_active": 0,
+            "sessions_peak": 0,
+            "sessions_rejected": 0,
+            "plan_hits": 0,
+            "plan_misses": 0,
+            "plan_waits": 0,  # single-flight riders on someone else's miss
+            "proofs_served": 0,
+            "proof_bytes": 0,
+            "prewarmed_sigs": 0,
+            "speculate_errors": 0,
+        }
+        self.last_speculate_error: BaseException | None = None
+        self.header_errors = 0
+        self.last_header_error: BaseException | None = None
+
+    # -- session accounting ------------------------------------------------
+
+    def _enter(self) -> None:
+        if not self._sessions.acquire(blocking=False):
+            with self._stats_lock:
+                self._stats["sessions_rejected"] += 1
+            raise GatewayError(
+                f"gateway at max concurrent sessions ({self.max_sessions})"
+            )
+        with self._stats_lock:
+            self._stats["sessions_total"] += 1
+            self._stats["sessions_active"] += 1
+            self._stats["sessions_peak"] = max(
+                self._stats["sessions_peak"], self._stats["sessions_active"]
+            )
+
+    def _exit(self) -> None:
+        with self._stats_lock:
+            self._stats["sessions_active"] -= 1
+        self._sessions.release()
+
+    def _bump(self, key: str, by: int = 1) -> None:
+        with self._stats_lock:
+            self._stats[key] += by
+
+    # -- descent plans -----------------------------------------------------
+
+    def sync_plan(
+        self, trusted_height: int, target_height: int, now=None
+    ) -> list[LightBlock]:
+        """Blocks the client's skipping walk from trusted_height to
+        target_height will fetch (pivots + target), plan-cache/
+        single-flight shared across sessions.  The gateway verified the
+        hop commits while computing the plan, so the caller's mandatory
+        re-verification runs against a warm verified-triple cache."""
+        if not 0 < trusted_height < target_height:
+            raise GatewayError(
+                f"bad plan range {trusted_height} -> {target_height}"
+            )
+        self._enter()
+        try:
+            key = (trusted_height, target_height)
+            heights = self._cached_plan(key)
+            if heights is None:
+                cached, mine, evt = self._claim(key)
+                if cached is not None:
+                    # Lost the race to a computation that finished between
+                    # our cache miss and the claim — that IS a hit.
+                    heights = cached
+                    self._bump("plan_hits")
+                elif mine:
+                    try:
+                        heights = self._compute_plan(
+                            trusted_height, target_height, now
+                        )
+                        with self._plan_lock:
+                            self._plan_put(key, heights)
+                    finally:
+                        with self._plan_lock:
+                            self._inflight.pop(key, None)
+                        evt.set()
+                    self._bump("plan_misses")
+                else:
+                    evt.wait(timeout=120.0)
+                    heights = self._cached_plan(key, count_hit=False)
+                    if heights is None:  # computing session failed
+                        heights = self._compute_plan(
+                            trusted_height, target_height, now
+                        )
+                        with self._plan_lock:
+                            self._plan_put(key, heights)
+                        self._bump("plan_misses")
+                    else:
+                        self._bump("plan_waits")
+            return [self._fetch(h) for h in heights]
+        finally:
+            self._exit()
+
+    def _claim(self, key) -> tuple:
+        """(cached_heights | None, owns_computation, event | None) — the
+        plan cache is re-checked under the SAME lock that creates the
+        inflight event, so a session whose computing peer finished between
+        its cache miss and the claim rides the fresh cache entry instead
+        of claiming ownership and recomputing the plan."""
+        with self._plan_lock:
+            heights = self._plans.get(key)
+            if heights is not None:
+                self._plan_put(key, heights)  # refresh-on-reput
+                return heights, False, None
+            evt = self._inflight.get(key)
+            if evt is not None:
+                return None, False, evt
+            evt = threading.Event()
+            self._inflight[key] = evt
+            return None, True, evt
+
+    def _cached_plan(self, key, count_hit: bool = True):
+        with self._plan_lock:
+            heights = self._plans.get(key)
+            if heights is not None:
+                self._plan_put(key, heights)  # refresh-on-reput
+        if heights is not None and count_hit:
+            self._bump("plan_hits")
+        return heights
+
+    def _plan_put(self, key, heights) -> None:
+        # Caller holds _plan_lock. Same shape as ed25519._verified_put_many:
+        # delete + reinsert moves the key to the young end; evict oldest
+        # past the cap.
+        self._plans.pop(key, None)
+        while len(self._plans) >= self.plan_cache_max:
+            self._plans.pop(next(iter(self._plans)))
+        self._plans[key] = heights
+
+    def _compute_plan(self, trusted_height, target_height, now) -> tuple:
+        """Mirror of light/client.py _verify_skipping, recording the fetch
+        set instead of a trust decision.  Runs under the simulation horizon
+        (_SIM_PERIOD_NS): expiry/drift enforcement stays with the client —
+        the plan only has to name the pivots the client's walk needs."""
+        trusted = self._fetch(trusted_height)
+        target = self._fetch(target_height)
+        if now is None:
+            now = target.signed_header.header.time.add_nanos(10**9)
+        heights = {target_height}
+        current, stack, fetches = trusted, [target], 0
+        while stack:
+            candidate = stack[-1]
+            try:
+                verifier.verify(
+                    current.signed_header,
+                    current.validator_set,
+                    candidate.signed_header,
+                    candidate.validator_set,
+                    _SIM_PERIOD_NS,
+                    now,
+                    _SIM_PERIOD_NS,
+                    self.trust_level,
+                )
+            except verifier.ErrNewValSetCantBeTrusted:
+                pivot = (current.height + candidate.height) // 2
+                if pivot in (current.height, candidate.height):
+                    raise GatewayError("bisection cannot make progress")
+                fetches += 1
+                if fetches > _MAX_PLAN_FETCHES:
+                    raise GatewayError("plan: too many pivot fetches")
+                lb = self._fetch(pivot)
+                heights.add(pivot)
+                stack.append(lb)
+                self._speculate(current, stack)
+                continue
+            except Exception as e:
+                raise GatewayError(f"plan simulation failed: {e}") from e
+            current = candidate
+            stack.pop()
+        return tuple(sorted(heights))
+
+    def _speculate(self, current: LightBlock, stack: list) -> None:
+        """Union-prefix prewarm of the descent's remaining hop commits in
+        one BatchVerifier dispatch (identical to the client's
+        _speculate_descent) — this is where concurrent sessions' work
+        merges in the coalescing scheduler."""
+        try:
+            from cometbft_tpu_torch.crypto import ed25519
+            from cometbft_tpu_torch.types import validation
+
+            triples: list[tuple] = []
+            lower = current
+            for upper in reversed(stack):
+                adjacent = upper.height == lower.height + 1
+                triples.extend(
+                    validation.speculative_verify_triples(
+                        self.chain_id,
+                        lower.validator_set,
+                        upper.validator_set,
+                        upper.signed_header.commit,
+                        None if adjacent else self.trust_level,
+                    )
+                )
+                lower = upper
+            bv = ed25519.BatchVerifier()
+            for pub, msg, sig in triples:
+                try:
+                    bv.add(pub, msg, sig)
+                except (TypeError, ValueError):
+                    continue
+            if len(bv):
+                self._bump("prewarmed_sigs", len(bv))
+                # Light-class (lowest) admission into the continuous-
+                # batching engine: the prewarm rides spare capacity on the
+                # card and relies on the starvation hatch to be served.
+                with engine.submission_class(engine.CLASS_LIGHT):
+                    bv.verify()
+        except Exception as e:
+            # an accelerator, never an arbiter: counted, then tolerated
+            with self._stats_lock:
+                self._stats["speculate_errors"] += 1
+                self.last_speculate_error = e
+
+    def _fetch(self, height: int) -> LightBlock:
+        try:
+            lb = self.source.light_block(height)
+        except Exception as e:
+            raise GatewayError(f"source has no light block {height}: {e}") from e
+        lb.validate_basic(self.chain_id)
+        return lb
+
+    # -- MMR proofs --------------------------------------------------------
+
+    def _header_hash(self, height: int) -> bytes:
+        fast = getattr(self.source, "header_hash", None)
+        if fast is not None:
+            h = fast(height)
+            if h is not None:
+                return h
+        return self._fetch(height).hash()
+
+    def _safe_header_hash(self, height: int) -> bytes | None:
+        try:
+            return self._header_hash(height)
+        except Exception as e:
+            with self._stats_lock:
+                self.header_errors += 1
+                self.last_header_error = e
+            return None
+
+    def _ensure_mmr(self) -> None:
+        """Resume the accumulator from the persisted state file (if any)
+        and append committed header hashes up to the source's tip. Header
+        hashes are immutable once committed, so append-only is safe; a
+        state file that disagrees with its own peaks or with the block
+        store refuses loudly (mmr.resume_or_new), it is never papered
+        over with a silent rebuild.
+
+        Leaf index = height - 1, so proof serving needs the full history
+        from height 1: a pruned store (base > 1) is refused loudly up
+        front instead of letting every cold client pay a doomed per-block
+        fetch.  Catch-up (mmr.catch_up, shared with the bundle origin)
+        fetches in bounded chunks outside the lock so a tall-chain first
+        prove() never stalls concurrent proof sessions."""
+        base_fn = getattr(self.source, "base_height", None)
+        if base_fn is not None:
+            base = int(base_fn() or 1)
+            if base > 1:
+                raise GatewayError(
+                    f"source history pruned below height {base}; MMR proof "
+                    "serving needs the full chain from height 1"
+                )
+        try:
+            latest = self.source.light_block(0).height
+        except Exception as e:
+            raise GatewayError(f"source tip unavailable: {e}") from e
+        with self._mmr_lock:
+            if self._mmr is None:
+                try:
+                    self._mmr = mmr_mod.resume_or_new(
+                        self.state_path, self._safe_header_hash
+                    )
+                except mmr_mod.MMRStateError as e:
+                    raise GatewayError(str(e)) from e
+        grew = mmr_mod.catch_up(
+            self._mmr, self._mmr_lock, latest, self._header_hash,
+            chunk=_MMR_CATCHUP_CHUNK,
+        )
+        if grew and self.state_path:
+            with self._mmr_lock:
+                mmr_mod.save_state(self._mmr, self.state_path)
+
+    def prove(self, height: int, anchor_height: int = 0) -> dict:
+        """Target light block + inclusion proofs for the target header and
+        the caller's trust anchor under one MMR root.  The caller verifies
+        both proofs and the target's commit itself; `bytes` is the honest
+        wire size of what a cold client must transfer on this path."""
+        self._enter()
+        try:
+            self._ensure_mmr()
+            with self._mmr_lock:
+                n = self._mmr.size
+                if not 1 <= height <= n:
+                    raise GatewayError(f"height {height} not in MMR (size {n})")
+                if anchor_height and not 1 <= anchor_height <= n:
+                    raise GatewayError(
+                        f"anchor {anchor_height} not in MMR (size {n})"
+                    )
+                root = self._mmr.root()
+                target_proof = self._mmr.prove(height - 1)
+                anchor_proof = (
+                    self._mmr.prove(anchor_height - 1) if anchor_height else None
+                )
+            lb = self._fetch(height)
+            out = {
+                "size": n,
+                "root": root,
+                "light_block": lb,
+                "target": {
+                    "index": target_proof.index,
+                    "aunts": list(target_proof.aunts),
+                },
+            }
+            if anchor_proof is not None:
+                out["anchor"] = {
+                    "index": anchor_proof.index,
+                    "aunts": list(anchor_proof.aunts),
+                }
+            n_aunts = len(target_proof.aunts) + (
+                len(anchor_proof.aunts) if anchor_proof else 0
+            )
+            out["bytes"] = len(lb.encode()) + 32 * (n_aunts + 1) + 16
+            self._bump("proofs_served")
+            self._bump("proof_bytes", out["bytes"])
+            return out
+        finally:
+            self._exit()
+
+    # -- observability -----------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            out = dict(self._stats)
+        with self._plan_lock:
+            out["plans_cached"] = len(self._plans)
+        with self._mmr_lock:
+            out["mmr_size"] = self._mmr.size if self._mmr is not None else 0
+        # Stable external name for the proof wire-bytes counter (the
+        # internal key predates it and keeps feeding existing readers).
+        out["proof_bytes_served"] = out["proof_bytes"]
+        shared = out["plan_hits"] + out["plan_waits"]
+        out["plan_share_ratio"] = round(
+            (shared + out["plan_misses"]) / max(1, out["plan_misses"]), 3
+        )
+        out["max_sessions"] = self.max_sessions
+        out["proof_mode"] = proof_mode()
+        return out
+
+
+class RemoteGateway:
+    """Client-side handle over a node's gateway RPC routes (light_sync /
+    light_proof / light_gateway_stats) — same duck type as LightGateway,
+    so light/client.py takes either."""
+
+    def __init__(self, rpc_client):
+        self.client = rpc_client
+
+    def sync_plan(self, trusted_height, target_height, now=None):
+        res = self.client.call(
+            "light_sync",
+            trusted_height=str(trusted_height),
+            target_height=str(target_height),
+        )
+        return [
+            LightBlock.decode(base64.b64decode(b)) for b in res["blocks"]
+        ]
+
+    def prove(self, height, anchor_height=0):
+        res = self.client.call(
+            "light_proof",
+            height=str(height),
+            anchor_height=str(anchor_height),
+        )
+        out = {
+            "size": int(res["size"]),
+            "root": bytes.fromhex(res["root"]),
+            "light_block": LightBlock.decode(
+                base64.b64decode(res["light_block"])
+            ),
+            "target": {
+                "index": int(res["target"]["index"]),
+                "aunts": [bytes.fromhex(a) for a in res["target"]["aunts"]],
+            },
+            "bytes": int(res["proof_bytes"]),
+        }
+        if res.get("anchor"):
+            out["anchor"] = {
+                "index": int(res["anchor"]["index"]),
+                "aunts": [bytes.fromhex(a) for a in res["anchor"]["aunts"]],
+            }
+        return out
+
+    def stats(self) -> dict:
+        return self.client.call("light_gateway_stats")

@@ -104,6 +104,18 @@ def current_class() -> int:
     return CLASS_BLOCKSYNC if k is None else k
 
 
+def engine_of(backend) -> "VerificationEngine | None":
+    """The port's engine behind a backend: the backend itself, or the one
+    the port's ``CoalescingScheduler`` embeds. None for a bare chain
+    (``CMTPU_COALESCE=0``) or an installed backend without one; callers
+    then keep their private dispatch paths (``crypto/sigbatch.py``). The
+    JAX package's engines are not the port's and give None."""
+    if isinstance(backend, VerificationEngine):
+        return backend
+    eng = getattr(backend, "engine", None)
+    return eng if isinstance(eng, VerificationEngine) else None
+
+
 class VerifyFuture:
     """Result slot a submitter blocks on; filled by the dispatcher.
 

@@ -1,7 +1,6 @@
 """Evidence of Byzantine behavior (types/evidence.go), the port's copy of
 ``cometbft_tpu/types/evidence.py``: the two evidence types, their wire
-codecs and hashes. Their verification (``evidence/verify.py``) is not
-ported yet."""
+codecs and hashes. ``evidence/verify.py`` verifies them."""
 
 from __future__ import annotations
 

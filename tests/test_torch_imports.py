@@ -1,10 +1,10 @@
 """Boundaries of the port: it imports neither jax nor the JAX package (the
 native loader, the supervisor, chaos, the fleet tier, the BN254 chain, the
-tooling, the types, commit verification and the light verifier included),
-it
-never falls back to the CPU when CUDA is asked for (the hybrid tier and the
-chains neither), and a missing CUDA compiler is an error, not a silent
-switch to the plain versions."""
+tooling, the types, commit verification, blocksync, the light client,
+evidence, sigbatch and the RPC codec included), it never falls back to the
+CPU when CUDA is asked for (the hybrid tier and the chains neither), and a
+missing CUDA compiler is an error, not a silent switch to the plain
+versions."""
 
 import pkgutil
 import subprocess
@@ -107,6 +107,21 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.blocksync.reactor",
         "cometbft_tpu_torch.p2p",
         "cometbft_tpu_torch.p2p.reactor",
+        "cometbft_tpu_torch.light.store",
+        "cometbft_tpu_torch.light.provider",
+        "cometbft_tpu_torch.light.client",
+        "cometbft_tpu_torch.light.detector",
+        "cometbft_tpu_torch.light.mmr",
+        "cometbft_tpu_torch.light.bundle",
+        "cometbft_tpu_torch.light.origin",
+        "cometbft_tpu_torch.light.gateway",
+        "cometbft_tpu_torch.evidence",
+        "cometbft_tpu_torch.evidence.verify",
+        "cometbft_tpu_torch.evidence.pool",
+        "cometbft_tpu_torch.evidence.reactor",
+        "cometbft_tpu_torch.crypto.sigbatch",
+        "cometbft_tpu_torch.rpc",
+        "cometbft_tpu_torch.rpc.json_codec",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
