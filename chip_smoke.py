@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bn254-lanes   # only the bn254 kernel's times
     python3 chip_smoke.py --light         # only the light path (and what it needs)
+    python3 chip_smoke.py --consensus     # only the consensus path (and what it needs)
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -27,9 +28,13 @@ node syncing a 10,240-validator chain (and a 150-validator one) from peers
 through ``blocksync/reactor.BlocksyncReactor``, which verifies each window
 of commits in one backend call and applies each block through
 ``state/execution.BlockExecutor``, the kvstore application and the mempool,
-and the light path the light client (``light/client.Client``: bisection
+the light path the light client (``light/client.Client``: bisection
 whose descent prewarms a whole hop chain's commits in one backend call),
-its gateway, the detector and the evidence pool over those chains.
+its gateway, the detector and the evidence pool over those chains, and the
+consensus path the state machine (``consensus/state.ConsensusState``,
+whose receive routine prebatches each drain's votes in one backend call):
+the simnet of 150 validators and one node following the 10,240-validator
+chain's consensus.
 In order:
 
   1. prints the PyTorch version and the card (name, power limit);
@@ -219,7 +224,43 @@ In order:
      its caller; last, the three verify kernels at the path's own batches
      (the largest prewarm at each size, the evidence check), four lanes of
      each corrupted, held to their plain versions and timed;
- 18. runs the mesh path (the lane-split programs) on two virtual shards of
+ 18. runs the consensus path (``consensus/``, ``types/vote_set``,
+     ``simnet/``), launch counts zeroed before it and read after. (a) The
+     port's simnet (``simnet/scenario``, CONS_SIM: 150 validators, 3 blocks,
+     seed 7, 25 ms vote buckets, the simnet's WAN defaults over 4 zones),
+     with one verified-triple cache a node (``SimCaches``: as in a network
+     of a process a node, each node checks every vote it receives), under a
+     recording ``TorchBackend()`` and under the process default: each run
+     ok, hash agreement and safety, no straggler, every error counter 0
+     (prebatch errors, consensus failures, drain failures, sigbatch
+     fallbacks), the same block hashes, commit times, simulated time and
+     events under both, card lanes at every height and one sha512 /
+     decompress / ladder set a card call; a flood run (3 blocks, the
+     reference's flooder window on node 1 with each replay's signature bit
+     flipped and sent through the vote buckets): the card refuses the bad
+     lanes, they land in the nodes' failed-triple memos, no flood vote is
+     admitted, the chain commits. (b) A node with no priv validator (an
+     ``EventBus``, a real WAL in a temporary directory) follows heights 1 to
+     CONS_HEIGHTS of step 16's 10,240-validator source through ``start()``
+     and ``send_peer_message``: each height's proposal (signed by its
+     proposer), block parts, 10,240 prevotes (signed in the process pool)
+     and the source's seen commit as 10,240 precommits. The counted run
+     (a recording ``TorchBackend()``, each stage timed, one prevote
+     corrupted): the stored blocks and states (the app hash) are the
+     source's at every height and each seen commit holds the source's
+     signatures over 2/3 of the power; the corrupted prevote is refused by
+     the card, lands in the memo and never enters the vote set; the card's
+     lanes at each height at least the votes the drains prebatched; the WAL
+     holds the end heights; every error counter 0. Then
+     ``simnet_150_ms_per_height`` (wall ms a committed height, with the
+     card's calls and lanes a height and the scalar checks) and
+     ``consensus_10k_ms_per_height`` (the proposal's enqueue to the commit,
+     the median of heights 2 to CONS_HEIGHTS, ``TorchBackend()`` and the
+     process default in turns) with the stage split of each height; last,
+     the three verify kernels at the path's batches (the follower's largest
+     and smallest prebatch, the simnet's and the flood's largest bucket),
+     four lanes of each corrupted, held to plain and timed;
+ 19. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -232,7 +273,7 @@ In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 19. prints the ``kernels`` line (launches summed over the paths, and by
+ 20. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -1618,6 +1659,10 @@ def drive_auto_path(fixtures, pure, torch_backend) -> dict:
     hybrid = be._hybrid_tier(chain)
     warm = {(ek.bucket_for(b, hybrid._n_dev), hybrid._n_dev) for b in ek.WARM_BUCKETS}
     check(warm <= set(hybrid._dev_wall), f"the default's hybrid was not warmed: {hybrid._dev_wall}")
+    # The model the first calls are planned from: the warmed walls (ms a
+    # bucket) and the host's rate (signatures a ms).
+    model = {"walls_ms": {b: w for (b, _), w in sorted(hybrid._dev_wall.items())},
+             "host_sigs_per_ms": hybrid._host_rate}
     shares = count_shares(hybrid)
     cases = {"commit": (pubs, msgs, sigs), "corrupted": (pubs, bad_msgs, bad_sigs)}
     cases.update({f"sigs_{k}": (pubs[:k], msgs[:k], sigs[:k]) for k in AUTO_SIGS[1:]})
@@ -1629,7 +1674,8 @@ def drive_auto_path(fixtures, pure, torch_backend) -> dict:
         first_share[name] = hybrid.last_share
     typical = f"sigs_{AUTO_SIGS[1]}"
     check(first_share[typical] > 0,
-          f"the default's first {typical} call had no share on the card: {first_share}")
+          f"the default's first {typical} call had no share on the card: {first_share}; "
+          f"planned from {model}")
     c = chain.counters()
     check(c["active_tier"] == "hybrid" and c["degraded_calls"] == 0 and c["trips"] == 0
           and c["crosscheck_catches"] == 0 and c["tiers"]["hybrid"]["calls"] == len(cases),
@@ -1654,7 +1700,7 @@ def drive_auto_path(fixtures, pure, torch_backend) -> dict:
     check(be._backend is None and not engine._thread.is_alive(),
           "set_backend(None) left the default's dispatcher running")
     return {"launches": launches, "setup_s": setup_s, "first_share": first_share,
-            "times_ms": times, "counters": c,
+            "warm_model": model, "times_ms": times, "counters": c,
             "root_model": {"card_fixed_ms": hybrid._root_fixed,
                            "card_leaves_per_ms": hybrid._card_leaf_rate,
                            "host_leaves_per_ms": hybrid._host_leaf_rate}}
@@ -3035,7 +3081,7 @@ LIGHT_SMALL_ROTATE = 15
 LIGHT_SEQ_TO = 20  # a sequential client verifies 1 -> 20
 LIGHT_BACK = (50, 40)  # a client trusting height 50 verifies height 40 backwards
 LIGHT_SWARM = 64  # clients at once through one gateway: the default CMTPU_LIGHTGW_SESSIONS
-LIGHT_REPS = 3
+LIGHT_REPS = 1  # timed rounds (3 until the consensus phase came; one keeps the run near 750 s)
 LIGHT_NOW_S = LIGHT_T0 + 3_600
 LIGHT_DUP_HEIGHT = 10  # the duplicate votes' height on the 150-validator blocksync chain
 LIGHT_SIGN_CHUNK = 512
@@ -3901,6 +3947,707 @@ def drive_light_path(fixtures, sources, torch_backend, dev) -> dict:
     }
 
 
+# -- the consensus path ----------------------------------------------------------
+
+# Path (a): the port's simnet at a typical chain's set, the simnet's own WAN
+# defaults (4 zones, default_spec's timeouts), vote buckets of 25 ms; 3
+# blocks (5 take ~45 s under TorchBackend and ~90 s under the default on the
+# card's host: the cut keeps the whole run near 750 s).
+CONS_SIM = {"validators": COMMIT_SMALL, "blocks": 3, "seed": 7, "vote_window_ms": 25.0,
+            "max_sim_s": 300.0}
+# The flood run: the JAX package's flooder window (test_simnet_byzantine.py:
+# node 1, 5-45 s, 20 Hz, fanout 8), each replay with one signature bit
+# flipped and sent through the vote buckets, 8 a burst, so that a replay to
+# a peer fills a bucket its drain prebatches.
+CONS_FLOOD_BLOCKS = 3
+CONS_FLOOD = {"role": "flooder", "node": 1, "from_s": 5.0, "until_s": 45.0, "rate_hz": 20.0,
+              "burst": 8}
+# Path (b): a node with no priv validator follows heights 1..CONS_HEIGHTS of
+# the blocksync phase's 10,240-validator source chain through start() and
+# send_peer_message; the counted run corrupts one prevote (height, index).
+CONS_HEIGHTS = 4
+CONS_BAD = (2, 5)
+CONS_TIMED = 1  # timed runs of path (b) under each backend, in turns
+CONS_PEERS = 8  # the peer ids the follower's messages arrive from
+CONS_SIGN_CHUNK = 512
+
+
+class SimCaches:
+    """One verified-triple cache a simnet node. The simnet runs its nodes in
+    one process, where ``crypto/ed25519``'s cache is shared: a signer's own
+    admission of its vote (``mark_self_signed``) answers every peer's check
+    of it, and no vote reaches the card (a CPU run of 150 validators made no
+    backend call). A network runs a process a node, each with its own
+    cache: this context swaps ``ed25519._verified`` for the node's own dict
+    around each of the state machine's entry points, so that every node
+    checks each vote it receives, in its drains' prebatches (the card) or,
+    in a bucket of fewer than 8, by the scalar check, as a node of a network
+    does. The verdicts, and so the blocks, are the same either way."""
+
+    ENTRY = ("_handle_msg", "_handle_timeout", "_prebatch_vote_signatures", "_stall_check",
+             "_rearm_step_timeout")
+
+    def __init__(self):
+        self.caches: dict = {}
+        self._saved: list = []
+
+    def __enter__(self):
+        from cometbft_tpu_torch.consensus.state import ConsensusState
+        from cometbft_tpu_torch.crypto import ed25519
+
+        caches = self.caches
+        for name in self.ENTRY:
+            orig = getattr(ConsensusState, name)
+
+            def wrapper(cs, *args, _orig=orig, **kwargs):
+                prev = ed25519._verified
+                ed25519._verified = caches.setdefault(cs, {})
+                try:
+                    return _orig(cs, *args, **kwargs)
+                finally:
+                    ed25519._verified = prev
+
+            self._saved.append((name, orig))
+            setattr(ConsensusState, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.consensus.state import ConsensusState
+
+        for name, orig in reversed(self._saved):
+            setattr(ConsensusState, name, orig)
+        self._saved.clear()
+
+
+class ConsRecorder:
+    """A backend that records each call: the height ``at()`` gives at the
+    call, its lanes, the lanes its bitmap refused and its wall ms; it keeps
+    the triples of its largest call and of its smallest of at least 8
+    lanes (a prebatch's least)."""
+
+    def __init__(self, inner, at):
+        self.inner = inner
+        self.at = at
+        self.calls: list = []
+        self.largest = None
+        self.smallest = None
+        self._lock = threading.Lock()
+
+    def batch_verify(self, pubs, msgs, sigs):
+        t0 = time.perf_counter()
+        ok, bits = self.inner.batch_verify(pubs, msgs, sigs)
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            n = len(pubs)
+            self.calls.append((self.at(), n, sum(1 for b in bits if not b), ms))
+            trip = (list(pubs), list(msgs), list(sigs))
+            if self.largest is None or n > len(self.largest[0]):
+                self.largest = trip
+            if n >= 8 and (self.smallest is None or n < len(self.smallest[0])):
+                self.smallest = trip
+        return ok, bits
+
+    def merkle_root(self, leaves):
+        return self.inner.merkle_root(leaves)
+
+    def by_height(self) -> dict:
+        out: dict = {}
+        for h, n, bad, ms in self.calls:
+            rec = out.setdefault(h, {"calls": 0, "lanes": 0, "refused": 0, "ms": 0.0})
+            rec["calls"] += 1
+            rec["lanes"] += n
+            rec["refused"] += bad
+            rec["ms"] += ms
+        return out
+
+
+def flip_bit(b: bytes, at: int = 0) -> bytes:
+    return b[:at] + bytes([b[at] ^ 0x01]) + b[at + 1:]
+
+
+def bad_sig_flooder(base_cls):
+    """The JAX package's flooder (``simnet/byzantine.Flooder``) whose
+    replays each carry one flipped signature bit and go through the vote
+    buckets (``Scenario._bucket_vote``) instead of straight to the peer, so
+    that a drain's prebatch takes them; ``sent`` holds the bad signatures."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.consensus.messages import VoteMessage
+
+    class BadSigFlooder(base_cls):
+        sent: set = set()
+
+        def _tick(self) -> None:
+            scen = self.scen
+            if scen.clock.now() >= self.until_s:
+                return
+            i = self.node_index
+            node = scen.nodes[i]
+            if self.active() and node.online and self._ring:
+                replay = [self._ring[self.rng.randrange(len(self._ring))]
+                          for _ in range(self.burst)]
+                peers = [j for j in range(scen.n) if j != i and scen._reachable(i, j)]
+                if len(peers) > self.fanout:
+                    peers = self.rng.sample(peers, self.fanout)
+                for j in peers:
+                    for m in replay:
+                        bad = VoteMessage(replace(m.vote, signature=flip_bit(m.vote.signature)))
+                        BadSigFlooder.sent.add(bad.vote.signature)
+                        due = max(scen.clock.now() + scen._link_delay(i, j),
+                                  scen._fifo.get((i, j), 0.0))
+                        scen._bucket_vote(i, j, due, bad, f"sim{i}")
+                        self._count("byz_flooded")
+            scen.clock.timer(1.0 / self.rate_hz, self._tick)
+
+    BadSigFlooder.sent = set()
+    return BadSigFlooder
+
+
+def cons_sim_run(backend, spec: dict, record: bool) -> dict:
+    """One run of the port's simnet, ``Scenario(default_spec(**spec)).run()``
+    (what ``run_scenario`` does), under ``set_backend(backend)`` with one
+    verified-triple cache a node (SimCaches); with ``record`` the backend
+    sits behind a ConsRecorder whose calls go to node 0's height. A
+    ``flooder`` entry is the bad-signature flooder (bad_sig_flooder).
+    Counts the scalar checks (``ed25519_pure.verify_zip215``) and keeps
+    sigbatch's counters from before the run's closing reset."""
+    from cometbft_tpu_torch.crypto import ed25519_pure, sigbatch
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.simnet import byzantine
+    from cometbft_tpu_torch.simnet import scenario as sc
+
+    scen = sc.Scenario(sc.default_spec(**spec))
+    rec = ConsRecorder(backend, lambda: scen.nodes[0].cs.rs.height if scen.nodes else 0)
+    flooder = bad_sig_flooder(byzantine.Flooder)
+    orig_make, orig_verify, orig_reset = (byzantine.make_actor, ed25519_pure.verify_zip215,
+                                          sigbatch.reset)
+    scalar = [0]
+    sig_counters: list = []
+
+    def make_actor(scenario, entry):
+        actor = orig_make(scenario, entry)
+        if entry.get("role") == "flooder":
+            actor.__class__ = flooder
+        return actor
+
+    def verify_zip215(*args):
+        scalar[0] += 1
+        return orig_verify(*args)
+
+    def reset():
+        sig_counters.append(sigbatch.counters())
+        orig_reset()
+
+    byzantine.make_actor, ed25519_pure.verify_zip215, sigbatch.reset = (
+        make_actor, verify_zip215, reset)
+    be.set_backend(rec if record else backend)
+    try:
+        with SimCaches() as caches:
+            report = scen.run()
+    finally:
+        byzantine.make_actor, ed25519_pure.verify_zip215, sigbatch.reset = (
+            orig_make, orig_verify, orig_reset)
+        be.set_backend(None)
+    nodes = [n.cs for n in scen.nodes]
+    return {"report": report, "scenario": scen, "recorder": rec if record else None,
+            "scalar_verifies": scalar[0], "sigbatch": sig_counters[-1],
+            "prebatch_errors": sum(cs.prebatch_errors for cs in nodes),
+            "consensus_failures": sum(cs.consensus_failures for cs in nodes),
+            "stall_errors": sum(cs.stall_errors for cs in nodes),
+            "last_prebatch_error": repr(next((cs.last_prebatch_error for cs in nodes
+                                              if cs.last_prebatch_error), None)),
+            "caches": len(caches.caches), "flood_sent": set(flooder.sent)}
+
+
+def cons_sim_gates(run: dict, blocks: int, what: str) -> None:
+    """A simnet run's gates: the chain reached its target, every node agrees
+    and no two honest nodes differ, no straggler, every error counter 0."""
+    rep = run["report"]
+    check(rep["ok"] and rep["hash_agreement"] and rep["safety_ok"],
+          f"simnet {what}: ok {rep['ok']}, agreement {rep['hash_agreement']}, safety "
+          f"{rep['safety_ok']} (height {rep['height_node0']}, conflicting "
+          f"{rep['conflicting_heights']})")
+    check(rep["stragglers"] == [], f"simnet {what}: stragglers {rep['stragglers']}")
+    check(len(rep["block_hashes"]) == blocks and all(rep["block_hashes"].values()),
+          f"simnet {what}: committed {sorted(rep['block_hashes'])}")
+    errs = sim_errors(run)
+    check(all(v == 0 for v in errs.values()),
+          f"simnet {what}: error counters {errs}; last prebatch error "
+          f"{run['last_prebatch_error']}")
+
+
+def sim_errors(run: dict) -> dict:
+    return {"prebatch_errors": run["prebatch_errors"],
+            "consensus_failures": run["consensus_failures"],
+            "drain_failures": run["report"]["counters"]["drain_failures"],
+            "stall_errors": run["stall_errors"], "sigbatch_fallbacks": run["sigbatch"]["fallbacks"]}
+
+
+def cons_sim_summary(run: dict) -> dict:
+    rep = run["report"]
+    out = {"ms_per_height": rep["wall_time_s"] * 1e3 / len(rep["block_hashes"]),
+           "errors": sim_errors(run),
+           "wall_time_s": rep["wall_time_s"], "sim_time_s": rep["sim_time_s"],
+           "accel": rep["accel"], "events": rep["events"],
+           "vote_dispatches": rep["counters"]["vote_dispatches"],
+           "deliveries": rep["counters"]["deliveries"], "scalar_verifies": run["scalar_verifies"],
+           "sigbatch": run["sigbatch"], "node_caches": run["caches"]}
+    if run["recorder"] is not None:
+        per = run["recorder"].by_height()
+        out["card_by_height"] = {int(h): v for h, v in sorted(per.items())}
+        out["card_calls"] = len(run["recorder"].calls)
+        out["card_lanes"] = sum(n for _, n, _, _ in run["recorder"].calls)
+        out["card_ms"] = sum(ms for *_, ms in run["recorder"].calls)
+    return out
+
+
+def cons_simnet(torch_backend, auto) -> dict:
+    """Path (a): the simnet at CONS_SIM under ``TorchBackend()`` (recorded)
+    and the process default, then the flood run; the gates (module
+    docstring, step 18). Returns the summaries, the launches of the
+    recorded run and the recorders' largest batches."""
+    from cometbft_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    runs = {"torch": cons_sim_run(torch_backend, CONS_SIM, record=True)}
+    launches = dict(_build.LAUNCHES)
+    calls = len(runs["torch"]["recorder"].calls)
+    check(launches == {"ladder": calls, "decompress": calls, "sha512": calls, "sha256": 0,
+                       "bn254": 0},
+          f"simnet launches {launches}: expected one sha512 / decompress / ladder set a card "
+          f"call ({calls})")
+    runs["auto"] = cons_sim_run(auto, CONS_SIM, record=False)
+    for tier, run in runs.items():
+        cons_sim_gates(run, CONS_SIM["blocks"], tier)
+    a, b = runs["torch"]["report"], runs["auto"]["report"]
+    for key in ("block_hashes", "commit_times", "sim_time_s", "events"):
+        check(a[key] == b[key], f"simnet: {key} differs between TorchBackend and the default")
+    per = runs["torch"]["recorder"].by_height()
+    check(all(per.get(h, {}).get("lanes", 0) > 0 for h in range(1, CONS_SIM["blocks"] + 1)),
+          f"simnet: a height without card lanes: {sorted(per.items())}")
+    flood_spec = {**CONS_SIM, "blocks": CONS_FLOOD_BLOCKS, "byzantine": [CONS_FLOOD]}
+    flood = cons_sim_run(torch_backend, flood_spec, record=True)
+    cons_sim_gates(flood, CONS_FLOOD_BLOCKS, "flood")
+    sent = flood["flood_sent"]
+    scen = flood["scenario"]
+    memo = sum(1 for n in scen.nodes for key in n.cs._failed_triples if key[32:96] in sent)
+    refused = sum(bad for *_, bad, _ in flood["recorder"].calls)
+    check(sent and memo > 0 and refused > 0,
+          f"flood: {len(sent)} bad signatures sent, {memo} in the nodes' failed-triple memos, "
+          f"{refused} lanes refused by the card")
+    admitted = 0
+    for n in scen.nodes:
+        rs = n.cs.rs
+        sets = [vs for rvs in rs.votes._round_vote_sets.values() for vs in rvs.values()]
+        sets += [rs.last_commit] if rs.last_commit is not None else []
+        admitted += sum(1 for vs in sets for v in vs.votes if v is not None and v.signature in sent)
+        for h in range(1, n.cs.block_store.height() + 1):
+            for c in (n.cs.block_store.load_seen_commit(h), n.cs.block_store.load_block(h).last_commit):
+                admitted += sum(1 for s in (c.signatures if c else []) if s.signature in sent)
+    check(admitted == 0, f"flood: {admitted} flood votes admitted")
+    return {"summary": {tier: cons_sim_summary(run) for tier, run in runs.items()},
+            "flood": {**cons_sim_summary(flood), "bad_signatures": len(sent),
+                      "in_failed_memos": memo, "refused_lanes": refused,
+                      "flooded": flood["report"]["counters"].get("byz_flooded", 0),
+                      "admitted": admitted},
+            "launches": launches, "largest": runs["torch"]["recorder"].largest,
+            "flood_largest": flood["recorder"].largest}
+
+
+def cons_follow_fixtures(source, fixtures) -> list:
+    """Path (b)'s messages for heights 1..CONS_HEIGHTS of the source chain:
+    each height's proposal (signed by the block's proposer), its block
+    parts, 10,240 prevotes for the block (each signed by its validator in a
+    pool of SIGN_PROCESSES processes, timestamps after the block's) and the
+    source's seen commit turned back into 10,240 precommits; with the
+    source's block and state bytes for the gates."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.types.block import PRECOMMIT_TYPE, PREVOTE_TYPE, Block, BlockID
+    from cometbft_tpu_torch.types.proposal import Proposal
+    from cometbft_tpu_torch.types.vote import Vote
+
+    _, seeds, pubs, *_ = fixtures
+    secret = {ed25519.PubKey(p).address(): (s, p) for s, p in zip(seeds, pubs)}
+    store = source["node"]["block_store"]
+    heights, jobs = [], []
+    for h in range(1, CONS_HEIGHTS + 1):
+        block = Block.decode(source["blocks"][h - 1])
+        parts = block.make_part_set()
+        bid = BlockID(block.hash(), parts.header())
+        seen = store.load_seen_commit(h)
+        proposal = Proposal(height=h, round=0, pol_round=-1, block_id=bid,
+                            timestamp=block.header.time)
+        jobs.append(("ed25519", *secret[block.header.proposer_address],
+                     proposal.sign_bytes(BSYNC_CHAIN_ID)))
+        prevotes = [Vote(type=PREVOTE_TYPE, height=h, round=0, block_id=bid,
+                         timestamp=block.header.time.add_nanos(5 * 10**8 + 977 * i),
+                         validator_address=cs.validator_address, validator_index=i)
+                    for i, cs in enumerate(seen.signatures)]
+        jobs += [("ed25519", *secret[v.validator_address], v.sign_bytes(BSYNC_CHAIN_ID))
+                 for v in prevotes]
+        precommits = [Vote(type=PRECOMMIT_TYPE, height=seen.height, round=seen.round,
+                           block_id=cs.block_id(seen.block_id), timestamp=cs.timestamp,
+                           validator_address=cs.validator_address, validator_index=i,
+                           signature=cs.signature)
+                      for i, cs in enumerate(seen.signatures) if not cs.is_absent()]
+        heights.append({"height": h, "proposal": proposal, "prevotes": prevotes,
+                        "precommits": precommits,
+                        "parts": [parts.get_part(k) for k in range(parts.total)],
+                        "block": source["blocks"][h - 1], "state": source["states"][h - 1],
+                        "seen": seen})
+    chunks = [jobs[i : i + CONS_SIGN_CHUNK] for i in range(0, len(jobs), CONS_SIGN_CHUNK)]
+    with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
+        sigs = iter([s for chunk in pool.map(sign_jobs, chunks, chunksize=1) for s in chunk])
+    from dataclasses import replace
+
+    for hx in heights:
+        hx["proposal"] = replace(hx["proposal"], signature=next(sigs))
+        hx["prevotes"] = [replace(v, signature=next(sigs)) for v in hx["prevotes"]]
+    return heights
+
+
+class ConsStages:
+    """Exclusive host time of the follower's stages (a stage's time less the
+    stages it calls): the drains' prebatch (sign bytes, ``bv.add``, the
+    cache filter, the merge) and the backend call apart, ``_try_add_vote``
+    (the vote sets, the state transitions), the proposal check
+    (``_set_proposal``: its scalar signature check), the block parts
+    (``_add_proposal_block_part``: proofs, ``Block.decode``),
+    ``validate_block``, ``_finalize_commit`` with ``save_block`` and
+    ``apply_block`` apart, and the WAL's writes. Installed on the port's
+    classes for one run (``with``); ``take()`` returns and clears the sums."""
+
+    def __init__(self, recorder):
+        self.recorder = recorder
+        self.ms: dict = collections.defaultdict(float)
+        self.n: collections.Counter = collections.Counter()
+        self._local = threading.local()
+        self._saved: list = []
+
+    def _wrap(self, owner, name, stage):
+        orig = getattr(owner, name)
+        st = self
+
+        def wrapper(*args, **kwargs):
+            stack = st._local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                spent = (time.perf_counter() - t0) * 1e3
+                inner = stack.pop()
+                st.ms[stage] += spent - inner
+                st.n[stage] += 1
+                if stack:
+                    stack[-1] += spent
+
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, wrapper)
+
+    def __enter__(self):
+        from cometbft_tpu_torch.consensus.state import ConsensusState
+        from cometbft_tpu_torch.consensus.wal import WAL
+        from cometbft_tpu_torch.state import BlockExecutor
+        from cometbft_tpu_torch.store import BlockStore
+
+        self._wrap(self.recorder, "batch_verify", "backend_call")
+        self._wrap(ConsensusState, "_prebatch_vote_signatures", "prebatch_host")
+        self._wrap(ConsensusState, "_try_add_vote", "add_vote")
+        self._wrap(ConsensusState, "_set_proposal", "proposal_check")
+        self._wrap(ConsensusState, "_add_proposal_block_part", "block_parts")
+        self._wrap(BlockExecutor, "validate_block", "validate_block")
+        self._wrap(ConsensusState, "_finalize_commit", "finalize_commit")
+        self._wrap(BlockStore, "save_block", "save_block")
+        self._wrap(BlockExecutor, "apply_block", "apply_block")
+        self._wrap(WAL, "write", "wal_write")
+        self._wrap(WAL, "write_sync", "wal_write_sync")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved.clear()
+
+    def take(self) -> dict:
+        out = {k: {"ms": self.ms[k], "calls": self.n[k]} for k in sorted(self.ms)}
+        self.ms.clear()
+        self.n.clear()
+        return out
+
+
+def cons_follow(fx, gen, backend, recorder=None, stages=None, corrupt=None) -> dict:
+    """Path (b) once: a fresh node from the source's genesis (the port's
+    PersistentKVStoreApplication, CListMempool, stores and BlockExecutor,
+    an ``EventBus``, a real ``WAL`` in a temporary directory, no priv
+    validator; timeouts of 600 s and a long commit dwell with
+    ``skip_timeout_commit``, so the node waits for every precommit and never
+    prevotes nil) is started (``start()``) under ``set_backend(backend)``
+    with an empty verified-triple cache; each height's proposal, parts,
+    prevotes and precommits go in through ``send_peer_message``. The ms of a
+    height run from the proposal's enqueue to the commit (the node at the
+    next height); the next height is fed once every precommit is in (the
+    node entered its next round). Gates at every height: the stored block,
+    the state (app hash included) equal the source's; the seen commit is the
+    source's at every signature it holds, over 2/3 of the power. With
+    ``corrupt`` = (height, index), that prevote carries a flipped signature
+    bit and must not enter the vote set."""
+    import tempfile
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.config import ConsensusConfig
+    from cometbft_tpu_torch.consensus.cstypes import STEP_PROPOSE
+    from cometbft_tpu_torch.consensus.messages import (BlockPartMessage, ProposalMessage,
+                                                       VoteMessage)
+    from cometbft_tpu_torch.consensus.state import ConsensusState
+    from cometbft_tpu_torch.consensus.wal import WAL, EndHeightMessage, read_messages
+    from cometbft_tpu_torch.crypto import ed25519, sigbatch
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.state import store as state_store
+    from cometbft_tpu_torch.types.events import EventBus
+
+    ed25519._verified.clear()
+    sigbatch.reset()
+    node = bsync_node(gen)
+    bus = EventBus()
+    bus.start()
+    node["executor"].event_bus = bus
+    cfg = ConsensusConfig(timeout_propose=600.0, timeout_prevote=600.0, timeout_precommit=600.0,
+                          timeout_commit=600.0, skip_timeout_commit=True)
+    out = {"ms": [], "full_ms": [], "prebatched": collections.Counter(), "stages": [],
+           "corrupt": None}
+    with tempfile.TemporaryDirectory() as wal_dir:
+        wal = WAL(os.path.join(wal_dir, "cs.wal", "wal"))
+        cs = ConsensusState(cfg, node["state"], node["executor"], node["block_store"],
+                            node["mempool"], event_bus=bus, wal=wal, name="follower")
+        if recorder is not None:
+            recorder.at = lambda: cs.rs.height
+        orig_prebatch = cs._prebatch_vote_signatures
+
+        def prebatch(items):  # counts the votes each drain prebatches, by height
+            out["prebatched"][cs.rs.height] += sum(
+                1 for k, p, _ in items if k == "peer" and isinstance(p, VoteMessage))
+            return orig_prebatch(items)
+
+        cs._prebatch_vote_signatures = prebatch
+        be.set_backend(backend)
+        try:
+            cs.start()
+            for hx in fx:
+                h = hx["height"]
+                prevotes = hx["prevotes"]
+                if corrupt is not None and corrupt[0] == h:
+                    v = prevotes[corrupt[1]]
+                    prevotes = list(prevotes)
+                    prevotes[corrupt[1]] = replace(v, signature=flip_bit(v.signature))
+                check(cs.rs.height == h, f"follower at height {cs.rs.height}, feeding {h}")
+                hvs = cs.rs.votes
+                t0 = time.perf_counter()
+                cs.send_peer_message(ProposalMessage(hx["proposal"]), "peer0")
+                for part in hx["parts"]:
+                    cs.send_peer_message(BlockPartMessage(h, 0, part), "peer0")
+                for i, v in enumerate(prevotes):
+                    cs.send_peer_message(VoteMessage(v), f"peer{i % CONS_PEERS}")
+                for i, v in enumerate(hx["precommits"]):
+                    cs.send_peer_message(VoteMessage(v), f"peer{i % CONS_PEERS}")
+                check(cs.wait_for_height(h + 1, timeout=600),
+                      f"follower did not commit height {h}: {cs.rs.height}/{cs.rs.round}/"
+                      f"{cs.rs.step}; consensus failures {cs.consensus_failures} "
+                      f"({cs.last_consensus_failure!r})")
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                deadline = time.monotonic() + 600
+                while not (cs.rs.height == h + 1 and cs.rs.step >= STEP_PROPOSE):
+                    check(time.monotonic() < deadline, f"height {h}: precommits not all in")
+                    time.sleep(0.002)
+                out["full_ms"].append((time.perf_counter() - t0) * 1e3)
+                if stages is not None:
+                    out["stages"].append(stages.take())
+                bs = node["block_store"]
+                check(bs.load_block(h).encode() == hx["block"], f"follower's block {h} differs")
+                check(state_store._encode_state(cs.state) == hx["state"],
+                      f"follower's state after height {h} differs from the source's")
+                seen, src = bs.load_seen_commit(h), hx["seen"]
+                held = [i for i, s in enumerate(seen.signatures) if not s.is_absent()]
+                check(seen.block_id == src.block_id and seen.height == h
+                      and all(seen.signatures[i] == src.signatures[i] for i in held)
+                      and 3 * len(held) > 2 * len(src.signatures),
+                      f"follower's seen commit {h}: {len(held)} signatures, not the source's")
+                if corrupt is not None and corrupt[0] == h:
+                    bad = prevotes[corrupt[1]]
+                    pv = hvs.prevotes(0)
+                    bad_key = None
+                    for k in cs._failed_triples:
+                        if k[32:96] == bad.signature:
+                            bad_key = k
+                    check(pv.get_by_index(corrupt[1]) is None and bad_key is not None
+                          and len(pv.list_votes()) == len(prevotes) - 1,
+                          f"the corrupted prevote: in the vote set "
+                          f"{pv.get_by_index(corrupt[1]) is not None}, in the failed memo "
+                          f"{bad_key is not None}, {len(pv.list_votes())} prevotes held")
+                    out["corrupt"] = {"height": h, "index": corrupt[1], "in_vote_set": False,
+                                      "in_failed_memo": True}
+        finally:
+            cs.stop()
+            bus.stop()
+            be.set_backend(None)
+        errs = {"prebatch_errors": cs.prebatch_errors, "consensus_failures": cs.consensus_failures,
+                "wal_catchup_errors": cs.wal_catchup_errors,
+                "sigbatch_fallbacks": sigbatch.counters()["fallbacks"]}
+        check(all(v == 0 for v in errs.values()),
+              f"follower error counters {errs}; last prebatch error {cs.last_prebatch_error!r}, "
+              f"last failure {cs.last_consensus_failure!r}")
+        out["errors"] = errs
+        if stages is not None:
+            ends = [tm.msg.height for tm in read_messages(wal.path)
+                    if isinstance(tm.msg, EndHeightMessage)]
+            check(ends == list(range(CONS_HEIGHTS + 1)), f"the WAL's end heights {ends}")
+            out["wal_end_heights"] = ends
+    out["app_hash"] = cs.state.app_hash.hex()
+    return out
+
+
+def cons_follow_path(sources, fixtures, torch_backend, auto) -> dict:
+    """Path (b): the fixtures, the counted run (TorchBackend behind a
+    ConsRecorder, the stages timed, one prevote corrupted), then CONS_TIMED
+    unstaged runs under ``TorchBackend()`` and the process default in turns;
+    ``consensus_10k_ms_per_height`` is the median of heights 2..CONS_HEIGHTS."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.ops import _build
+
+    source = sources["10k"]
+    t0 = time.perf_counter()
+    fx = cons_follow_fixtures(source, fixtures)
+    fixtures_s = time.perf_counter() - t0
+    print(f"consensus fixtures: {CONS_HEIGHTS} heights of the {source['n_vals']}-validator "
+          f"source, {sum(len(hx['prevotes']) for hx in fx)} prevotes and {CONS_HEIGHTS} "
+          f"proposals signed, {sum(len(hx['parts']) for hx in fx)} parts, built in "
+          f"{fixtures_s:.1f} s", flush=True)
+    fallbacks = ed25519.scalar_fallbacks
+    rec = ConsRecorder(torch_backend, lambda: 0)
+    before = dict(_build.LAUNCHES)
+    with ConsStages(rec) as stages:
+        counted = cons_follow(fx, source["gen"], rec, rec, stages, corrupt=CONS_BAD)
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    calls = len(rec.calls)
+    check(launched == {"ladder": calls, "decompress": calls, "sha512": calls, "sha256": 0,
+                       "bn254": 0},
+          f"follower launches {launched}: expected one sha512 / decompress / ladder set a card "
+          f"call ({calls})")
+    per = rec.by_height()
+    for h, n in counted["prebatched"].items():
+        check(per.get(h, {}).get("lanes", 0) >= n,
+              f"height {h}: {per.get(h)} card lanes for {n} prebatched votes")
+    check(sum(bad for *_, bad, _ in rec.calls) >= 1, "the corrupted prevote was not refused")
+    runs = {"torch": [], "auto": []}
+    for rep in range(CONS_TIMED):
+        tiers = [("torch", torch_backend), ("auto", auto)]
+        for tier, backend in tiers if rep % 2 == 0 else tiers[::-1]:
+            runs[tier].append(cons_follow(fx, source["gen"], backend)["ms"])
+    check(ed25519.scalar_fallbacks == fallbacks, "a follower check took the ChainExhausted fallback")
+    med = {tier: statistics.median(ms for r in rs for ms in r[1:]) for tier, rs in runs.items()}
+    return {"fixtures_s": fixtures_s, "ms_per_height": med, "runs_ms": runs,
+            "counted_ms": counted["ms"], "counted_full_ms": counted["full_ms"],
+            "stages_by_height": counted["stages"],
+            "card_by_height": {int(h): v for h, v in sorted(per.items())},
+            "prebatched_by_height": dict(counted["prebatched"]), "corrupt": counted["corrupt"],
+            "errors": counted["errors"], "wal_end_heights": counted["wal_end_heights"],
+            "launches": launched, "largest": rec.largest, "smallest": rec.smallest,
+            "app_hash": counted["app_hash"]}
+
+
+def drive_consensus_path(fixtures, sources, torch_backend, dev) -> dict:
+    """The consensus phase (module docstring, step 18): paths (a) and (b),
+    the launch counts of the whole drive, the kernels at the path's batches."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+        auto = be._make_backend()
+    try:
+        _build.reset_launches()
+        sim = cons_simnet(torch_backend, auto)
+        follow = cons_follow_path(sources, fixtures, torch_backend, auto)
+        launches = dict(_build.LAUNCHES)
+    finally:
+        auto.close()
+    check(all(launches[k] > 0 for k in ("sha512", "decompress", "ladder")),
+          f"consensus path launches {launches}")
+    batches = {}
+    for label, trip in (("follow_largest", follow.pop("largest")),
+                        ("follow_smallest", follow.pop("smallest")),
+                        ("simnet_largest", sim.pop("largest")),
+                        ("flood_largest", sim.pop("flood_largest"))):
+        batches[f"{label}_{len(trip[0])}"] = corrupt_four(*trip)
+    kernels = bsync_window_kernels(batches, dev)
+    return {"launches": launches, "simnet": sim, "follow": follow, "kernels": kernels}
+
+
+def consensus_phase(fixtures, sources, backend, dev, card, records) -> dict:
+    """Runs the consensus path (step 18), prints its metrics and gates,
+    merges its kernel comparisons into ``records``; returns its launches."""
+    start = time.perf_counter()
+    out = drive_consensus_path(fixtures, sources, backend, dev)
+    for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in out["kernels"].values()])
+    sim, fol = out["simnet"], out["follow"]
+    print(f"consensus path ok (the {CONS_SIM['validators']}-validator simnet committed "
+          f"{CONS_SIM['blocks']} blocks under TorchBackend and the default, the same blocks, "
+          f"card lanes at every height; the flood refused on the card, none admitted; the "
+          f"follower committed the {N_SIGS}-validator source's heights 1-{CONS_HEIGHTS}, its "
+          f"corrupted prevote refused); launches {out['launches']}", flush=True)
+    common = {"device": torch.cuda.get_device_name(0), "card": card}
+    print(json.dumps({"metric": "simnet_150_ms_per_height",
+                      "value": sim["summary"]["torch"]["ms_per_height"],
+                      "validators": CONS_SIM["validators"], "blocks": CONS_SIM["blocks"],
+                      "by_backend": {t: s["ms_per_height"] for t, s in sim["summary"].items()},
+                      "runs": sim["summary"], "flood": sim["flood"], **common}), flush=True)
+    print(json.dumps({"metric": "consensus_10k_ms_per_height", "value": fol["ms_per_height"]["torch"],
+                      "validators": N_SIGS, "heights": CONS_HEIGHTS,
+                      "by_backend": fol["ms_per_height"], "runs_ms": fol["runs_ms"],
+                      "counted_ms": fol["counted_ms"], **common}), flush=True)
+    print(json.dumps({"consensus_stages_10k": fol["stages_by_height"],
+                      "card_by_height": fol["card_by_height"],
+                      "prebatched_by_height": fol["prebatched_by_height"], **common}), flush=True)
+    print(json.dumps({"consensus": {"follow": {k: v for k, v in fol.items() if k not in (
+        "stages_by_height", "runs_ms")}, "kernels": out["kernels"], "launches": out["launches"]},
+        "phase_s": time.perf_counter() - start, **common}), flush=True)
+    return out["launches"]
+
+
+def consensus_only(card, dev) -> int:
+    """``--consensus``: the fixtures, the 10,240-validator blocksync source
+    and the consensus phase alone (a quick check of that phase on the card;
+    no result line)."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    backend = TorchBackend()
+    _, seeds, pubs, *_ = fixtures
+    t0 = time.perf_counter()
+    be.set_backend(backend)
+    try:
+        with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
+            big = bsync_source(seeds, pubs, BSYNC_HEIGHTS, BSYNC_TXS, pool)
+    finally:
+        be.set_backend(None)
+    print(f"blocksync source: {N_SIGS} validators x {BSYNC_HEIGHTS} heights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
+    launches = consensus_phase(fixtures, {"10k": big}, backend, dev, card, records)
+    print(json.dumps({"consensus_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
 N_SHARDS = 2
 
 
@@ -4202,6 +4949,8 @@ def main() -> int:
             print(f"  {line.strip()}")
     if sys.argv[1:] == ["--light"]:
         return light_only(card, dev)
+    if sys.argv[1:] == ["--consensus"]:
+        return consensus_only(card, dev)
     procs: list = []  # every process the phases start, ended here
     try:
         return run_phases(card, dev, props, clock_hz, so, procs)
@@ -4213,7 +4962,7 @@ def main() -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-18 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-20 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -4442,6 +5191,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                       "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
 
     by_path["light"] = light_phase(fixtures, sources, backend, dev, card, records)
+    by_path["consensus"] = consensus_phase(fixtures, sources, backend, dev, card, records)
 
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(

@@ -1,10 +1,11 @@
 """Node configuration (config/config.go), the port's copy of what the ported
-modules read of ``cometbft_tpu/config/config.py``: ``MempoolConfig``, its
-fields and defaults. The other sections wait for the node."""
+modules read of ``cometbft_tpu/config/config.py``: ``MempoolConfig`` and
+``ConsensusConfig``, their fields and defaults, a ``Config`` of those two
+sections and ``test_config``. The other sections wait for the node."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dfield
 
 
 @dataclass
@@ -27,3 +28,69 @@ class MempoolConfig:
     ingress_sender_rps: float = 0.0  # 0 = per-sender rate limit off
     ingress_queue_max: int = 2048
     ingress_window_ms: float = 2.0
+
+
+@dataclass
+class ConsensusConfig:
+    """config/config.go:925-1080: the consensus timeouts (seconds) and the
+    fields the state machine reads; the WAL's path and the reactor's gossip
+    sleeps wait for the node and p2p slices."""
+
+    timeout_propose: float = 3.0
+    timeout_propose_delta: float = 0.5
+    timeout_prevote: float = 1.0
+    timeout_prevote_delta: float = 0.5
+    timeout_precommit: float = 1.0
+    timeout_precommit_delta: float = 0.5
+    timeout_commit: float = 1.0
+    skip_timeout_commit: bool = False
+    create_empty_blocks: bool = True
+    create_empty_blocks_interval: float = 0.0
+    # Stall watchdog: if no round-step progress for this many multiples of
+    # the current round's full escalated timeout budget, re-announce our
+    # round step and re-arm the step's timeout (0 disables).
+    # CMTPU_STALL_FACTOR overrides it when the state machine is built.
+    stall_watchdog_factor: float = 10.0
+
+    def propose_timeout(self, round_: int) -> float:
+        return self.timeout_propose + self.timeout_propose_delta * round_
+
+    def prevote_timeout(self, round_: int) -> float:
+        return self.timeout_prevote + self.timeout_prevote_delta * round_
+
+    def precommit_timeout(self, round_: int) -> float:
+        return self.timeout_precommit + self.timeout_precommit_delta * round_
+
+    def round_timeout_budget(self, round_: int) -> float:
+        """Worst-case wall time one full round can legitimately take at this
+        escalation level: the stall watchdog's unit of patience."""
+        return (
+            self.propose_timeout(round_)
+            + self.prevote_timeout(round_)
+            + self.precommit_timeout(round_)
+            + self.timeout_commit
+        )
+
+
+@dataclass
+class Config:
+    """The sections of config/config.go:67-120 that the port reads."""
+
+    mempool: MempoolConfig = dfield(default_factory=MempoolConfig)
+    consensus: ConsensusConfig = dfield(default_factory=ConsensusConfig)
+
+
+def test_config() -> Config:
+    """config/config.go TestConfig: tight timeouts for in-process testing."""
+    c = Config()
+    c.consensus = ConsensusConfig(
+        timeout_propose=0.4,
+        timeout_propose_delta=0.002,
+        timeout_prevote=0.01,
+        timeout_prevote_delta=0.002,
+        timeout_precommit=0.01,
+        timeout_precommit_delta=0.002,
+        timeout_commit=0.01,
+        skip_timeout_commit=True,
+    )
+    return c

@@ -33,6 +33,15 @@ values), ``evidence_from_wire`` an evidence's ``Evidence`` oneof bytes
 ``mmr_from_state_file`` / ``mmr_to_state_file`` read and write the MMR
 state file the gateway and the bundle origin share, byte-identical in both
 packages.
+
+Consensus carries wire bytes and files: ``proposal_from_wire`` takes a
+proposal's proto bytes (``Proposal.encode()``), ``vote_set_from_reference``
+builds a port ``VoteSet`` by replaying a reference vote set's votes (their
+``Vote.encode()`` bytes, in the order they were added) over the same
+validators, ``file_pv_from_state_files`` loads a ``FilePV`` from the
+reference's key and last-sign-state JSON files, and
+``wal_messages_from_file`` reads a consensus WAL the reference wrote (the
+frames are the same bytes in both packages).
 """
 
 from __future__ import annotations
@@ -209,3 +218,50 @@ def mmr_to_state_file(mmr, path: str) -> None:
     from cometbft_tpu_torch.light.mmr import save_state
 
     save_state(mmr, path)
+
+
+def proposal_from_wire(encoded: bytes):
+    """A proposal from its proto bytes (``Proposal.encode()``)."""
+    from cometbft_tpu_torch.types.proposal import Proposal
+
+    return Proposal.decode(encoded)
+
+
+def vote_set_from_reference(chain_id: str, height: int, round_: int, signed_msg_type: int,
+                            validators, votes, peer_maj23s=None):
+    """A port ``VoteSet`` over ``validators`` ((public-key proto bytes,
+    power) pairs, as ``validator_set_from_wire`` takes them), built by
+    replaying a reference vote set: first its peers' +2/3 claims
+    (``peer_maj23s``: peer id -> ``BlockID.encode()`` bytes), then its votes
+    (``Vote.encode()`` bytes) in the order they were added. A conflicting
+    vote that the reference kept (its block is claimed by a peer) is kept
+    here too; its ``ErrVoteConflictingVotes`` is the replay's, not an
+    error."""
+    from cometbft_tpu_torch.types.block import BlockID
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.types.vote_set import ErrVoteConflictingVotes, VoteSet
+
+    vs = VoteSet(chain_id, height, round_, signed_msg_type, validator_set_from_wire(validators))
+    for peer, bid in (peer_maj23s or {}).items():
+        vs.set_peer_maj23(peer, BlockID.decode(bid))
+    for raw in votes:
+        try:
+            vs.add_vote(Vote.decode(raw))
+        except ErrVoteConflictingVotes:
+            pass
+    return vs
+
+
+def file_pv_from_state_files(key_path: str, state_path: str):
+    """The ``FilePV`` the reference's key file and last-sign-state file
+    describe (its JSON layout); the port writes the same bytes back."""
+    from cometbft_tpu_torch.privval.file import FilePV
+
+    return FilePV.load(key_path, state_path)
+
+
+def wal_messages_from_file(path: str) -> list:
+    """The ``TimedWALMessage``s of the consensus WAL at ``path``, in order."""
+    from cometbft_tpu_torch.consensus.wal import read_messages
+
+    return read_messages(path)

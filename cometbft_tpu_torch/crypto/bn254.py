@@ -17,7 +17,8 @@ the port's ``bn254_pure``:
   ``get_bn254_backend``, the process singleton over it;
 - the key type of the crypto registry (``crypto/batch.py``): ``PubKey``
   (a compressed G1 point; ``verify_signature`` is the scalar pairing
-  check), ``BatchVerifier`` over ``get_bn254_backend()`` with its own
+  check), ``PrivKey`` and ``gen_priv_key`` (a ``FilePV``'s key),
+  ``BatchVerifier`` over ``get_bn254_backend()`` with its own
   verified-triple cache, and ``aggregate_signatures`` /
   ``aggregate_signatures_compressed``, the G2 sum an aggregate commit
   carries (``types/block.aggregate_commit``).
@@ -40,6 +41,8 @@ from cometbft_tpu_torch.crypto.merkle import hash_from_byte_slices
 KEY_TYPE = "bn254"
 PUB_KEY_SIZE = 32
 SIGNATURE_SIZE = _b.SIGNATURE_SIZE
+PRIV_KEY_SIZE = 64  # fr scalar (32) || compressed pubkey (32)
+PRIV_KEY_NAME = "tendermint/PrivKeyBn254"
 PUB_KEY_NAME = "tendermint/PubKeyBn254"
 
 
@@ -239,6 +242,39 @@ class PubKey(crypto.PubKey):
 
     def type(self) -> str:
         return KEY_TYPE
+
+
+class PrivKey:
+    """A BN254 secret scalar with its compressed public key; ``sign`` is
+    [sk]H(m) on G2, uncompressed (bn254.go:46-53)."""
+
+    def __init__(self, data: bytes):
+        if len(data) not in (32, PRIV_KEY_SIZE):
+            raise ValueError("bn254 privkey must be 32 or 64 bytes")
+        self._scalar_bytes = bytes(data[:32])
+        self._scalar = int.from_bytes(self._scalar_bytes, "big") % _b.R
+        if self._scalar == 0:
+            raise ValueError("invalid bn254 scalar")
+        self._pub = PubKey(_b.public_key(self._scalar))
+
+    def bytes(self) -> bytes:
+        return self._scalar_bytes + self._pub.bytes()
+
+    def sign(self, msg: bytes) -> bytes:
+        return _b.sign(self._scalar, bytes(msg))
+
+    def pub_key(self) -> PubKey:
+        return self._pub
+
+    def type(self) -> str:
+        return KEY_TYPE
+
+
+def gen_priv_key() -> PrivKey:
+    while True:
+        raw = os.urandom(32)
+        if int.from_bytes(raw, "big") % _b.R != 0:
+            return PrivKey(raw)
 
 
 def _g2_sum(sigs):

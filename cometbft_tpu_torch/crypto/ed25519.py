@@ -23,6 +23,7 @@ KEY_TYPE = "ed25519"
 PUB_KEY_SIZE = 32
 SIGNATURE_SIZE = 64
 
+PRIV_KEY_NAME = "tendermint/PrivKeyEd25519"
 PUB_KEY_NAME = "tendermint/PubKeyEd25519"
 
 
@@ -133,6 +134,13 @@ def _verified_put_many(keys: list[tuple]) -> None:
 
 def _verified_put(key: tuple) -> None:
     _verified_put_many([key])
+
+
+def mark_self_signed(pub: bytes, msg: bytes, sig: bytes) -> None:
+    """Put a signature this process just made with its own key into the
+    verified cache: signing is deterministic, so checking an own vote again
+    on admission would only cost time (a pure ZIP-215 check here)."""
+    _verified_put((bytes(pub), bytes(sig), bytes(msg)))
 
 
 class BatchVerifier(crypto.BatchVerifier):

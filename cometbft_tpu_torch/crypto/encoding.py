@@ -22,7 +22,7 @@ _NOT_PORTED_NAMES = {
 }
 
 
-def _not_ported(key_type: str) -> ValueError:
+def not_ported(key_type: str) -> ValueError:
     return ValueError(f"key type {key_type} is not ported to cometbft_tpu_torch yet")
 
 
@@ -47,7 +47,7 @@ def pub_key_from_proto(data: bytes) -> crypto.PubKey:
             )
         return ed25519.PubKey(raw)
     if 2 in fields:
-        raise _not_ported(_NOT_PORTED[2])
+        raise not_ported(_NOT_PORTED[2])
     if 3 in fields:
         raw = fields[3][-1]
         if len(raw) != bn254.PUB_KEY_SIZE:
@@ -57,7 +57,7 @@ def pub_key_from_proto(data: bytes) -> crypto.PubKey:
             )
         return bn254.PubKey(raw)
     if 4 in fields:
-        raise _not_ported(_NOT_PORTED[4])
+        raise not_ported(_NOT_PORTED[4])
     raise ValueError("fromproto: key type is not supported")
 
 
@@ -73,7 +73,7 @@ _KEY_TYPE_TO_CLASS = {
 def pub_key_from_type_and_bytes(key_type: str, raw: bytes) -> crypto.PubKey:
     """A public key from its registered type name and bytes."""
     if key_type in _NOT_PORTED_NAMES:
-        raise _not_ported(_NOT_PORTED_NAMES[key_type])
+        raise not_ported(_NOT_PORTED_NAMES[key_type])
     if key_type not in _KEY_TYPE_TO_CLASS:
         raise ValueError(f"unsupported key type {key_type}")
     cls, size = _KEY_TYPE_TO_CLASS[key_type]

@@ -134,6 +134,10 @@ CARD_ROOT_MS = 0.22
 CARD_LEAVES_PER_MS = 12_100.0
 HOST_LEAVES_PER_MS = 2_250.0
 
+# Calls ``HybridBackend.warmup`` times at each bucket on the card, and at
+# the smallest on the native MSM; the least is the wall, or the host's rate.
+WARM_TIMINGS = 3
+
 
 class HybridBackend(VerifyBackend):
     """The card and the host working one batch at once.
@@ -419,27 +423,47 @@ class HybridBackend(VerifyBackend):
 
     def warmup(self, buckets=None, merkle_leaves=None) -> None:
         """Build the native library (raises if gcc fails), warm the card
-        (``TorchBackend.warmup``), then time one all-device call at each
-        bucket (``ed25519_kernel.WARM_BUCKETS`` by default) as the model's
-        wall there. ``_plan`` prices a bucket it has seen by its wall and
-        one it has not from the walls around it; with one commit's wall
-        alone it extrapolates down by the learned rate, which prices a
+        (``TorchBackend.warmup``), then time all-device calls at each
+        bucket (``ed25519_kernel.WARM_BUCKETS`` by default), the least of
+        ``WARM_TIMINGS``, as the model's wall there, and the native MSM at
+        the smallest bucket's size, the least of ``WARM_TIMINGS``, as the
+        host's rate. Both sides of a small batch's plan are then measured on
+        this host: a seeded host rate against a measured wall would tie the
+        split to the host the seed came from (a slower host packs slower,
+        and its MSM is slower too), and one slow sample would price a bucket
+        high for good, since a wall is learned again only from calls that
+        give the card a share. ``_plan`` prices a bucket it has seen by its
+        wall and one it has not from the walls around it; with one commit's
+        wall alone it extrapolates down by the learned rate, which prices a
         small batch far above the card's fixed cost. Last, it times one root
         each way at each of ``merkle_leaves`` (``ed25519_kernel.WARM_LEAVES``
-        by default) as the root cost model (``_time_roots``)."""
+        by default) as the root cost model (``_time_roots``). The batches
+        are all zero bytes: small-order A and R that every check accepts,
+        at a valid batch's cost."""
         self._native.load()
         self._torch.warmup(buckets, merkle_leaves)
         msg = b"\x00" * 120  # two SHA-512 blocks, as a vote
-        for b in buckets or self._ek.WARM_BUCKETS:
-            b = self._ek.bucket_for(b, self._n_dev)
-            t0 = time.perf_counter()
-            collect = self._ek.batch_verify_submit(
-                [b"\x00" * 32] * b, [msg] * b, [b"\x00" * 64] * b, device=self.device)
-            collect()
-            wall = (time.perf_counter() - t0) * 1000
+        sizes = sorted({self._ek.bucket_for(b, self._n_dev)
+                        for b in buckets or self._ek.WARM_BUCKETS})
+        for b in sizes:
+            wall = float("inf")
+            for _ in range(WARM_TIMINGS):
+                t0 = time.perf_counter()
+                collect = self._ek.batch_verify_submit(
+                    [b"\x00" * 32] * b, [msg] * b, [b"\x00" * 64] * b, device=self.device)
+                collect()
+                wall = min(wall, (time.perf_counter() - t0) * 1000)
             with self._rate_lock:
                 self._dev_wall[(collect.program_key[0], self._n_dev)] = wall
                 self._warmed.add((*collect.program_key, self._n_dev))
+        b = sizes[0]
+        host = float("inf")
+        for _ in range(WARM_TIMINGS):
+            t0 = time.perf_counter()
+            self._native.batch_verify([b"\x00" * 32] * b, [msg] * b, [b"\x00" * 64] * b)
+            host = min(host, (time.perf_counter() - t0) * 1000)
+        with self._rate_lock:
+            self._host_rate = min(max(b / max(host, 1e-3), 5.0), 5000.0)
         self._time_roots(merkle_leaves or self._ek.WARM_LEAVES)
 
     def _time_roots(self, counts) -> None:

@@ -3,12 +3,13 @@
 
 ApplyBlock = validate → BeginBlock/DeliverTx*/EndBlock over the consensus
 ABCI connection → save responses → update state (validator/param updates
-with the +1 delay) → app Commit under mempool lock
+with the +1 delay) → app Commit under mempool lock → prune → fire events
 (state/execution.go:194-280).
 
-The event bus is not ported: ``BlockExecutor`` takes ``event_bus=None``
-only, as blocksync's callers pass it, and fires no events. The evidence
-pool is duck-typed and may be None.
+The event bus (``types/events.EventBus``) may be None, as blocksync's
+callers pass it; with one, ``apply_block`` publishes NewBlock,
+NewBlockHeader, one Tx event a transaction and ValidatorSetUpdates, as the
+reference does. The evidence pool is duck-typed and may be None.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from cometbft_tpu_torch.abci import types as abci
 from cometbft_tpu_torch.libs import fail
 from cometbft_tpu_torch.state.state import State
 from cometbft_tpu_torch.state.validation import validate_block
+from cometbft_tpu_torch.types import events as ev
 from cometbft_tpu_torch.types.block import Block, BlockID, Commit
 from cometbft_tpu_torch.types.results import results_hash
 from cometbft_tpu_torch.types.validator import Validator
@@ -37,8 +39,6 @@ class BlockExecutor:
         event_bus=None,
         logger=None,
     ):
-        if event_bus is not None:
-            raise ValueError("the event bus is not ported: pass event_bus=None")
         self.state_store = state_store
         self.proxy_app = app_conn_consensus
         self.mempool = mempool
@@ -129,6 +129,7 @@ class BlockExecutor:
         # Evidence pool update (prune committed/expired evidence).
         if self.evpool:
             self.evpool.update(new_state, block.evidence)
+        self._fire_events(block, block_id, abci_responses, validator_updates)
         return new_state, retain_height
 
     def _commit(self, state: State, block: Block, abci_responses) -> tuple[bytes, int]:
@@ -178,6 +179,43 @@ class BlockExecutor:
         if commit is None or state.last_block_height == 0:
             return abci.CommitInfo()
         return build_last_commit_info(commit, state.last_validators)
+
+    def _fire_events(self, block, block_id, abci_responses, validator_updates) -> None:
+        """state/execution.go fireEvents: NewBlock, NewBlockHeader, per-Tx,
+        ValidatorSetUpdates."""
+        if self.event_bus is None:
+            return
+        begin = abci_responses["begin_block"]
+        end = abci_responses["end_block"]
+        self.event_bus.publish_new_block(
+            ev.EventDataNewBlock(
+                block=block,
+                block_id=block_id,
+                result_begin_block=begin,
+                result_end_block=end,
+            ),
+            events=list(begin.events) + list(end.events),
+        )
+        self.event_bus.publish_new_block_header(
+            ev.EventDataNewBlockHeader(
+                header=block.header,
+                num_txs=len(block.data.txs),
+                result_begin_block=begin,
+                result_end_block=end,
+            )
+        )
+        for i, tx in enumerate(block.data.txs):
+            res = abci_responses["deliver_txs"][i]
+            self.event_bus.publish_tx(
+                ev.EventDataTx(
+                    height=block.header.height, tx=tx, index=i, result=res
+                ),
+                events=res.events,
+            )
+        if validator_updates:
+            self.event_bus.publish_validator_set_updates(
+                ev.EventDataValidatorSetUpdates(validator_updates=validator_updates)
+            )
 
 
 def build_last_commit_info(commit: Commit | None, vals) -> abci.CommitInfo:

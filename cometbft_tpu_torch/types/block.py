@@ -277,6 +277,12 @@ class CommitSig:
     def for_block_flag(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
 
+    def block_id(self, commit_block_id: BlockID) -> BlockID:
+        """The BlockID this sig endorses (types/block.go:680-695)."""
+        if self.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+            return commit_block_id
+        return BlockID()
+
     def encode(self) -> bytes:
         out = wire.field_varint(1, self.block_id_flag)
         out += wire.field_bytes(2, self.validator_address)

@@ -11,7 +11,7 @@ length-delimited (protoio MarshalDelimited — types/vote.go VoteSignBytes).
 
 from __future__ import annotations
 
-from cometbft_tpu_torch.types.block import PROPOSAL_TYPE, BlockID
+from cometbft_tpu_torch.types.block import PROPOSAL_TYPE, BlockID, PartSetHeader
 from cometbft_tpu_torch.types.cmttime import Time
 from cometbft_tpu_torch.wire import proto as wire
 
@@ -46,6 +46,35 @@ def vote_sign_bytes_from_parts(
     out += wire.field_message(5, timestamp.encode(), emit_empty=True)
     out += wire.field_string(6, chain_id)
     return wire.length_delimited(out)
+
+
+def decode_canonical_vote(
+    sign_bytes: bytes,
+) -> tuple[int, int, int, BlockID, Time]:
+    """Inverse of vote_sign_bytes_from_parts: (type, height, round, block_id,
+    timestamp). The privval keeps only the sign bytes and signature of its
+    last vote; crash recovery decodes them back into a Vote when the WAL
+    lost the original (the privval syncs before the WAL does)."""
+    n, pos = wire.decode_uvarint(sign_bytes, 0)
+    body = sign_bytes[pos : pos + n]
+    if len(body) != n:
+        raise ValueError("truncated canonical vote")
+    fields = wire.decode_fields(body)
+    msg_type = wire.get_varint(fields, 1)
+    height = wire.get_sfixed64(fields, 2)
+    round_ = wire.get_sfixed64(fields, 3)
+    block_id = BlockID()
+    cbid = wire.get_bytes(fields, 4)
+    if cbid:
+        cf = wire.decode_fields(cbid)
+        psh = PartSetHeader()
+        psh_raw = wire.get_bytes(cf, 2)
+        if psh_raw:
+            pf = wire.decode_fields(psh_raw)
+            psh = PartSetHeader(wire.get_varint(pf, 1), wire.get_bytes(pf, 2))
+        block_id = BlockID(wire.get_bytes(cf, 1), psh)
+    timestamp = Time.decode(wire.get_bytes(fields, 5))
+    return msg_type, height, round_, block_id, timestamp
 
 
 def proposal_sign_bytes_from_parts(

@@ -65,6 +65,13 @@ def encode_varint_signed(n: int) -> bytes:
     return encode_uvarint(n)
 
 
+def decode_varint_signed(buf: bytes, pos: int = 0) -> tuple[int, int]:
+    v, pos = decode_uvarint(buf, pos)
+    if v >= 1 << 63:
+        v -= 1 << 64
+    return v, pos
+
+
 def tag(field_num: int, wire_type: int) -> bytes:
     return encode_uvarint((field_num << 3) | wire_type)
 
@@ -195,6 +202,16 @@ def get_string(fields: dict, num: int, default: str = "") -> str:
         return v.decode("utf-8")
     except UnicodeDecodeError:
         raise ValueError(f"field {num}: invalid utf-8 string") from None
+
+
+def get_sfixed64(fields: dict, num: int, default: int = 0) -> int:
+    vals = fields.get(num)
+    if not vals:
+        return default
+    v = vals[-1]
+    if not isinstance(v, bytes) or len(v) != 8:
+        raise ValueError(f"field {num}: expected fixed64")
+    return struct.unpack("<q", v)[0]
 
 
 def get_repeated_bytes(fields: dict, num: int) -> list[bytes]:

@@ -204,5 +204,12 @@ def test_persistent_kvstore_validator_txs():
 
 
 def test_executor_refuses_an_event_bus():
-    with pytest.raises(ValueError, match="event bus is not ported"):
-        BlockExecutor(None, None, None, None, event_bus=object())
+    """The executor refused an event bus while the bus was not ported; it
+    now keeps the bus it is given (``tests/test_torch_consensus_types.py``
+    holds what it publishes to the reference's), and None still means no
+    events."""
+    from cometbft_tpu_torch.types.events import EventBus
+
+    bus = EventBus()
+    assert BlockExecutor(None, None, None, None, event_bus=bus).event_bus is bus
+    assert BlockExecutor(None, None, None, None).event_bus is None

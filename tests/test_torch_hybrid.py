@@ -188,6 +188,58 @@ def test_warmup_times_the_card_at_each_bucket(monkeypatch):
     assert {(8, 2, 1), (32, 2, 1)} <= hb._warmed
 
 
+def test_warmup_measures_both_sides_of_a_small_plan(monkeypatch):
+    """warmup times WARM_TIMINGS all-device calls at each bucket and keeps
+    the least as its wall, then times the native MSM at the smallest
+    bucket's size and keeps the least as the host's rate. On a slow host
+    (a 128-lane card call of 3.5 ms, its pack included) the seeded host
+    rate would leave 150 signatures all to the host for good; measured, the
+    host is slower too and the card takes the 128 bucket. One slow sample
+    (the first at 128) does not set a wall."""
+    hb = _default_hybrid(monkeypatch)
+    submitted, hosted = [], []
+
+    def submit(pubs, msgs, sigs, device=None):
+        submitted.append(len(pubs))
+
+        def collect():
+            return True, [True] * len(pubs)
+
+        collect.program_key = (len(pubs), 2)
+        return collect
+
+    class Native:
+        @staticmethod
+        def load():
+            pass
+
+        @staticmethod
+        def batch_verify(pubs, msgs, sigs):
+            hosted.append(len(pubs))
+            return True, [True] * len(pubs)
+
+    # Two clock reads a timing: the card at 128 (9.0, 3.5, 4.0 ms) and at
+    # 1024 (6.0, 5.0, 5.5 ms), then the host at 128 (8.0, 6.0, 7.0 ms).
+    ticks = iter([0.0, 0.009, 1.0, 1.0035, 2.0, 2.004, 3.0, 3.006, 4.0, 4.005, 5.0, 5.0055,
+                  6.0, 6.008, 7.0, 7.006, 8.0, 8.007])
+    monkeypatch.setattr(hb._ek, "batch_verify_submit", submit)
+    monkeypatch.setattr(hb._torch, "warmup", lambda *a: None)
+    monkeypatch.setattr(hb, "_time_roots", lambda counts: None)
+    monkeypatch.setattr(hb, "_native", Native)
+    monkeypatch.setattr(be, "time", type("Clock", (), {"perf_counter": staticmethod(
+        lambda: next(ticks))}))
+    hb._dev_wall = {(10240, 1): 24.0}
+    hb.warmup(buckets=(1024, 128))
+    assert be.WARM_TIMINGS == 3
+    assert submitted == [128] * 3 + [1024] * 3 and hosted == [128] * 3
+    assert hb._dev_wall[(128, 1)] == pytest.approx(3.5)
+    assert hb._dev_wall[(1024, 1)] == pytest.approx(5.0)
+    assert hb._host_rate == pytest.approx(128 / 6.0)
+    assert hb._plan(150) == 128
+    hb._host_rate = be.HOST_SIGS_PER_MS
+    assert hb._plan(150) == 0
+
+
 def test_walls_around_a_commit_price_it_with_the_card(monkeypatch):
     """With one commit's wall alone the planner extrapolates down by the
     learned rate and leaves 150 signatures to the host; with the walls a

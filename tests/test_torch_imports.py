@@ -1,7 +1,8 @@
 """Boundaries of the port: it imports neither jax nor the JAX package (the
 native loader, the supervisor, chaos, the fleet tier, the BN254 chain, the
 tooling, the types, commit verification, blocksync, the light client,
-evidence, sigbatch and the RPC codec included), it never falls back to the
+evidence, sigbatch, the RPC codec, consensus, privval and the simnet
+included), it never falls back to the
 CPU when CUDA is asked for (the hybrid tier and the chains neither), and a
 missing CUDA compiler is an error, not a silent switch to the plain
 versions."""
@@ -122,6 +123,24 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.crypto.sigbatch",
         "cometbft_tpu_torch.rpc",
         "cometbft_tpu_torch.rpc.json_codec",
+        "cometbft_tpu_torch.types.proposal",
+        "cometbft_tpu_torch.types.vote_set",
+        "cometbft_tpu_torch.types.events",
+        "cometbft_tpu_torch.libs.pubsub",
+        "cometbft_tpu_torch.libs.autofile",
+        "cometbft_tpu_torch.privval",
+        "cometbft_tpu_torch.privval.file",
+        "cometbft_tpu_torch.consensus",
+        "cometbft_tpu_torch.consensus.cstypes",
+        "cometbft_tpu_torch.consensus.messages",
+        "cometbft_tpu_torch.consensus.ticker",
+        "cometbft_tpu_torch.consensus.wal",
+        "cometbft_tpu_torch.consensus.metrics",
+        "cometbft_tpu_torch.consensus.state",
+        "cometbft_tpu_torch.simnet",
+        "cometbft_tpu_torch.simnet.clock",
+        "cometbft_tpu_torch.simnet.byzantine",
+        "cometbft_tpu_torch.simnet.scenario",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
