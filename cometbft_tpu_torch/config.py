@@ -1,11 +1,30 @@
 """Node configuration (config/config.go), the port's copy of what the ported
-modules read of ``cometbft_tpu/config/config.py``: ``MempoolConfig`` and
-``ConsensusConfig``, their fields and defaults, a ``Config`` of those two
-sections and ``test_config``. The other sections wait for the node."""
+modules read of ``cometbft_tpu/config/config.py``: ``P2PConfig``,
+``MempoolConfig`` and ``ConsensusConfig``, their fields and defaults, a
+``Config`` of those three sections and ``test_config``. The other sections
+wait for the node."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dfield
+
+from cometbft_tpu_torch.p2p.conn.connection import (
+    DEFAULT_MAX_PACKET_MSG_PAYLOAD_SIZE,
+    DEFAULT_RECV_RATE,
+    DEFAULT_SEND_RATE,
+)
+
+
+@dataclass
+class P2PConfig:
+    """config/config.go:490-620: the fields the port reads. The ``Switch``
+    hands them to each peer's ``MConnection``; their defaults are that
+    module's constants. The listener, the peer lists, PEX and the fuzzing
+    knobs wait for the node slice, which reads them."""
+
+    max_packet_msg_payload_size: int = DEFAULT_MAX_PACKET_MSG_PAYLOAD_SIZE
+    send_rate: int = DEFAULT_SEND_RATE
+    recv_rate: int = DEFAULT_RECV_RATE
 
 
 @dataclass
@@ -32,9 +51,10 @@ class MempoolConfig:
 
 @dataclass
 class ConsensusConfig:
-    """config/config.go:925-1080: the consensus timeouts (seconds) and the
-    fields the state machine reads; the WAL's path and the reactor's gossip
-    sleeps wait for the node and p2p slices."""
+    """config/config.go:925-1080: the consensus timeouts (seconds), the
+    fields the state machine reads and the reactor's maj23 query sleep (its
+    gossip sleep is the reactor's own argument); the WAL's path waits for
+    the node slice."""
 
     timeout_propose: float = 3.0
     timeout_propose_delta: float = 0.5
@@ -46,6 +66,7 @@ class ConsensusConfig:
     skip_timeout_commit: bool = False
     create_empty_blocks: bool = True
     create_empty_blocks_interval: float = 0.0
+    peer_query_maj23_sleep_duration: float = 2.0
     # Stall watchdog: if no round-step progress for this many multiples of
     # the current round's full escalated timeout budget, re-announce our
     # round step and re-arm the step's timeout (0 disables).
@@ -76,6 +97,7 @@ class ConsensusConfig:
 class Config:
     """The sections of config/config.go:67-120 that the port reads."""
 
+    p2p: P2PConfig = dfield(default_factory=P2PConfig)
     mempool: MempoolConfig = dfield(default_factory=MempoolConfig)
     consensus: ConsensusConfig = dfield(default_factory=ConsensusConfig)
 
@@ -92,5 +114,6 @@ def test_config() -> Config:
         timeout_precommit_delta=0.002,
         timeout_commit=0.01,
         skip_timeout_commit=True,
+        peer_query_maj23_sleep_duration=0.25,
     )
     return c

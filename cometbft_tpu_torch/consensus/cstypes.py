@@ -92,6 +92,15 @@ class HeightVoteSet:
                     raise GotVoteFromUnwantedRoundError(vote.round)
             return vote_set.add_vote(vote)
 
+    def set_peer_maj23(self, round_: int, vote_type: int, peer_id: str, block_id) -> None:
+        with self._mtx:
+            if not _is_vote_type_valid(vote_type):
+                raise ValueError(f"SetPeerMaj23: invalid vote type {vote_type}")
+            vote_set = self._get_vote_set(round_, vote_type)
+            if vote_set is None:
+                return
+            vote_set.set_peer_maj23(peer_id, block_id)
+
     def prevotes(self, round_: int) -> VoteSet | None:
         with self._mtx:
             return self._get_vote_set(round_, PREVOTE_TYPE)

@@ -43,4 +43,5 @@ class Metrics:
         self.block_interval_seconds = _NOP
         self.consensus_stalls_total = _NOP
         self.wal_replay_round = _NOP
+        self.round_catchup_votes_sent = _NOP
 

@@ -1,0 +1,562 @@
+"""Consensus gossip reactor (consensus/reactor.go), the port's copy of
+``cometbft_tpu/consensus/reactor.py``.
+
+Four channels (reactor.go:25-28): state 0x20 (round-step + has-vote
+broadcasts), data 0x21 (proposals + block parts), vote 0x22, vote-set-bits
+0x23. Per-peer gossip threads push block parts and votes a peer is missing
+(gossipDataRoutine :535, gossipVotesRoutine :694); PeerState tracks what
+each peer has seen.
+
+Where the reference passes over an exception the port does the same and
+counts it, with the last one kept: ``gossip_errors`` (a gossip pass that
+raised) and ``maj23_conflicts`` (a ``VoteSetMaj23`` that its vote set
+refused: logged, not punished, as in the reference).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from cometbft_tpu_torch.consensus import messages as cmsg
+from cometbft_tpu_torch.consensus.cstypes import (
+    STEP_NEW_HEIGHT,
+    STEP_PRECOMMIT_WAIT,
+    STEP_PREVOTE_WAIT,
+    STEP_PROPOSE,
+)
+from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor
+from cometbft_tpu_torch.p2p.reactor import (
+    CONSENSUS_DATA_CHANNEL,
+    CONSENSUS_STATE_CHANNEL,
+    CONSENSUS_VOTE_CHANNEL,
+    CONSENSUS_VOTE_SET_BITS_CHANNEL,
+    Reactor,
+)
+from cometbft_tpu_torch.types.block import PRECOMMIT_TYPE
+
+
+class PeerState:
+    """reactor.go PeerState: the peer's view of consensus.
+
+    Beyond height/round/step this tracks whether the peer has the current
+    proposal and that proposal's POL round (reactor.go SetHasProposal) —
+    the round-catchup gossip cascade needs both to feed a peer lagging in
+    ROUNDS the votes for *its* round instead of ours."""
+
+    def __init__(self, peer):
+        self.peer = peer
+        self.height = 0
+        self.round = 0
+        self.step = 0
+        self.last_commit_round = 0
+        self.proposal = False
+        self.proposal_pol_round = -1
+        self._mtx = threading.Lock()
+        self._sent_parts: set = set()
+        self._sent_votes: set = set()
+
+    def apply_new_round_step(self, msg: cmsg.NewRoundStepMessage) -> None:
+        with self._mtx:
+            if (msg.height, msg.round) != (self.height, self.round):
+                self._sent_parts.clear()
+                self._sent_votes.clear()
+                self.proposal = False
+                self.proposal_pol_round = -1
+            self.height = msg.height
+            self.round = msg.round
+            self.step = msg.step
+            self.last_commit_round = msg.last_commit_round
+
+    def set_has_proposal(self, proposal) -> None:
+        """reactor.go PeerState.SetHasProposal: the peer has (sent us, or
+        acked) the proposal for its current height/round."""
+        with self._mtx:
+            if (proposal.height, proposal.round) != (self.height, self.round):
+                return
+            self.proposal = True
+            self.proposal_pol_round = proposal.pol_round
+
+    def apply_proposal_pol(self, msg: cmsg.ProposalPOLMessage) -> None:
+        with self._mtx:
+            if msg.height != self.height:
+                return
+            self.proposal_pol_round = msg.proposal_pol_round
+
+    def mark_part_sent(self, height: int, round: int, index: int) -> bool:
+        """The round is part of the key: each round proposes a DIFFERENT
+        block, so "peer has part (h, idx)" is only meaningful per round.
+        Keying on (height, index) alone let a STALE part — one relayed
+        rounds late during a livelock — mark the peer as having the
+        CURRENT round's part, silently suppressing part gossip for every
+        later round of the height (the e2e matrix height-5/7 stall: the
+        proposal and votes, whose keys carry the round, kept flowing while
+        the one block part starved round after round).  Catchup parts of a
+        committed block pass round=-1 (unique per height, no round
+        needed)."""
+        with self._mtx:
+            key = (height, round, index)
+            if key in self._sent_parts:
+                return False
+            self._sent_parts.add(key)
+            return True
+
+    def unmark_part_sent(self, height: int, round: int, index: int) -> None:
+        with self._mtx:
+            self._sent_parts.discard((height, round, index))
+
+    def mark_vote_sent(self, key) -> bool:
+        with self._mtx:
+            if key in self._sent_votes:
+                return False
+            self._sent_votes.add(key)
+            return True
+
+    def unmark_vote_sent(self, key) -> None:
+        with self._mtx:
+            self._sent_votes.discard(key)
+
+
+class ConsensusReactor(Reactor):
+    """consensus/reactor.go Reactor."""
+
+    def __init__(self, consensus_state, gossip_sleep: float = 0.1):
+        super().__init__("CONSENSUS")
+        self.cs = consensus_state
+        self.gossip_sleep = gossip_sleep
+        self.peer_states: dict[str, PeerState] = {}
+        self._running = False
+        self.gossip_errors = 0
+        self.last_gossip_error = None
+        self.maj23_conflicts = 0
+        self.last_maj23_conflict = None
+        # Own messages from the state machine get gossiped.
+        self.cs.set_broadcast(self._broadcast_own_message)
+        # Stall watchdog (state.py): when the state machine detects no
+        # round-step progress, re-announce our position and re-advertise any
+        # 2/3 majorities so a desynced mesh can re-engage catch-up gossip.
+        if hasattr(self.cs, "set_on_stall"):
+            self.cs.set_on_stall(self._on_stall)
+
+    def get_channels(self):
+        """reactor.go:139-175 channel descriptors."""
+        return [
+            ChannelDescriptor(CONSENSUS_STATE_CHANNEL, priority=6, send_queue_capacity=100),
+            ChannelDescriptor(CONSENSUS_DATA_CHANNEL, priority=10, send_queue_capacity=100),
+            ChannelDescriptor(CONSENSUS_VOTE_CHANNEL, priority=7, send_queue_capacity=100),
+            ChannelDescriptor(CONSENSUS_VOTE_SET_BITS_CHANNEL, priority=1, send_queue_capacity=2),
+        ]
+
+    def start(self) -> None:
+        self._running = True
+        threading.Thread(target=self._broadcast_round_step_routine, daemon=True).start()
+        threading.Thread(target=self._query_maj23_routine, daemon=True).start()
+
+    def stop(self) -> None:
+        self._running = False
+
+    # -- peers ----------------------------------------------------------------
+
+    def add_peer(self, peer) -> None:
+        ps = PeerState(peer)
+        self.peer_states[peer.id] = ps
+        peer.set("consensus_peer_state", ps)
+        self._send_round_step(peer)
+        threading.Thread(target=self._gossip_routine, args=(ps,), daemon=True).start()
+
+    def remove_peer(self, peer, reason) -> None:
+        self.peer_states.pop(peer.id, None)
+
+    # -- receive --------------------------------------------------------------
+
+    def receive(self, chan_id: int, peer, msg_bytes: bytes) -> None:
+        msg = cmsg.decode_consensus_message(msg_bytes)
+        ps = self.peer_states.get(peer.id)
+        if chan_id == CONSENSUS_STATE_CHANNEL:
+            if isinstance(msg, cmsg.NewRoundStepMessage) and ps:
+                ps.apply_new_round_step(msg)
+            elif isinstance(msg, cmsg.HasVoteMessage) and ps:
+                ps.mark_vote_sent((msg.height, msg.round, msg.type, msg.index))
+            elif isinstance(msg, cmsg.VoteSetMaj23Message):
+                # reactor.go:300-340: record the claimed majority, then tell
+                # the peer which of those votes we ALREADY have. A conflicting
+                # claim is LOGGED, not punished: our state reads are lock-free
+                # snapshots, so a round race can mislabel an honest claim and
+                # killing the peer for it degrades the gossip mesh (the
+                # reference stops the peer; deliberate softening).
+                rs = self.cs.rs
+                if msg.height != rs.height or rs.votes is None:
+                    return
+                try:
+                    self.cs.rs.votes.set_peer_maj23(
+                        msg.round, msg.type, peer.id, msg.block_id
+                    )
+                except Exception as e:
+                    self.maj23_conflicts += 1
+                    self.last_maj23_conflict = e
+                    return
+                from cometbft_tpu_torch.types.block import PREVOTE_TYPE
+
+                vote_set = (
+                    rs.votes.prevotes(msg.round)
+                    if msg.type == PREVOTE_TYPE
+                    else rs.votes.precommits(msg.round)
+                )
+                our = vote_set.bit_array_by_block_id(msg.block_id) if vote_set else None
+                peer.try_send(
+                    CONSENSUS_VOTE_SET_BITS_CHANNEL,
+                    cmsg.encode_consensus_message(
+                        cmsg.VoteSetBitsMessage(
+                            height=msg.height, round=msg.round, type=msg.type,
+                            block_id=msg.block_id, votes=our,
+                        )
+                    ),
+                )
+        elif chan_id in (CONSENSUS_DATA_CHANNEL, CONSENSUS_VOTE_CHANNEL):
+            # Bookkeeping first (reactor.go:249-297): whatever a peer SENDS
+            # us it already HAS — mark it so gossip never echoes it back,
+            # and learn the peer's proposal POL round for the vote cascade.
+            if ps is not None:
+                if isinstance(msg, cmsg.ProposalMessage):
+                    ps.set_has_proposal(msg.proposal)
+                    ps.mark_vote_sent(
+                        ("proposal", msg.proposal.height, msg.proposal.round)
+                    )
+                elif isinstance(msg, cmsg.ProposalPOLMessage):
+                    ps.apply_proposal_pol(msg)
+                    return  # peer-state only; not a state-machine input
+                elif isinstance(msg, cmsg.BlockPartMessage):
+                    ps.mark_part_sent(msg.height, msg.round, msg.part.index)
+                elif isinstance(msg, cmsg.VoteMessage):
+                    v = msg.vote
+                    ps.mark_vote_sent(
+                        (v.height, v.round, v.type, v.validator_index)
+                    )
+            self.cs.send_peer_message(msg, peer_id=peer.id)
+        elif chan_id == CONSENSUS_VOTE_SET_BITS_CHANNEL:
+            # The peer's answer to our VoteSetMaj23: which of those votes it
+            # already has — gossip skips them (reactor.go:377-402).
+            if isinstance(msg, cmsg.VoteSetBitsMessage) and ps and msg.votes:
+                for i in range(msg.votes.size):
+                    if msg.votes.get_index(i):
+                        ps.mark_vote_sent((msg.height, msg.round, msg.type, i))
+
+    # -- own-message gossip ---------------------------------------------------
+
+    def _broadcast_own_message(self, msg) -> None:
+        if self.switch is None:
+            return
+        data = cmsg.encode_consensus_message(msg)
+        if isinstance(msg, (cmsg.ProposalMessage, cmsg.BlockPartMessage)):
+            self.switch.broadcast(CONSENSUS_DATA_CHANNEL, data)
+        elif isinstance(msg, cmsg.VoteMessage):
+            self.switch.broadcast(CONSENSUS_VOTE_CHANNEL, data)
+
+    # -- broadcast round steps (reactor.go broadcastNewRoundStepMessage) ------
+
+    # Re-announce our round step even without a change: peers track our
+    # height from these messages, and the channel is lossy (try_send
+    # broadcasts, reconnections).  A STUCK node is exactly the one whose
+    # step never changes — without the refresh, a peer whose PeerState for
+    # us was lost to a reconnect keeps height 0 forever, its catch-up
+    # gossip never engages, and a 4/0/6-vs-5/0/4 partition aftermath
+    # deadlocks permanently (found by the e2e disconnect perturbation).
+    ROUND_STEP_REFRESH_S = 1.0
+
+    def _broadcast_round_step_routine(self) -> None:
+        last = None
+        last_sent = 0.0
+        while self._running:
+            rs = self.cs.rs
+            cur = (rs.height, rs.round, rs.step)
+            now = time.monotonic()
+            if (cur != last or now - last_sent >= self.ROUND_STEP_REFRESH_S) \
+                    and self.switch is not None:
+                last = cur
+                last_sent = now
+                msg = self._round_step_msg(rs)
+                self.switch.broadcast(
+                    CONSENSUS_STATE_CHANNEL, cmsg.encode_consensus_message(msg)
+                )
+            time.sleep(0.02)
+
+    def _round_step_msg(self, rs) -> cmsg.NewRoundStepMessage:
+        return cmsg.NewRoundStepMessage(
+            height=rs.height,
+            round=rs.round,
+            step=rs.step,
+            seconds_since_start_time=0,
+            last_commit_round=rs.last_commit.round if rs.last_commit else 0,
+        )
+
+    def _send_round_step(self, peer) -> None:
+        # Reliable send (blocking enqueue): this is the message that seeds
+        # the peer's PeerState height — dropping it on a full queue would
+        # disable catch-up gossip toward us until the next refresh.
+        peer.send(
+            CONSENSUS_STATE_CHANNEL,
+            cmsg.encode_consensus_message(self._round_step_msg(self.cs.rs)),
+        )
+
+    # -- maj23 queries (reactor.go:827 queryMaj23Routine) ----------------------
+
+    def _query_maj23_routine(self) -> None:
+        """Tell peers at our height about any 2/3 majority we observe, so a
+        lagging/partitioned peer learns a quorum exists and can answer with
+        the votes it still needs (liveness under partial gossip)."""
+        interval = getattr(
+            self.cs.config, "peer_query_maj23_sleep_duration", 2.0
+        )
+        while self._running:
+            time.sleep(interval)
+            self._query_maj23_once()
+
+    def _query_maj23_once(self) -> None:
+        from cometbft_tpu_torch.types.block import PRECOMMIT_TYPE, PREVOTE_TYPE
+
+        rs = self.cs.rs
+        if rs.votes is None or self.switch is None:
+            return
+        # Snapshot (height, round) ONCE: reading rs.round again per claim
+        # races the state machine — a round advance mid-loop would tag a
+        # majority with the wrong round, and the receiver treats
+        # conflicting claims from one peer as misbehavior.
+        height, round_ = rs.height, rs.round
+        claims = []
+        for vtype, vote_set in (
+            (PREVOTE_TYPE, rs.votes.prevotes(round_)),
+            (PRECOMMIT_TYPE, rs.votes.precommits(round_)),
+        ):
+            if vote_set is None:
+                continue
+            block_id, ok = vote_set.two_thirds_majority()
+            if ok:
+                claims.append((vtype, block_id))
+        if not claims:
+            return
+        for ps in list(self.peer_states.values()):
+            if ps.height != height:
+                continue
+            for vtype, block_id in claims:
+                ps.peer.try_send(
+                    CONSENSUS_STATE_CHANNEL,
+                    cmsg.encode_consensus_message(
+                        cmsg.VoteSetMaj23Message(
+                            height=height, round=round_, type=vtype,
+                            block_id=block_id,
+                        )
+                    ),
+                )
+
+    # -- stall recovery (state.py watchdog callback) ---------------------------
+
+    def _on_stall(self) -> None:
+        """Stall-watchdog hook: loudly re-announce our round step (the lossy
+        broadcast may have dropped it) and re-advertise observed majorities.
+        Both are idempotent; the receivers dedupe via PeerState marks."""
+        if self.switch is not None:
+            self.switch.broadcast(
+                CONSENSUS_STATE_CHANNEL,
+                cmsg.encode_consensus_message(self._round_step_msg(self.cs.rs)),
+            )
+        self._query_maj23_once()
+
+    # -- per-peer gossip (reactor.go:535 gossipDataRoutine + :694 votes) ------
+
+    def _gossip_routine(self, ps: PeerState) -> None:
+        while self._running and ps.peer.id in self.peer_states:
+            try:
+                advanced = self._gossip_once(ps)
+            except Exception as e:
+                self.gossip_errors += 1
+                self.last_gossip_error = e
+                advanced = False
+            if not advanced:
+                time.sleep(self.gossip_sleep)
+
+    def _gossip_once(self, ps: PeerState) -> bool:
+        rs = self.cs.rs
+        # Peer behind in HEIGHTS: committed block parts + seen-commit
+        # precommits from the block store (gossipDataForCatchup).
+        if 0 < ps.height < rs.height:
+            return self._gossip_height_catchup(ps, rs)
+        # Same height: proposal/parts for the matching round, then the vote
+        # pick cascade for a peer behind in ROUNDS.
+        if ps.height == rs.height:
+            sent = self._gossip_data(ps, rs)
+            return self._gossip_votes(ps, rs) or sent
+        return False
+
+    def _gossip_height_catchup(self, ps: PeerState, rs) -> bool:
+        block_meta = self.cs.block_store.load_block_meta(ps.height)
+        if block_meta is None:
+            # Store already pruned / not yet saved. If the peer is exactly
+            # one height behind, our live last_commit still holds the
+            # precommits it needs to finish (gossipVotesRoutine's
+            # rs.Height == prs.Height+1 pick).
+            if rs.height == ps.height + 1 and rs.last_commit is not None:
+                return self._pick_send_vote(ps, rs.last_commit, catchup=True)
+            return False
+        sent = False
+        for i in range(block_meta.block_id.part_set_header.total):
+            if ps.mark_part_sent(ps.height, -1, i):
+                part = self.cs.block_store.load_block_part(ps.height, i)
+                # A full send queue drops the message: un-mark so the
+                # next gossip pass retries instead of losing the part
+                # forever (liveness under backpressure).
+                if part is not None and ps.peer.try_send(
+                    CONSENSUS_DATA_CHANNEL,
+                    cmsg.encode_consensus_message(
+                        cmsg.BlockPartMessage(ps.height, ps.round, part)
+                    ),
+                ):
+                    sent = True
+                else:
+                    ps.unmark_part_sent(ps.height, -1, i)
+        seen_commit = self.cs.block_store.load_seen_commit(ps.height)
+        if seen_commit is not None:
+            from cometbft_tpu_torch.types.vote import Vote
+
+            for idx, cs_sig in enumerate(seen_commit.signatures):
+                if cs_sig.is_absent():
+                    continue
+                key = ("commit", ps.height, idx)
+                if not ps.mark_vote_sent(key):
+                    continue
+                vote = Vote(
+                    type=PRECOMMIT_TYPE,
+                    height=seen_commit.height,
+                    round=seen_commit.round,
+                    block_id=cs_sig.block_id(seen_commit.block_id),
+                    timestamp=cs_sig.timestamp,
+                    validator_address=cs_sig.validator_address,
+                    validator_index=idx,
+                    signature=cs_sig.signature,
+                )
+                if ps.peer.try_send(
+                    CONSENSUS_VOTE_CHANNEL,
+                    cmsg.encode_consensus_message(cmsg.VoteMessage(vote)),
+                ):
+                    sent = True
+                    self.cs.metrics.round_catchup_votes_sent.inc()
+                else:
+                    ps.unmark_vote_sent(key)
+        return sent
+
+    def _gossip_data(self, ps: PeerState, rs) -> bool:
+        """Same-height data gossip (gossipDataRoutine): proposal + parts +
+        ProposalPOL when the peer is at our round."""
+        if rs.proposal is None or ps.round != rs.round:
+            return False
+        sent = False
+        key = ("proposal", rs.height, rs.round)
+        if ps.mark_vote_sent(key):
+            if ps.peer.try_send(
+                CONSENSUS_DATA_CHANNEL,
+                cmsg.encode_consensus_message(cmsg.ProposalMessage(rs.proposal)),
+            ):
+                sent = True
+                ps.set_has_proposal(rs.proposal)
+                # reactor.go:600-612: a POL proposal is useless without the
+                # POL round hint — send ProposalPOL right behind it. Best
+                # effort: the cascade's POL branch re-serves the votes.
+                if rs.proposal.pol_round >= 0 and rs.votes is not None:
+                    pol = rs.votes.prevotes(rs.proposal.pol_round)
+                    if pol is not None:
+                        ps.peer.try_send(
+                            CONSENSUS_DATA_CHANNEL,
+                            cmsg.encode_consensus_message(
+                                cmsg.ProposalPOLMessage(
+                                    height=rs.height,
+                                    proposal_pol_round=rs.proposal.pol_round,
+                                    proposal_pol=pol.bit_array(),
+                                )
+                            ),
+                        )
+            else:
+                ps.unmark_vote_sent(key)
+        if rs.proposal_block_parts is not None:
+            for i in range(rs.proposal_block_parts.total):
+                part = rs.proposal_block_parts.get_part(i)
+                if part is not None and ps.mark_part_sent(rs.height, rs.round, i):
+                    if ps.peer.try_send(
+                        CONSENSUS_DATA_CHANNEL,
+                        cmsg.encode_consensus_message(
+                            cmsg.BlockPartMessage(rs.height, rs.round, part)
+                        ),
+                    ):
+                        sent = True
+                    else:
+                        ps.unmark_part_sent(rs.height, rs.round, i)
+        return sent
+
+    def _gossip_votes(self, ps: PeerState, rs) -> bool:
+        """The reference's gossipVotesForHeight pick cascade (reactor.go:740-
+        802): serve the votes for the PEER'S position, not ours. A peer
+        lagging in rounds gets its-round prevotes/precommits (so it can climb
+        back to the live round after a restart), a peer holding a POL
+        proposal gets the POL-round prevotes, and a peer still in NewHeight
+        gets our last-commit precommits. Without this cascade a node
+        restarted mid-height re-enters round 0 and — when its voting power
+        is needed for quorum — the whole network round-livelocks."""
+        if rs.votes is None:
+            return False
+        # 1. Peer just entered this height: it needs the previous height's
+        #    precommits (our last_commit) to build its own LastCommit.
+        if ps.step == STEP_NEW_HEIGHT and rs.last_commit is not None:
+            if self._pick_send_vote(ps, rs.last_commit, catchup=True):
+                return True
+        behind = ps.round < rs.round
+        # 2. Peer stuck in Propose holding a POL proposal: POL prevotes.
+        if ps.step <= STEP_PROPOSE and 0 <= ps.proposal_pol_round <= rs.round:
+            pol = rs.votes.prevotes(ps.proposal_pol_round)
+            if pol is not None and self._pick_send_vote(ps, pol, catchup=True):
+                return True
+        # 3. Peer in/below PrevoteWait: prevotes for ITS round.
+        if ps.step <= STEP_PREVOTE_WAIT and 0 <= ps.round <= rs.round:
+            pv = rs.votes.prevotes(ps.round)
+            if pv is not None and self._pick_send_vote(ps, pv, catchup=behind):
+                return True
+        # 4. Peer in/below PrecommitWait: precommits for ITS round.
+        if ps.step <= STEP_PRECOMMIT_WAIT and 0 <= ps.round <= rs.round:
+            pc = rs.votes.precommits(ps.round)
+            if pc is not None and self._pick_send_vote(ps, pc, catchup=behind):
+                return True
+        # 5. Catchall by round: any prevotes for the peer's round.
+        if 0 <= ps.round <= rs.round:
+            pv = rs.votes.prevotes(ps.round)
+            if pv is not None and self._pick_send_vote(ps, pv, catchup=behind):
+                return True
+        # 6. POL prevotes regardless of step.
+        if 0 <= ps.proposal_pol_round <= rs.round:
+            pol = rs.votes.prevotes(ps.proposal_pol_round)
+            if pol is not None and self._pick_send_vote(ps, pol, catchup=True):
+                return True
+        # 7. Fallback (pre-cascade behavior): our current round's votes —
+        #    lets a lagging peer observe a +2/3-any future round and skip
+        #    forward, and covers ps.step values outside the cascade.
+        sent = False
+        for vote_set in (rs.votes.prevotes(rs.round), rs.votes.precommits(rs.round)):
+            if vote_set is not None and self._pick_send_vote(ps, vote_set):
+                sent = True
+        return sent
+
+    def _pick_send_vote(self, ps: PeerState, vote_set, catchup: bool = False) -> bool:
+        """reactor.go PickSendVote: send ONE vote from vote_set the peer
+        doesn't have yet. On a full send queue the mark is unwound so the
+        next gossip pass retries (mark/unmark symmetry — liveness under
+        backpressure)."""
+        for vote in vote_set.list_votes():
+            key = (vote.height, vote.round, vote.type, vote.validator_index)
+            if not ps.mark_vote_sent(key):
+                continue
+            if ps.peer.try_send(
+                CONSENSUS_VOTE_CHANNEL,
+                cmsg.encode_consensus_message(cmsg.VoteMessage(vote)),
+            ):
+                if catchup:
+                    self.cs.metrics.round_catchup_votes_sent.inc()
+                return True
+            ps.unmark_vote_sent(key)
+            return False  # queue full: back off, retry next pass
+        return False

@@ -42,6 +42,15 @@ validators, ``file_pv_from_state_files`` loads a ``FilePV`` from the
 reference's key and last-sign-state JSON files, and
 ``wal_messages_from_file`` reads a consensus WAL the reference wrote (the
 frames are the same bytes in both packages).
+
+The network carries a node's identity and its handshake: ``node_key_from_file``
+loads a ``NodeKey`` from the reference's ``node_key.json`` and
+``node_key_from_seed`` makes one from an ed25519 seed (the same ID as the
+reference's key of that seed); ``node_info_from_wire`` takes the
+``NodeInfo`` proto bytes the handshake swaps (``NodeInfo.encode()``), and
+``p2p_config_from_fields`` a ``P2PConfig`` from the reference's fields
+(``dataclasses.asdict`` of its ``P2PConfig``), of which it keeps the ones
+the port reads.
 """
 
 from __future__ import annotations
@@ -265,3 +274,36 @@ def wal_messages_from_file(path: str) -> list:
     from cometbft_tpu_torch.consensus.wal import read_messages
 
     return read_messages(path)
+
+
+def node_key_from_file(path: str):
+    """A ``NodeKey`` from a ``node_key.json`` (the reference's
+    ``NodeKey.save_as``): the same private key, so the same node ID."""
+    from cometbft_tpu_torch.p2p.key import NodeKey
+
+    return NodeKey.load(path)
+
+
+def node_key_from_seed(seed: bytes):
+    """A ``NodeKey`` over the ed25519 key of a 32-byte seed."""
+    from cometbft_tpu_torch.crypto import ed25519, ed25519_pure
+    from cometbft_tpu_torch.p2p.key import NodeKey
+
+    return NodeKey(ed25519.PrivKey(bytes(seed) + ed25519_pure.public_key(bytes(seed))))
+
+
+def node_info_from_wire(encoded: bytes):
+    """A ``NodeInfo`` from its proto bytes; it encodes to the same bytes."""
+    from cometbft_tpu_torch.p2p.node_info import NodeInfo
+
+    return NodeInfo.decode(encoded)
+
+
+def p2p_config_from_fields(fields: dict):
+    """A ``P2PConfig`` from a mapping of the reference's fields: the fields
+    the port reads, and no other."""
+    import dataclasses
+
+    from cometbft_tpu_torch.config import P2PConfig
+
+    return P2PConfig(**{f.name: fields[f.name] for f in dataclasses.fields(P2PConfig)})

@@ -2,11 +2,11 @@
 (p2p/conn/connection.go:42), the port's copy of ``cometbft_tpu/p2p/reactor.py``
 and of ``ChannelDescriptor`` in ``cometbft_tpu/p2p/conn/connection.py``.
 
-Every networked subsystem implements this and registers on the Switch with
-reserved global channel byte IDs: PEX 0x00, consensus 0x20-0x23, mempool
-0x30, evidence 0x38, blocksync 0x40, statesync 0x60-0x61. The switch, the
-transport and the peers are not ported: a reactor takes duck-typed ones
-(``set_switch``; a peer's ``id`` and ``try_send``).
+Every networked subsystem implements this and registers on the Switch
+(``p2p/switch.py``) with reserved global channel byte IDs: PEX 0x00,
+consensus 0x20-0x23, mempool 0x30, evidence 0x38, blocksync 0x40, statesync
+0x60-0x61. ``ChannelDescriptor`` is defined here once;
+``p2p/conn/connection.py`` imports it where the reference defines it.
 """
 
 from __future__ import annotations

@@ -6,15 +6,15 @@ of ``cometbft_tpu/simnet``.
   default) and ``SimClock`` (an event-heap virtual clock that advances only
   when every registered actor is blocked, so simulated seconds cost only
   the host time needed to drain the events they contain).
+* :mod:`cometbft_tpu_torch.simnet.transport` — ``SimTransport``/``SimConn``:
+  the ``MultiplexTransport``/``UpgradedConn`` surface over in-memory pipes
+  with a seeded per-link latency/jitter/bandwidth/drop model and
+  runtime-scriptable partitions and heals, under ``SimNetwork``.
 * :mod:`cometbft_tpu_torch.simnet.scenario` — the deterministic scenario
   harness: 50-200 in-process validators on ONE ``SimClock``, WAN latency
   matrices, partition/churn schedules and byzantine actors
   (:mod:`~cometbft_tpu_torch.simnet.byzantine`), replayable bit-identically
   from the seed.
-
-``SimNetwork`` and ``SimTransport`` (the reference's
-``simnet/transport.py``, the p2p transport over in-memory pipes) are not
-ported yet: they wait for the p2p slice, and naming them raises.
 """
 
 from cometbft_tpu_torch.simnet.clock import Clock, MonotonicClock, SimClock
@@ -30,13 +30,12 @@ __all__ = [
 
 
 def __getattr__(name):
-    # Lazy: the scenario imports consensus, which imports simnet.clock — an
-    # eager import here would be circular.
+    # Lazy: scenario/transport import consensus+p2p, which themselves import
+    # simnet.clock — an eager import here would be circular.
     if name in ("SimNetwork", "SimTransport"):
-        raise NotImplementedError(
-            f"simnet.{name} lives in simnet/transport.py, which is not ported "
-            "to cometbft_tpu_torch yet (it waits for the p2p slice)"
-        )
+        from cometbft_tpu_torch.simnet import transport
+
+        return getattr(transport, name)
     if name == "run_scenario":
         from cometbft_tpu_torch.simnet.scenario import run_scenario
 

@@ -1,8 +1,8 @@
 """Boundaries of the port: it imports neither jax nor the JAX package (the
 native loader, the supervisor, chaos, the fleet tier, the BN254 chain, the
 tooling, the types, commit verification, blocksync, the light client,
-evidence, sigbatch, the RPC codec, consensus, privval and the simnet
-included), it never falls back to the
+evidence, sigbatch, the RPC codec, consensus, privval, the simnet, p2p and
+the consensus and mempool reactors included), it never falls back to the
 CPU when CUDA is asked for (the hybrid tier and the chains neither), and a
 missing CUDA compiler is an error, not a silent switch to the plain
 versions."""
@@ -141,6 +141,23 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.simnet.clock",
         "cometbft_tpu_torch.simnet.byzantine",
         "cometbft_tpu_torch.simnet.scenario",
+        "cometbft_tpu_torch.simnet.transport",
+        "cometbft_tpu_torch.libs.flowrate",
+        "cometbft_tpu_torch.crypto.strobe",
+        "cometbft_tpu_torch.crypto.merlin",
+        "cometbft_tpu_torch.crypto.compat",
+        "cometbft_tpu_torch.p2p",
+        "cometbft_tpu_torch.p2p.key",
+        "cometbft_tpu_torch.p2p.node_info",
+        "cometbft_tpu_torch.p2p.fuzz",
+        "cometbft_tpu_torch.p2p.transport",
+        "cometbft_tpu_torch.p2p.switch",
+        "cometbft_tpu_torch.p2p.conn",
+        "cometbft_tpu_torch.p2p.conn.secret_connection",
+        "cometbft_tpu_torch.p2p.conn.recvq",
+        "cometbft_tpu_torch.p2p.conn.connection",
+        "cometbft_tpu_torch.consensus.reactor",
+        "cometbft_tpu_torch.mempool.reactor",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
