@@ -5,6 +5,7 @@
     python3 chip_smoke.py --light         # only the light path (and what it needs)
     python3 chip_smoke.py --consensus     # only the consensus path (and what it needs)
     python3 chip_smoke.py --network       # only the network path (and what it needs)
+    python3 chip_smoke.py --rpc           # only the RPC path (and what it needs)
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -38,7 +39,12 @@ the simnet of 150 validators and one node following the 10,240-validator
 chain's consensus, and the network path the same node fed over TCP by 8
 peers through the port's p2p stack (``p2p/``: SecretConnection,
 MConnection, the Switch) and ``consensus/reactor.ConsensusReactor``, with a
-4-validator mesh over TCP and over ``simnet/transport.SimTransport``.
+4-validator mesh over TCP and over ``simnet/transport.SimTransport``, and
+the RPC path a restart through ``consensus/replay.Handshaker``, a light
+client syncing the 10,240-validator chain over HTTP from the port's
+``rpc/jsonrpc/server.JSONRPCServer`` (``rpc/core`` routes, ``rpc/client``)
+and a one-validator chain served over RPC with proven answers
+(``state/txindex``, ``crypto/merkle/proof_op``).
 In order:
 
   1. prints the PyTorch version and the card (name, power limit);
@@ -300,7 +306,50 @@ In order:
      the same blocks on every node;
      last, the three verify kernels at (c)'s largest and smallest batch,
      four lanes of each corrupted, held to plain and timed;
- 20. runs the mesh path (the lane-split programs) on two virtual shards of
+ 20. runs the RPC path (``consensus/replay``, ``state/txindex``,
+     ``rpc/``, ``crypto/merkle/proof_*``), launch counts zeroed before it
+     and read after. (f) The Handshaker over copies of step 16's
+     10,240-validator source stores with a fresh kvstore, event bus and KV
+     indexers: (i) the app wiped, every block replayed through the app (no
+     backend call) to the source's app hash and state, the indexes rebuilt
+     from the stored responses holding every transaction, a doctored app
+     hash refused with AppHashMismatchError's text; (ii) the crash after
+     ``save_block`` (store 6, state 5, app 5): the final block through
+     ``apply_block``, its 10,240-signature LastCommit verified on the card
+     in one call (one verify launch set), its 4,096 transactions indexed by
+     the IndexerService from the bus, no pump left after ``stop()``;
+     ``handshake_replay_10k_ms`` of each from a bare run, its stage split
+     from a second, instrumented run. (g) The port's JSONRPCServer in a
+     process of its own serving ``routes(Environment(...))`` over the
+     source's stores and (f)'s indexes; the port's light client over
+     ``HTTPProvider(HTTPClient(url))`` as primary and witness, height 1
+     trusted in its store, syncs to 6 from a cold cache (a recording
+     ``TorchBackend()``: three launches a card call, every one from the
+     device-owner thread; the trace equal to a BlockStoreProvider client's):
+     ``rpc_light_sync_10k_ms``, split by route (the port's ``HTTPClient``
+     timed in place: ``_post``, the HTTP exchange, and the rest of ``call``,
+     the JSON decode; 103 /validators pages a light block); a second server
+     whose tip commit
+     carries a flipped signature is refused (the reference's ValueError and
+     text); under ``--rpc`` the default's sync too, in turns. (h)
+     A one-validator chain (FilePV, provable kvstore, CListMempool, the
+     event bus, IndexerService, JSONRPCServer) takes RPC_TXS transactions
+     through ``broadcast_tx_async`` over HTTP before its first height, then
+     RPC_COMMIT_TXS through ``broadcast_tx_commit``; a websocket on NewBlock
+     sees every height; under ``CMTPU_DEVICE_PROOFS=1`` the card's proof
+     set of the first block (every proof) and every RPC_PROOF_STRIDE-th
+     ``tx?prove=true`` answer over HTTP verify against its data hash, and
+     proven ``abci_query`` answers through
+     ``default_proof_runtime()`` against the next header's app hash, each
+     card answer equal to the native pass's (every RPC_NATIVE_STRIDE-th tx),
+     two sha256 launches a proof set, each from the thread that asked for
+     the set (the block's on the main thread, each answer's on the server's
+     request thread); ``rpc_chain_ms_per_height`` and ms a proven answer. Last, the verify kernels at the final block's 10,240
+     lanes and at the HTTP sync's largest and smallest batch (four lanes of
+     each corrupted) and the sha256 levels entry at the first block's
+     transactions and the kv leaves, each held to its plain version and
+     timed;
+ 21. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -313,7 +362,7 @@ In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 21. prints the ``kernels`` line (launches summed over the paths, and by
+ 22. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -323,6 +372,7 @@ nothing of JAX or of ``cometbft_tpu``.
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
 import hashlib
@@ -3213,7 +3263,63 @@ class LightRecorder:
         return [c["lanes"] for c in self.calls if klass is None or c["class"] == klass]
 
 
-class LightStages:
+class StageTimer:
+    """Lists the wall ms of named stages: ``stage(name)`` times a block,
+    ``wrap(owner, attr, name)`` a method of a class or an object for one
+    run (``with``; ``name`` may be a function of the call's positional
+    arguments). A stage ends with a synchronize unless ``sync=False`` (it
+    surrounds no device work); with ``count_bytes`` the lengths of its
+    results are summed too. Stages nest as the calls do, each inclusive of
+    the stages it calls."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(list)
+        self.bytes = collections.Counter()
+        self._saved = []
+
+    @contextlib.contextmanager
+    def stage(self, name, sync: bool = True):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync:
+                torch.cuda.synchronize()
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+
+    def wrap(self, owner, attr, name, sync: bool = True, count_bytes: bool = False):
+        orig = getattr(owner, attr)
+        stages = self
+
+        def wrapper(*args, **kwargs):
+            label = name(*args) if callable(name) else name
+            with stages.stage(label, sync):
+                out = orig(*args, **kwargs)
+            if count_bytes:
+                stages.bytes[label] += len(out)
+            return out
+
+        self._saved.append((owner, attr, orig))
+        setattr(owner, attr, wrapper)
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+        self._saved.clear()
+
+    def table(self) -> dict:
+        return {k: {"ms": sum(v), "calls": len(v),
+                    **({"bytes": self.bytes[k]} if k in self.bytes else {})}
+                for k, v in sorted(self.ms.items())}
+
+
+class LightStages(StageTimer):
     """Times a light sync's stages, each ended by a synchronize: the
     provider's fetch and decode (LightWire), ``LightBlock.validate_basic``,
     ``ValidatorSet.hash``, the descent's prewarm (``_speculate_descent``) and
@@ -3224,32 +3330,6 @@ class LightStages:
     detector. Stages nest as the calls do. Installed on the port's classes
     for one run (``with``)."""
 
-    def __init__(self):
-        self.ms = collections.defaultdict(list)
-        self._saved = []
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            torch.cuda.synchronize()
-            self.ms[name].append((time.perf_counter() - t0) * 1e3)
-
-    def _wrap(self, owner, attr, name):
-        orig = getattr(owner, attr)
-        stages = self
-
-        def wrapper(*args, **kwargs):
-            label = name(*args) if callable(name) else name
-            with stages.stage(label):
-                return orig(*args, **kwargs)
-
-        self._saved.append((owner, attr, orig))
-        setattr(owner, attr, wrapper)
-
     def __enter__(self):
         from cometbft_tpu_torch.crypto import ed25519
         from cometbft_tpu_torch.light import client, detector
@@ -3257,26 +3337,21 @@ class LightStages:
         from cometbft_tpu_torch.sidecar import engine
         from cometbft_tpu_torch.types import LightBlock, ValidatorSet, validation
 
-        self._wrap(LightBlock, "validate_basic", "validate_basic")
-        self._wrap(ValidatorSet, "hash", "validator_set_hash")
-        self._wrap(client.Client, "_speculate_descent", "prewarm")
-        self._wrap(validation, "speculative_verify_triples", "prewarm_triples")
-        self._wrap(ed25519.BatchVerifier, "verify", lambda bv: (
+        self.wrap(LightBlock, "validate_basic", "validate_basic")
+        self.wrap(ValidatorSet, "hash", "validator_set_hash")
+        self.wrap(client.Client, "_speculate_descent", "prewarm")
+        self.wrap(validation, "speculative_verify_triples", "prewarm_triples")
+        self.wrap(ed25519.BatchVerifier, "verify", lambda bv: (
             "prewarm_backend" if engine.current_class() == engine.CLASS_LIGHT
             else "hop_cache_filter"))
-        self._wrap(validation, "verify_commit_light_trusting", "hop_trusting_check")
-        self._wrap(validation, "verify_commit_light", "hop_light_check")
-        self._wrap(LightStore, "save_light_block", "store_save")
-        self._wrap(detector, "detect_divergence", "detector")
+        self.wrap(validation, "verify_commit_light_trusting", "hop_trusting_check")
+        self.wrap(validation, "verify_commit_light", "hop_light_check")
+        self.wrap(LightStore, "save_light_block", "store_save")
+        self.wrap(detector, "detect_divergence", "detector")
         return self
 
-    def __exit__(self, *exc):
-        for owner, attr, orig in reversed(self._saved):
-            setattr(owner, attr, orig)
-        self._saved.clear()
-
     def table(self) -> dict:
-        out = {k: {"ms": sum(v), "calls": len(v)} for k, v in sorted(self.ms.items())}
+        out = super().table()
         pre = out.get("prewarm", {}).get("ms", 0.0)
         out["prewarm_bv_add"] = {"ms": pre - out.get("prewarm_triples", {}).get("ms", 0.0)
                                  - out.get("prewarm_backend", {}).get("ms", 0.0),
@@ -3994,7 +4069,7 @@ def drive_light_path(fixtures, sources, torch_backend, dev) -> dict:
 # blocks (5 take ~45 s under TorchBackend and ~90 s under the default on the
 # card's host; 3 until the network phase came: the cut keeps the whole run
 # near 1,000 s).
-CONS_SIM = {"validators": COMMIT_SMALL, "blocks": 2, "seed": 7, "vote_window_ms": 25.0,
+CONS_SIM = {"validators": COMMIT_SMALL, "blocks": 1, "seed": 7, "vote_window_ms": 25.0,
             "max_sim_s": 300.0}
 # The flood run: the JAX package's flooder window (test_simnet_byzantine.py:
 # node 1, 5-45 s, 20 Hz, fanout 8), each replay with one signature bit
@@ -4006,7 +4081,7 @@ CONS_FLOOD = {"role": "flooder", "node": 1, "from_s": 5.0, "until_s": 45.0, "rat
 # Path (b): a node with no priv validator follows heights 1..CONS_HEIGHTS of
 # the blocksync phase's 10,240-validator source chain through start() and
 # send_peer_message; the counted run corrupts one prevote (height, index).
-CONS_HEIGHTS = 4
+CONS_HEIGHTS = 3  # 4 until the RPC phase came (the run near 1,050 s)
 CONS_BAD = (2, 5)
 CONS_TIMED = 1  # timed runs of path (b) under each backend, in turns
 CONS_PEERS = 8  # the peer ids the follower's messages arrive from
@@ -5418,6 +5493,870 @@ def network_only(card, dev) -> int:
     return 0
 
 
+# -- the RPC path ----------------------------------------------------------------
+
+# (f) The Handshaker over the 10,240-validator blocksync source; (g) a light
+# client over HTTP against the port's JSONRPCServer in a process of its own;
+# (h) a one-validator chain served over RPC, in this process.
+RPC_PER_PAGE = 100  # HTTPProvider's page: 103 /validators calls a light block at 10,240
+RPC_NOW_S = BSYNC_T0 + 3_600
+RPC_WAIT_S = 300.0
+RPC_CHAIN_ID = "chip-smoke-rpc"
+RPC_TXS = BSYNC_TXS  # (h)'s first block: the source chain's transactions a block
+RPC_COMMIT_TXS = 3  # then a block each through broadcast_tx_commit
+RPC_PROOF_STRIDE = 64  # every 64th tx?prove=true answer of the first block over HTTP (~63 ms each)
+RPC_NATIVE_STRIDE = 64  # ... and every 64th again by the native pass, which must agree
+RPC_QUERY_KEYS = 16  # proven abci_query answers, each on the card and natively
+APP_HASH_TEXT = ("app hash {got} does not match state app hash {want} after replay. "
+                 "Did you reset CometBFT without resetting the application?")
+
+
+def rpc_tx(i: int) -> bytes:
+    """(h)'s kvstore transactions: ``key=value``, 48 bytes."""
+    head = b"rpc%05d=" % i
+    return head + hashlib.sha256(head).hexdigest().encode()[: 48 - len(head)]
+
+
+def rpc_db(items):
+    """A MemDB under a BlockStore and a StateStore holding ``items``."""
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.state import StateStore
+    from cometbft_tpu_torch.store import BlockStore
+
+    db = MemDB()
+    for k, v in items:
+        db.set(k, v)
+    return db, BlockStore(db), StateStore(db)
+
+
+def rpc_reindex(bs, ss, tx_ix, blk_ix) -> int:
+    """The reference's ``reindex-event`` (``cmd/__main__.py``): both indexes
+    rebuilt from the block store and the stored ABCI responses (replay
+    through the app publishes no event). Returns the transactions indexed."""
+    from cometbft_tpu_torch.state.execution import decode_responses
+    from cometbft_tpu_torch.types.events import _abci_events_to_attrs
+
+    n = 0
+    for h in range(max(bs.base(), 1), bs.height() + 1):
+        block, resp = bs.load_block(h), decode_responses(ss.load_abci_responses(h))
+        blk_ix.index(h, _abci_events_to_attrs(list(resp["begin_block"].events)
+                                              + list(resp["end_block"].events)))
+        for i, tx in enumerate(block.data.txs):
+            res = resp["deliver_txs"][i]
+            tx_ix.index(h, i, tx, res, _abci_events_to_attrs(res.events))
+            n += 1
+    return n
+
+
+def rpc_restart(source, torch_backend) -> dict:
+    """(f): the Handshaker over copies of the source's stores, with a fresh
+    PersistentKVStoreApplication, a fresh event bus and fresh KV indexers.
+    Each case runs twice on fresh copies: bare (its ``ms``, the metric: no
+    stage wrapper, only a recorder around the backend) and then
+    instrumented (its ``stages``: StageTimer wrappers, a synchronize only
+    around stages that reach the card). (i) The app wiped (app 0, state =
+    store = 6): every block replayed through the app, no backend call; the
+    source's app hash and state; the indexes rebuilt (``rpc_reindex``) hold
+    every transaction; the same app with a doctored app hash raises
+    AppHashMismatchError with the reference's text. (ii) The crash after
+    ``save_block`` and before the state save (store 6, state 5, the app
+    brought to 5 by replaying blocks 1-5 through it): the last block through
+    ``apply_block``, whose ``validate_block`` verifies its 10,240-signature
+    LastCommit on the card in one call; the source's app hash and state; the
+    IndexerService indexes its 4,096 transactions from the bus; ``stop()``
+    leaves no pump behind."""
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.abci.example.kvstore import PersistentKVStoreApplication
+    from cometbft_tpu_torch.consensus import replay
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.proxy import AppConns, local_client_creator
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.state import store as state_store
+    from cometbft_tpu_torch.state.txindex import IndexerService, KVBlockIndexer, KVTxIndexer
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.types.events import EventBus
+    from cometbft_tpu_torch.types.tx import tx_hash
+
+    gen, items = source["gen"], list(source["node"]["db"].iterator())
+    want_state, want_hash = source["states"][-1], source["state"].app_hash
+    check(source["node"]["block_store"].height() == len(source["states"]) == BSYNC_HEIGHTS,
+          f"restart: the source is at {source['node']['block_store'].height()}")
+    out = {}
+
+    def app_conns():
+        conns = AppConns(local_client_creator(PersistentKVStoreApplication()))
+        conns.start()
+        return conns
+
+    def handshake(hs, conns, stages) -> tuple:
+        with stages if stages is not None else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = hs.handshake(conns)
+            torch.cuda.synchronize()
+            return st, (time.perf_counter() - t0) * 1e3
+
+    def case_i(instrument: bool):
+        """(i) on fresh copies: the state, the app, the stores and the ms."""
+        _, bs, ss = rpc_db(items)
+        conns = app_conns()
+        rec = LightRecorder(torch_backend)
+        stages = StageTimer().wrap(bs, "load_block", "load_block", sync=False).wrap(
+            ss, "load_validators", "load_validators", sync=False).wrap(
+            replay, "build_last_commit_info", "build_last_commit_info", sync=False).wrap(
+            conns.consensus, "deliver_tx", "deliver_tx", sync=False).wrap(
+            conns.consensus, "commit", "app_commit", sync=False) if instrument else None
+        be.set_backend(rec)
+        ed25519._verified.clear()
+        try:
+            hs = replay.Handshaker(ss, ss.load(), bs, gen, event_bus=EventBus())
+            st, ms = handshake(hs, conns, stages)
+        finally:
+            be.set_backend(None)
+        app = conns.query._app
+        check(state_store._encode_state(st) == want_state and app.app_hash == want_hash
+              and hs.n_blocks == BSYNC_HEIGHTS and app.height == BSYNC_HEIGHTS
+              and state_store._encode_state(ss.load()) == want_state,
+              f"restart (i): state at {st.last_block_height}, app at {app.height} "
+              f"({app.app_hash.hex()} vs {want_hash.hex()}), {hs.n_blocks} blocks replayed")
+        check(rec.calls == [], f"restart (i): replay through the app called the backend "
+                               f"{rec.calls}")
+        return {"ms": ms, "replayed": hs.n_blocks, "stages": stages}, bs, ss, conns
+
+    # (i) the app wiped: the bare run, then the instrumented one.
+    bare, bs, ss, conns = case_i(False)
+    split = case_i(True)[0]
+    tx_ix, blk_ix = KVTxIndexer(MemDB()), KVBlockIndexer(MemDB())
+    t0 = time.perf_counter()
+    n_indexed = rpc_reindex(bs, ss, tx_ix, blk_ix)
+    reindex_ms = (time.perf_counter() - t0) * 1e3
+    hashes = [tx_hash(tx) for h in range(1, BSYNC_HEIGHTS + 1) for tx in bs.load_block(h).data.txs]
+    check(n_indexed == len(hashes) == BSYNC_HEIGHTS * BSYNC_TXS
+          and all(tx_ix._db.get(b"tx:" + h) is not None for h in hashes)
+          and blk_ix.search("block.height>=1") == list(range(1, BSYNC_HEIGHTS + 1)),
+          f"restart (i): {n_indexed} of {BSYNC_HEIGHTS * BSYNC_TXS} transactions indexed")
+    app = conns.query._app
+    bad = b"\x00" * len(want_hash)
+    app.app_hash = bad
+    try:
+        replay.Handshaker(ss, ss.load(), bs, gen).handshake(conns)
+        check(False, "restart: a wrong app hash was accepted")
+    except replay.AppHashMismatchError as e:
+        want_text = APP_HASH_TEXT.format(got=bad.hex(), want=want_hash.hex())
+        check(str(e) == want_text, f"restart: the mismatch reads {str(e)!r}, not {want_text!r}")
+        mismatch = {"type": type(e).__name__, "text": str(e)}
+    out["i"] = {"ms": bare["ms"], "replayed": bare["replayed"],
+                "instrumented_ms": split["ms"], "stages": split["stages"].table(),
+                "indexed": n_indexed, "reindex_ms": reindex_ms, "mismatch": mismatch}
+
+    def case_ii(instrument: bool):
+        """(ii) on fresh copies, with the IndexerService on the bus."""
+        _, bs2, ss2 = rpc_db(items)
+        state5 = convert.state_from_store_bytes(source["states"][-2])
+        ss2.save(state5)
+        conns2 = app_conns()
+        warm = replay.Handshaker(ss2, state5, bs2, gen)
+        warm._init_chain(state5, conns2)
+        warm._replay_blocks_through_app(state5, conns2, 0, BSYNC_HEIGHTS - 1)
+        app2 = conns2.query._app
+        check(app2.height == BSYNC_HEIGHTS - 1, f"restart (ii): the app at {app2.height}")
+        bus = EventBus()
+        bus.start()
+        tx_ix2, blk_ix2 = KVTxIndexer(MemDB()), KVBlockIndexer(MemDB())
+        indexer = IndexerService(tx_ix2, blk_ix2, bus)
+        indexer.start()
+        rec2 = LightRecorder(torch_backend, keep=instrument)
+        stages = StageTimer().wrap(BlockStore, "load_block", "load_block", sync=False).wrap(
+            replay.BlockExecutor, "apply_block", "apply_block").wrap(
+            replay.BlockExecutor, "validate_block", "validate_block").wrap(
+            rec2, "batch_verify", "backend_call") if instrument else None
+        be.set_backend(rec2)
+        ed25519._verified.clear()
+        try:
+            hs2 = replay.Handshaker(ss2, ss2.load(), bs2, gen, event_bus=bus)
+            st2, ms = handshake(hs2, conns2, stages)
+        finally:
+            be.set_backend(None)
+        check(state_store._encode_state(st2) == want_state and app2.app_hash == want_hash
+              and hs2.n_blocks == 1 and state_store._encode_state(ss2.load()) == want_state,
+              f"restart (ii): state at {st2.last_block_height}, app {app2.app_hash.hex()}, "
+              f"{hs2.n_blocks} blocks replayed")
+        check([c["lanes"] for c in rec2.calls] == [N_SIGS],
+              f"restart (ii): backend calls {[c['lanes'] for c in rec2.calls]}, expected one "
+              f"of {N_SIGS} lanes (the LastCommit)")
+        last = [tx_hash(tx) for tx in bs2.load_block(BSYNC_HEIGHTS).data.txs]
+        deadline = time.monotonic() + RPC_WAIT_S
+        while not (all(tx_ix2._db.get(b"tx:" + h) is not None for h in last[-1:])
+                   and blk_ix2.search("block.height>=1") == [BSYNC_HEIGHTS]):
+            check(time.monotonic() < deadline, "restart (ii): the indexer did not catch up")
+            time.sleep(0.05)
+        pumps = list(indexer._threads)
+        check(len(pumps) == 2, f"restart (ii): the IndexerService runs {len(pumps)} pumps")
+        indexer.stop()
+        check(not any(t.is_alive() for t in pumps) and bus.num_clients() == 0,
+              "restart (ii): an indexer pump outlived stop()")
+        check(all(tx_ix2._db.get(b"tx:" + h) is not None for h in last)
+              and len([k for k, _ in tx_ix2._db.iterator(b"tx:", b"tx;")]) == BSYNC_TXS,
+              "restart (ii): the IndexerService missed transactions of the final block")
+        bus.stop()
+        return {"ms": ms, "replayed": hs2.n_blocks, "stages": stages,
+                "card_calls": [c["lanes"] for c in rec2.calls],
+                "backend_ms": [c["ms"] for c in rec2.calls], "indexed": len(last)}, rec2
+
+    # (ii) the crash after save_block, before the state save: bare, then instrumented.
+    bare2, _ = case_ii(False)
+    split2, rec2 = case_ii(True)
+    out["ii"] = {**bare2, "instrumented_ms": split2["ms"], "stages": split2["stages"].table(),
+                 "instrumented_backend_ms": split2["backend_ms"]}
+    out["index_items"] = list(tx_ix._db.iterator()) + list(blk_ix._db.iterator())
+    out["final_block"] = rec2.triples[0]
+    return out
+
+
+def rpc_doctored_commit(honest, bs):
+    """A /commit route whose tip commit carries its first signature with
+    one bit flipped."""
+
+    def commit(height=None):
+        out = honest(height=height)
+        if int(out["signed_header"]["header"]["height"]) == bs.height():
+            sig = out["signed_header"]["commit"]["signatures"][0]
+            raw = base64.b64decode(sig["signature"])
+            sig["signature"] = base64.b64encode(bytes([raw[0] ^ 0x01]) + raw[1:]).decode()
+        return out
+
+    return commit
+
+
+def rpc_serve_main(conn, items, index_items, gen_json: str) -> None:
+    """(g)'s node, in a process of its own (so that its server threads do
+    not hold the client's interpreter lock): the port's JSONRPCServer on
+    127.0.0.1:0 serving ``routes(Environment(...))`` over the source's
+    stores and indexes (their items), and a second one whose /commit is
+    doctored (``rpc_doctored_commit``). Sends the two ports, then serves
+    until ``close``."""
+    servers = []
+    try:
+        from cometbft_tpu_torch import convert
+        from cometbft_tpu_torch.config import test_config
+        from cometbft_tpu_torch.rpc.core import Environment, routes
+        from cometbft_tpu_torch.rpc.jsonrpc.server import JSONRPCServer
+        from cometbft_tpu_torch.types.genesis import GenesisDoc
+
+        _, bs, ss = rpc_db(items)
+        tx_ix, blk_ix = convert.indexers_from_items(index_items)
+        gen = GenesisDoc.from_json(gen_json)
+        honest = routes(Environment(config=test_config(), state_store=ss, block_store=bs,
+                                    genesis_doc=gen, tx_indexer=tx_ix, block_indexer=blk_ix,
+                                    node_info={"moniker": "chip-smoke-rpc",
+                                               "network": gen.chain_id}))
+        doctored = dict(honest, commit=rpc_doctored_commit(honest["commit"], bs))
+        for table in (honest, doctored):
+            srv = JSONRPCServer(table, host="127.0.0.1", port=0)
+            srv.start()
+            servers.append(srv)
+        conn.send({"ports": [s.port for s in servers]})
+        while conn.recv() != "close":
+            pass
+    except Exception as e:  # reported to the parent, which fails the run
+        conn.send({"error": repr(e)})
+    finally:
+        for srv in servers:
+            srv.stop()
+        conn.close()
+
+
+def rpc_route_split(stages: StageTimer) -> dict:
+    """A light sync's stage table with each route's JSON decode: its
+    ``HTTPClient.call`` (``{route}_call``) less its HTTP exchange
+    (``{route}_http``, ``HTTPClient._post``)."""
+    table = stages.table()
+    for key in [k for k in table if k.endswith("_call")]:
+        route = key[: -len("_call")]
+        table[f"{route}_json_decode"] = {
+            "ms": table[key]["ms"] - table.get(f"{route}_http", {}).get("ms", 0.0),
+            "calls": table[key]["calls"]}
+    return table
+
+
+def rpc_light_sync(url: str, anchor, backend, witness: bool = True):
+    """The port's light client over ``HTTPProvider(chain_id, HTTPClient(url))``
+    as primary and witness, trusting height 1 (the light block ``anchor``,
+    already in its store, as after a first start: the anchor's own fetch, a
+    third light block of 103 pages, is left out), from a cold cache, synced
+    to the tip under ``set_backend(backend)``: its construction and
+    ``verify_light_block_at_height``, timed together. The port's
+    ``HTTPClient`` is timed by route for the run (StageTimer, no
+    synchronize: ``call``, and inside it ``_post``, the HTTP exchange with
+    its bytes), as is ``HTTPProvider.light_block``. Returns the wall ms,
+    the trace (height, signed header bytes, validator set hash), the client
+    and its stages."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import HTTPProvider
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import Time
+
+    def provider():
+        return HTTPProvider(BSYNC_CHAIN_ID, HTTPClient(url, timeout=RPC_WAIT_S))
+
+    store = LightStore(MemDB())
+    store.save_light_block(anchor)
+    stages = StageTimer().wrap(
+        HTTPProvider, "light_block", "provider_light_block", sync=False).wrap(
+        HTTPClient, "call", lambda _c, method: f"{method}_call", sync=False).wrap(
+        HTTPClient, "_post", lambda _c, method, _p: f"{method}_http", sync=False,
+        count_bytes=True)
+    be.set_backend(backend)
+    ed25519._verified.clear()
+    try:
+        with stages:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            client = Client(BSYNC_CHAIN_ID, TrustOptions(TRUSTING_PERIOD_NS, 1, anchor.hash()),
+                            provider(), [provider()] if witness else [], store)
+            lb = client.verify_light_block_at_height(BSYNC_HEIGHTS, Time(RPC_NOW_S, 0))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        be.set_backend(None)
+    check(lb.height == BSYNC_HEIGHTS, f"the HTTP light client synced to {lb.height}")
+    trace = [(h, client.store.light_block(h).signed_header.encode(),
+              client.store.light_block(h).validator_set.hash()) for h in client.store._heights()]
+    return {"ms": wall, "trace": trace, "client": client, "stages": stages}
+
+
+def rpc_light_path(source, index_items, torch_backend, sync_reps: int) -> dict:
+    """(g): the node in its own process (``rpc_serve_main``); the counted
+    sync under a recording ``TorchBackend()`` (every verify launch from the
+    device-owner thread, three a card call), its trace equal to a
+    BlockStoreProvider client's over the same stores, the doctored tip
+    refused with the reference's error (one fetch), then ``sync_reps``
+    rounds of the default's sync (built only then), in turns with
+    TorchBackend()'s after the first (the counted run is its first), each
+    with its stage split."""
+    import multiprocessing
+
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import BlockStoreProvider
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import Time
+
+    node = source["node"]
+    items = list(node["db"].iterator())
+    anchor = BlockStoreProvider(BSYNC_CHAIN_ID, node["block_store"], node["state_store"]) \
+        .light_block(1)
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=rpc_serve_main, args=(child, items, index_items,
+                                                    source["gen"].to_json()), daemon=True)
+    t0 = time.perf_counter()
+    proc.start()
+    child.close()
+    out = {}
+    try:
+        check(conn.poll(RPC_WAIT_S), "the RPC server process did not start")
+        hello = conn.recv()
+        check("error" not in hello, f"the RPC server process failed: {hello.get('error')}")
+        out["server_start_s"] = time.perf_counter() - t0
+        honest, doctored = (f"http://127.0.0.1:{p}" for p in hello["ports"])
+
+        # The counted sync, and the BlockStoreProvider sync it must equal.
+        rec = LightRecorder(torch_backend, keep=True)
+        threads_seen = collections.Counter()
+        orig_check = _build.check_launch
+
+        def check_launch(kernel, rc):
+            threads_seen[(kernel, threading.current_thread().name)] += 1
+            return orig_check(kernel, rc)
+
+        before = dict(_build.LAUNCHES)
+        _build.check_launch = check_launch
+        try:
+            counted = rpc_light_sync(honest, anchor, rec)
+        finally:
+            _build.check_launch = orig_check
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        calls = len(rec.calls)
+        check(calls > 0 and launched == {"sha512": calls, "decompress": calls, "ladder": calls,
+                                         "sha256": 0, "bn254": 0},
+              f"HTTP light sync: launches {launched} for {calls} card calls")
+        check({t for (_, t) in threads_seen} <= {"cmtpu-torch-dev"},
+              f"HTTP light sync: kernels launched from {dict(threads_seen)}")
+        c = counted["client"]
+        check(c.speculation["errors"] == 0 and c.detector_errors == 0,
+              f"HTTP light sync: speculation errors {c.speculation['errors']}, detector errors "
+              f"{c.detector_errors}")
+        be.set_backend(torch_backend)
+        try:
+            store_client = Client(BSYNC_CHAIN_ID, TrustOptions(TRUSTING_PERIOD_NS, 1, anchor.hash()),
+                                  BlockStoreProvider(BSYNC_CHAIN_ID, node["block_store"],
+                                                     node["state_store"]),
+                                  [], LightStore(MemDB()))
+            store_client.verify_light_block_at_height(BSYNC_HEIGHTS, Time(RPC_NOW_S, 0))
+        finally:
+            be.set_backend(None)
+        store_trace = [(h, store_client.store.light_block(h).signed_header.encode(),
+                        store_client.store.light_block(h).validator_set.hash())
+                       for h in store_client.store._heights()]
+        check(counted["trace"] == store_trace and len(store_trace) >= 2,
+              f"HTTP light sync: trace {[t[0] for t in counted['trace']]} differs from the "
+              f"BlockStoreProvider client's {[t[0] for t in store_trace]}")
+        pages = len(counted["stages"].ms["validators_http"])
+        check(pages % -(-N_SIGS // RPC_PER_PAGE) == 0,
+              f"HTTP light sync: {pages} /validators pages, not a multiple of "
+              f"{-(-N_SIGS // RPC_PER_PAGE)}")
+        out["counted"] = {"ms": counted["ms"], "stages": rpc_route_split(counted["stages"]),
+                          "card_calls": [x["lanes"] for x in rec.calls],
+                          "backend_ms": [x["ms"] for x in rec.calls], "launches": launched,
+                          "launch_threads": {f"{k}@{t}": n for (k, t), n in threads_seen.items()},
+                          "heights": [t[0] for t in counted["trace"]],
+                          "validators_pages": pages}
+        triples = sorted(rec.triples, key=lambda t: len(t[0]))
+        out["largest"], out["smallest"] = triples[-1], triples[0]
+
+        # The doctored tip: one flipped signature bit, refused.
+        tip_sig = node["block_store"].load_seen_commit(BSYNC_HEIGHTS).signatures[0].signature
+        flipped = bytes([tip_sig[0] ^ 0x01]) + tip_sig[1:]
+        try:
+            rpc_light_sync(doctored, anchor, torch_backend, witness=False)
+            check(False, "HTTP light sync: the doctored tip commit was accepted")
+        except Exception as e:  # noqa: BLE001 - the refusal is checked below
+            # A set that never changes: the trusting check meets the bad lane
+            # first (tests/test_torch_rpc.py: the reference's error too).
+            want = ("ValueError", f"wrong signature (#0): {flipped.hex().upper()}")
+            check((type(e).__name__, str(e)) == want,
+                  f"HTTP light sync: the doctored tip raised {type(e).__name__}: {e}")
+            out["doctored"] = {"type": type(e).__name__, "text": str(e)}
+
+        # The timed syncs, in turns: the counted run is TorchBackend()'s first
+        # (its recorder adds a synchronize a backend call).
+        runs = {"torch": [counted["ms"]], "auto": []}
+        splits = {"torch": rpc_route_split(counted["stages"])}
+        if sync_reps:
+            with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                         CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+                auto = be._make_backend()
+            try:
+                for rnd in range(sync_reps):
+                    order = [("torch", torch_backend)] if rnd else []
+                    for label, bk in order + [("auto", auto)]:
+                        r = rpc_light_sync(honest, anchor, bk)
+                        check(r["trace"] == store_trace,
+                              f"HTTP light sync ({label}): trace differs")
+                        runs[label].append(r["ms"])
+                        splits[label] = rpc_route_split(r["stages"])
+            finally:
+                auto.close()
+        out["runs_ms"] = runs
+        out["ms"] = {k: statistics.median(v) for k, v in runs.items() if v}
+        out["stages"] = splits
+        conn.send("close")
+    finally:
+        proc.join(RPC_WAIT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        conn.close()
+    check(proc.exitcode == 0, f"the RPC server process exited {proc.exitcode}")
+    return out
+
+
+def rpc_verify_tx_answer(ans: dict, data_hash: bytes, tx: bytes) -> None:
+    """A ``tx?prove=true`` answer's proof, decoded from its JSON, against the
+    block's data hash (``TxProof.validate``)."""
+    from cometbft_tpu_torch.rpc.json_codec import tx_proof_from_json
+
+    tp = tx_proof_from_json(ans["proof"])
+    check(tp.data == tx, "tx?prove=true: the proof is of another transaction")
+    tp.validate(data_hash)
+
+
+def rpc_node_path(torch_backend, tmpdir: str) -> dict:
+    """(h): a one-validator chain assembled as the reference's node.py does
+    (ConsensusState with a FilePV, a provable kvstore, CListMempool, the
+    event bus, KV indexers behind IndexerService, JSONRPCServer on
+    127.0.0.1:0) under ``test_config()``'s timeouts. RPC_TXS transactions
+    through ``broadcast_tx_async`` over HTTP before the first height (so
+    that it carries them all), a websocket subscribed to NewBlock, then
+    RPC_COMMIT_TXS through ``broadcast_tx_commit``. Under
+    ``CMTPU_DEVICE_PROOFS=1`` the card's proof set of the first block (the
+    one its tx route computes) holds every proof, each verified against the
+    header's data hash, and every RPC_PROOF_STRIDE-th ``tx?prove=true``
+    answer over HTTP (~63 ms each) comes from the card and verifies, every
+    RPC_NATIVE_STRIDE-th equal to the native pass's answer; proven
+    ``abci_query`` answers verify through ``default_proof_runtime()`` against
+    the next header's app hash, each equal to the native pass's. Two sha256
+    launches a proof set on the card, none else."""
+    from cometbft_tpu_torch.abci.example.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.consensus.state import ConsensusState
+    from cometbft_tpu_torch.crypto import ed25519, merkle
+    from cometbft_tpu_torch.crypto.merkle.proof_op import ProofOp, ProofOps, default_proof_runtime
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.mempool import CListMempool
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+    from cometbft_tpu_torch.privval.file import FilePV
+    from cometbft_tpu_torch.proxy import AppConns, local_client_creator
+    from cometbft_tpu_torch.rpc.client import HTTPClient, RPCClientError
+    from cometbft_tpu_torch.rpc.core import Environment, routes
+    from cometbft_tpu_torch.rpc.jsonrpc.server import JSONRPCServer
+    from cometbft_tpu_torch.rpc.jsonrpc.ws_client import WSClient
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.state import BlockExecutor, StateStore, make_genesis_state
+    from cometbft_tpu_torch.state.txindex import IndexerService, KVBlockIndexer, KVTxIndexer
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.types import Time
+    from cometbft_tpu_torch.types.events import EventBus
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.tx import tx_hash
+
+    pv = FilePV(ed25519.gen_priv_key_from_secret(b"chip-smoke-rpc-validator"),
+                os.path.join(tmpdir, "priv_validator_key.json"),
+                os.path.join(tmpdir, "priv_validator_state.json"))
+    pv.save()
+    gen = GenesisDoc(chain_id=RPC_CHAIN_ID, genesis_time=Time(BSYNC_T0, 0), validators=[
+        GenesisValidator(pv.address(), pv.get_pub_key(), 10, "validator")])
+    gen.validate_and_complete()
+    state = make_genesis_state(gen)
+    cfg = test_config()
+    conns = AppConns(local_client_creator(KVStoreApplication(provable=True)))
+    conns.start()
+    mempool = CListMempool(cfg.mempool, conns.mempool)
+    ss, bs = StateStore(MemDB()), BlockStore(MemDB())
+    ss.save(state)
+    bus = EventBus()
+    bus.start()
+    tx_ix, blk_ix = KVTxIndexer(MemDB()), KVBlockIndexer(MemDB())
+    indexer = IndexerService(tx_ix, blk_ix, bus)
+    indexer.start()
+    executor = BlockExecutor(ss, conns.consensus, mempool, None, bs, event_bus=bus)
+    cs = ConsensusState(cfg.consensus, state, executor, bs, mempool, event_bus=bus)
+    cs.set_priv_validator(pv)
+    env = Environment(config=cfg, state_store=ss, block_store=bs, consensus_state=cs,
+                      mempool=mempool, event_bus=bus, genesis_doc=gen,
+                      priv_validator_pub_key=pv.get_pub_key(), tx_indexer=tx_ix,
+                      block_indexer=blk_ix, proxy_app_query=conns.query,
+                      node_info={"moniker": "chip-smoke-rpc", "network": RPC_CHAIN_ID})
+    srv = JSONRPCServer(routes(env), host="127.0.0.1", port=0)
+    srv.start()
+    rpc = HTTPClient(f"http://127.0.0.1:{srv.port}", timeout=RPC_WAIT_S)
+    ws = WSClient(srv.port, timeout=RPC_WAIT_S)
+    rec = LightRecorder(torch_backend)
+    device_sets = []
+    proof_threads = collections.Counter()  # the caller's thread of each card proof set
+    launch_threads = collections.Counter()  # (kernel, launching thread) of each launch
+    orig_device, orig_check = mk.proofs_from_byte_slices_device, _build.check_launch
+
+    def counted_device(items, device=None):
+        device_sets.append(len(items))
+        proof_threads[threading.current_thread().name] += 1
+        return orig_device(items, device)
+
+    def check_launch(kernel, rc):
+        launch_threads[(kernel, threading.current_thread().name)] += 1
+        return orig_check(kernel, rc)
+
+    seen, ws_error = [], []
+
+    def ws_reader():
+        try:
+            while True:
+                msg = ws.recv()
+                h = int(msg["result"]["data"]["value"]["block"]["header"]["height"])
+                seen.append((h, time.perf_counter()))
+        except (ConnectionError, OSError):
+            pass
+        except Exception as e:  # noqa: BLE001 - reported by the gate below
+            ws_error.append(repr(e))
+
+    out = {}
+    be.set_backend(rec)
+    mk.proofs_from_byte_slices_device = counted_device
+    _build.check_launch = check_launch
+    reader = None
+    try:
+        ws.send({"jsonrpc": "2.0", "id": 0, "method": "subscribe",
+                 "params": {"query": "tm.event='NewBlock'"}})
+        check(ws.recv().get("result") == {}, "websocket: the subscription failed")
+        reader = threading.Thread(target=ws_reader, name="rpc-ws", daemon=True)
+        reader.start()
+        txs = [rpc_tx(i) for i in range(RPC_TXS)]
+        t0 = time.perf_counter()
+        for tx in txs:
+            check(rpc.broadcast_tx_async(tx)["code"] == 0, "broadcast_tx_async refused a tx")
+        out["broadcast_async_ms_per_tx"] = (time.perf_counter() - t0) * 1e3 / len(txs)
+        check(mempool.size() == RPC_TXS, f"the mempool holds {mempool.size()} of {RPC_TXS}")
+        start = time.perf_counter()
+        cs.start()
+        deadline = time.monotonic() + RPC_WAIT_S
+        while bs.height() < 1:  # the first height reaps the mempool whole
+            check(time.monotonic() < deadline, "the one-validator chain made no block")
+            time.sleep(0.005)
+        commits = []
+        for i in range(RPC_COMMIT_TXS):
+            tx = b"rpc-commit-%d=done" % i
+            t1 = time.perf_counter()
+            res = rpc.broadcast_tx_commit(tx)
+            commits.append({"ms": (time.perf_counter() - t1) * 1e3, "height": int(res["height"]),
+                            "check": res["check_tx"]["code"], "deliver": res["deliver_tx"]["code"]})
+            txs.append(tx)
+            not_found = 0
+            while True:  # the indexer runs behind the Tx event broadcast_tx_commit waits on
+                try:
+                    rpc.tx(tx_hash(tx))
+                    break
+                except RPCClientError as e:
+                    check("not found" in str(e), f"tx: {e}")
+                    not_found += 1
+                    time.sleep(0.002)
+            commits[-1]["tx_not_yet_indexed"] = not_found
+        check(all(c["check"] == 0 and c["deliver"] == 0 for c in commits),
+              f"broadcast_tx_commit: {commits}")
+        first = bs.load_block(1)
+        check(len(first.data.txs) == RPC_TXS, f"height 1 carries {len(first.data.txs)} txs")
+        deadline = time.monotonic() + RPC_WAIT_S
+        while not all(tx_ix._db.get(b"tx:" + tx_hash(tx)) is not None for tx in txs):
+            check(time.monotonic() < deadline, "the indexer did not index every transaction")
+            time.sleep(0.05)
+        data_hash = bytes.fromhex(rpc.header(1)["header"]["data_hash"])
+        launches0 = dict(_build.LAUNCHES)
+        with environ(CMTPU_DEVICE_PROOFS="1"):  # the set the tx route computes, whole
+            root, proofs = merkle.proofs_from_byte_slices(txs[:RPC_TXS])
+        check(root == data_hash, "the card's root of the first block != its data hash")
+        for i, tx in enumerate(txs[:RPC_TXS]):
+            proofs[i].verify(data_hash, tx)
+
+        # Proven tx answers: the card, then every RPC_NATIVE_STRIDE-th by the native pass.
+        tx_ms, answers = [], {}
+        with environ(CMTPU_DEVICE_PROOFS="1"):
+            for i in range(0, RPC_TXS, RPC_PROOF_STRIDE):
+                t1 = time.perf_counter()
+                ans = rpc.tx(tx_hash(txs[i]), prove=True)
+                tx_ms.append((time.perf_counter() - t1) * 1e3)
+                rpc_verify_tx_answer(ans, data_hash, txs[i])
+                if i % RPC_NATIVE_STRIDE == 0:
+                    answers[i] = ans
+        native_ms = []
+        with environ(CMTPU_DEVICE_PROOFS="0"):
+            for i, ans in answers.items():
+                t1 = time.perf_counter()
+                check(rpc.tx(tx_hash(txs[i]), prove=True) == ans,
+                      f"tx?prove=true: the card's answer for tx {i} != the native pass's")
+                native_ms.append((time.perf_counter() - t1) * 1e3)
+        n_tx_proofs = len(tx_ms)
+
+        # Proven abci_query answers against the next header's app hash.
+        keys = [txs[i].split(b"=")[0] for i in range(0, RPC_TXS, RPC_TXS // RPC_QUERY_KEYS)]
+        query_ms, query_native_ms, queried = [], [], []
+        for key in keys:
+            with environ(CMTPU_DEVICE_PROOFS="1"):
+                t1 = time.perf_counter()
+                q = rpc.abci_query("", key, prove=True)["response"]
+                query_ms.append((time.perf_counter() - t1) * 1e3)
+            with environ(CMTPU_DEVICE_PROOFS="0"):
+                t1 = time.perf_counter()
+                qn = rpc.abci_query("", key, prove=True)["response"]
+                query_native_ms.append((time.perf_counter() - t1) * 1e3)
+            check({k: v for k, v in qn.items() if k != "height"}
+                  == {k: v for k, v in q.items() if k != "height"},
+                  f"abci_query: the card's proof for {key!r} != the native pass's")
+            queried.append((key, q))
+        for key, q in queried:
+            qh = int(q["height"])
+            deadline = time.monotonic() + RPC_WAIT_S
+            while bs.height() < qh + 1:
+                check(time.monotonic() < deadline, f"no height {qh + 1} to check a proof at")
+                time.sleep(0.01)
+            app_hash = bytes.fromhex(rpc.header(qh + 1)["header"]["app_hash"])
+            ops = ProofOps(ops=[ProofOp(o["type"], base64.b64decode(o["key"]),
+                                        base64.b64decode(o["data"]))
+                                for o in q["proofOps"]["ops"]])
+            default_proof_runtime().verify_value(ops, app_hash, "/x:" + key.hex(),
+                                                 base64.b64decode(q["value"]))
+        launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+        n_sets = len(device_sets)
+        check(n_sets == 1 + n_tx_proofs + len(keys)
+              and launched["sha256"] == 2 * n_sets and launched["bn254"] == 0,
+              f"proofs on the card: {n_sets} proof sets (the block's, {n_tx_proofs} tx, "
+              f"{len(keys)} query), launches {launched}")
+        # The proofs path launches on its caller's thread (crypto/merkle's
+        # proofs_from_byte_slices returns host bytes to its caller): the
+        # block's set on this thread, each proven answer's on the server's
+        # request thread that computes it. A verify launch would come from
+        # the device-owner thread.
+        me = threading.current_thread().name
+        check({k: n for k, n in launch_threads.items() if k[0] == "sha256"}
+              == {("sha256", t): 2 * n for t, n in proof_threads.items()}
+              and proof_threads[me] == 1
+              and all("process_request_thread" in t for t in proof_threads if t != me)
+              and {t for k, t in launch_threads if k != "sha256"} <= {"cmtpu-torch-dev"},
+              f"proofs on the card: launches by thread {dict(launch_threads)}, proof sets "
+              f"by caller {dict(proof_threads)}")
+        height = bs.height()
+        check(cs.prebatch_errors == 0 and cs.consensus_failures == 0,
+              f"the node counted errors: prebatch {cs.prebatch_errors}, consensus "
+              f"{cs.consensus_failures}")
+    finally:
+        mk.proofs_from_byte_slices_device = orig_device
+        _build.check_launch = orig_check
+        be.set_backend(None)
+        cs.stop()
+        ws.close()
+        if reader is not None:
+            reader.join(RPC_WAIT_S)
+        indexer.stop()
+        srv.stop()
+        bus.stop()
+    check(not ws_error, f"websocket: {ws_error}")
+    heights = [h for h, _ in seen]
+    check(heights == list(range(1, len(heights) + 1)) and heights[-1] >= height - 1,
+          f"websocket: NewBlock heights {heights[:5]}...{heights[-5:]}, the store at {height}")
+    times = [t for _, t in seen]
+    gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    out.update({
+        "first_height_ms": (times[0] - start) * 1e3, "heights": height,
+        "ms_per_height": statistics.median(gaps), "gaps_ms_max": max(gaps),
+        "commits": commits, "card_calls": [c["lanes"] for c in rec.calls],
+        "proven_tx": {"answers": n_tx_proofs, "ms_median": statistics.median(tx_ms),
+                      "ms_max": max(tx_ms), "native_answers": len(native_ms),
+                      "native_ms_median": statistics.median(native_ms),
+                      "leaves": RPC_TXS},
+        "proven_query": {"answers": len(query_ms), "ms_median": statistics.median(query_ms),
+                         "native_ms_median": statistics.median(query_native_ms),
+                         "leaves": device_sets[-1]},
+        "device_proof_sets": n_sets, "launches": launched,
+        "proof_set_callers": {"main": proof_threads[me], "request_threads": sum(
+            n for t, n in proof_threads.items() if t != me), "distinct_request_threads": len(
+            [t for t in proof_threads if t != me])},
+        "tx_leaves": txs[:RPC_TXS], "kv_leaves": conns.query._app._kv_leaves()[1],
+    })
+    return out
+
+
+def rpc_compare_levels(sets: dict, dev, sms, clock_hz) -> dict:
+    """The sha256 levels entry against its plain version, every word, at
+    the RPC path's proof sets (a block's transactions, the kv leaves), timed
+    beside its bound."""
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    out = {}
+    for name, items in sets.items():
+        flat, offsets = mk.pack_leaves(items, dev)
+        got = mk.tree_levels_raw(flat, offsets)
+        want = mk.tree_levels_raw_plain(flat, offsets)
+        err = max_abs_err(got.cpu(), want.cpu())
+        check(err == 0, f"sha256 levels entry at {name} ({len(items)} leaves) != plain")
+        t_b = levels_bound(mk, flat, offsets, sms, clock_hz)
+        out[name] = {"leaves": len(items), "max_abs_err": err,
+                     "ms": time_cuda(lambda f=flat, o=offsets: mk.tree_levels_raw(f, o), 20),
+                     "plain_ms": time_host(lambda f=flat, o=offsets: (
+                         mk.tree_levels_raw_plain(f, o), torch.cuda.synchronize())),
+                     "bound_ms": t_b[0], "bound_by": t_b[1]}
+    return out
+
+
+def drive_rpc_path(sources, torch_backend, dev, sms, clock_hz, sync_reps: int) -> dict:
+    """The RPC phase (module docstring, step 20): (f), (g) with ``sync_reps``
+    rounds of the default's sync, (h), the launch counts of the whole drive,
+    the kernels at the path's batches."""
+    import tempfile
+
+    from cometbft_tpu_torch.ops import _build
+
+    source = sources["10k"]
+    _build.reset_launches()
+    restart = rpc_restart(source, torch_backend)
+    restart_launches = dict(_build.LAUNCHES)
+    check(restart_launches == {"sha512": 2, "decompress": 2, "ladder": 2, "sha256": 0,
+                               "bn254": 0},
+          f"restart: launches {restart_launches}, expected one verify set (the LastCommit) "
+          f"in each of (ii)'s two runs")
+    light = rpc_light_path(source, restart.pop("index_items"), torch_backend, sync_reps)
+    with tempfile.TemporaryDirectory() as tmp:
+        node = rpc_node_path(torch_backend, tmp)
+    launches = dict(_build.LAUNCHES)
+    batches = {}
+    for label, trip in (("final_block", restart.pop("final_block")),
+                        ("light_largest", light.pop("largest")),
+                        ("light_smallest", light.pop("smallest"))):
+        batches[f"{label}_{len(trip[0])}"] = corrupt_four(*trip)
+    kernels = bsync_window_kernels(batches, dev)
+    levels = rpc_compare_levels({"block_txs": node.pop("tx_leaves"),
+                                 "kv_leaves": node.pop("kv_leaves")}, dev, sms, clock_hz)
+    return {"launches": launches, "restart": restart, "light": light, "node": node,
+            "kernels": kernels, "levels": levels}
+
+
+def rpc_phase(sources, backend, dev, card, records, sms, clock_hz, sync_reps: int = 0) -> tuple:
+    """Runs the RPC path (step 20), prints its metrics and gates, merges its
+    kernel comparisons into ``records``; returns its launches. ``sync_reps``
+    rounds of the default's HTTP sync: 0 in the full run, which keeps near
+    1,000 s; 1 under ``--rpc``."""
+    start = time.perf_counter()
+    out = drive_rpc_path(sources, backend, dev, sms, clock_hz, sync_reps)
+    for k in ("sha512", "decompress", "ladder"):
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in out["kernels"].values()])
+    records["sha256"]["max_abs_err"] = max([records["sha256"]["max_abs_err"]] + [
+        v["max_abs_err"] for v in out["levels"].values()])
+    r, g, h = out["restart"], out["light"], out["node"]
+    print(f"RPC path ok (restart: the app wiped, {r['i']['replayed']} blocks replayed to the "
+          f"source's app hash and state, {r['i']['indexed']} transactions indexed; the crash "
+          f"after save_block, the final block through apply_block, its {N_SIGS}-signature "
+          f"LastCommit on the card; a wrong app hash refused; a light client synced the "
+          f"{N_SIGS}-validator chain over HTTP as over the block store, the doctored tip "
+          f"refused ({g['doctored']['type']}); a one-validator chain served {h['heights']} "
+          f"heights over RPC, {h['proven_tx']['answers']} tx and "
+          f"{h['proven_query']['answers']} query proofs from the card verified); launches "
+          f"{out['launches']}", flush=True)
+    common = {"device": torch.cuda.get_device_name(0), "card": card}
+    print(json.dumps({"metric": "handshake_replay_10k_ms", "value": r["i"]["ms"],
+                      "validators": N_SIGS, "heights": BSYNC_HEIGHTS, "txs_a_block": BSYNC_TXS,
+                      "by_case": {"app_wiped": r["i"]["ms"], "crash_after_save_block": r["ii"]["ms"]},
+                      "restart": r, **common}), flush=True)
+    print(json.dumps({"metric": "rpc_light_sync_10k_ms", "value": g["ms"]["torch"],
+                      "validators": N_SIGS, "heights": BSYNC_HEIGHTS, "by_backend": g["ms"],
+                      "runs_ms": g["runs_ms"], "stages": g["stages"], "counted": g["counted"],
+                      "doctored": g["doctored"], "server_start_s": g["server_start_s"],
+                      "server": "a process of its own", **common}), flush=True)
+    print(json.dumps({"metric": "rpc_chain_ms_per_height", "value": h["ms_per_height"],
+                      "proven_tx_ms": h["proven_tx"]["ms_median"],
+                      "proven_query_ms": h["proven_query"]["ms_median"],
+                      **{k: v for k, v in h.items() if k != "ms_per_height"}, **common}),
+          flush=True)
+    print(json.dumps({"rpc": {"kernels": out["kernels"], "levels": out["levels"],
+                              "launches": out["launches"]},
+                      "phase_s": time.perf_counter() - start, **common}), flush=True)
+    return out["launches"], out["levels"]
+
+
+def rpc_only(card, dev, sms, clock_hz) -> int:
+    """``--rpc``: the keys, the 10,240-validator blocksync source and the RPC
+    phase alone (a quick check of that phase on the card; no result line)."""
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    backend = TorchBackend()
+    big = bsync_10k_source(fixtures, backend)
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder", "sha256")}
+    launches, _ = rpc_phase({"10k": big}, backend, dev, card, records, sms, clock_hz,
+                            sync_reps=1)
+    print(json.dumps({"rpc_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
 N_SHARDS = 2
 
 
@@ -5723,6 +6662,8 @@ def main() -> int:
         return consensus_only(card, dev)
     if sys.argv[1:] == ["--network"]:
         return network_only(card, dev)
+    if sys.argv[1:] == ["--rpc"]:
+        return rpc_only(card, dev, props.multi_processor_count, clock_hz)
     procs: list = []  # every process the phases start, ended here
     try:
         return run_phases(card, dev, props, clock_hz, so, procs)
@@ -5734,7 +6675,7 @@ def main() -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-21 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-22 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -5966,6 +6907,8 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     by_path["consensus"], cons_fx = consensus_phase(fixtures, sources, backend, dev, card,
                                                     records, timed=0)
     by_path["network"] = network_phase(fixtures, sources, backend, dev, card, records, cons_fx)
+    by_path["rpc"], records["sha256"]["rpc_levels"] = rpc_phase(
+        sources, backend, dev, card, records, props.multi_processor_count, clock_hz)
 
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(
@@ -6013,7 +6956,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
             "kernel_ms": rec["kernel_ms"],
             **{k: v for k, v in rec.items()
                if k in ("threads_per_lane", "ms_by_group", "bound_ms_at_imad_wide_rate", "digests",
-                        "chain_floor_ms",
+                        "chain_floor_ms", "rpc_levels",
                         "ms_by_lanes", "plain_ms_by_lanes", "bound_ms_by_lanes", "fp_muls_a_lane",
                         "queued_ms")
                or k.startswith("levels")},

@@ -3,9 +3,9 @@ persistent variant with validator updates (persistent_kvstore.go:
 "val:pubkeybase64!power" txs), the port's copy of
 ``cometbft_tpu/abci/example/kvstore.py``.
 
-A proven query (``RequestQuery.prove`` on a provable store) needs the
-ValueOp proof operator (``crypto/merkle/proof_value``), which is not ported:
-it raises ``NotImplementedError`` naming it.
+A proven query (``RequestQuery.prove`` on a provable store) answers with one
+``ValueOp`` proof op (``crypto/merkle/proof_value``) over the sorted kv
+leaves, whose root is the app hash.
 """
 
 from __future__ import annotations
@@ -282,10 +282,16 @@ class KVStoreApplication(abci.Application):
         return keys, leaves
 
     def _prove(self, key: bytes) -> list:
-        raise NotImplementedError(
-            "proven kvstore queries need crypto/merkle/proof_value (ValueOp), "
-            "which is not ported"
-        )
+        from cometbft_tpu_torch.crypto.merkle import proofs_from_byte_slices
+        from cometbft_tpu_torch.crypto.merkle.proof_value import ValueOp
+
+        keys, leaves = self._kv_leaves()
+        try:
+            idx = keys.index(key)
+        except ValueError:
+            return []
+        _, proofs = proofs_from_byte_slices(leaves)
+        return [ValueOp(key, proofs[idx]).proof_op()]
 
 
 class PersistentKVStoreApplication(KVStoreApplication):

@@ -1,8 +1,9 @@
 """Node configuration (config/config.go), the port's copy of what the ported
-modules read of ``cometbft_tpu/config/config.py``: ``P2PConfig``,
-``MempoolConfig`` and ``ConsensusConfig``, their fields and defaults, a
-``Config`` of those three sections and ``test_config``. The other sections
-wait for the node."""
+modules read of ``cometbft_tpu/config/config.py``: ``RPCConfig``,
+``P2PConfig``, ``MempoolConfig`` and ``ConsensusConfig``, their fields and
+defaults, a ``Config`` of those sections and ``test_config``. The other
+sections (``TxIndexConfig`` among them: nothing in the port selects an
+indexer yet) wait for the node."""
 
 from __future__ import annotations
 
@@ -13,6 +14,20 @@ from cometbft_tpu_torch.p2p.conn.connection import (
     DEFAULT_RECV_RATE,
     DEFAULT_SEND_RATE,
 )
+
+
+@dataclass
+class RPCConfig:
+    """config/config.go:330-480: the fields the port reads. ``laddr`` is
+    where a node serves ``rpc/jsonrpc/server.JSONRPCServer``;
+    ``timeout_broadcast_tx_commit`` bounds the waits of
+    ``broadcast_tx_sync`` and ``broadcast_tx_commit`` (seconds); ``unsafe``
+    adds the dial and flush routes (``rpc/core.routes``). The CORS, TLS,
+    gRPC and connection limits wait for the node slice, which reads them."""
+
+    laddr: str = "tcp://127.0.0.1:26657"
+    unsafe: bool = False
+    timeout_broadcast_tx_commit: float = 10.0
 
 
 @dataclass
@@ -97,6 +112,7 @@ class ConsensusConfig:
 class Config:
     """The sections of config/config.go:67-120 that the port reads."""
 
+    rpc: RPCConfig = dfield(default_factory=RPCConfig)
     p2p: P2PConfig = dfield(default_factory=P2PConfig)
     mempool: MempoolConfig = dfield(default_factory=MempoolConfig)
     consensus: ConsensusConfig = dfield(default_factory=ConsensusConfig)
@@ -116,4 +132,5 @@ def test_config() -> Config:
         skip_timeout_commit=True,
         peer_query_maj23_sleep_duration=0.25,
     )
+    c.rpc.laddr = "tcp://127.0.0.1:36657"
     return c

@@ -1,3 +1,3 @@
 """Consensus: the Tendermint BFT state machine (consensus/ in CometBFT),
-the port's copy of ``cometbft_tpu/consensus`` without its reactor and
-replay, which wait for the p2p and node slices."""
+the port's copy of ``cometbft_tpu/consensus``: the state machine, its WAL,
+the reactor and the Handshaker's replay (``replay.py``)."""

@@ -51,6 +51,11 @@ reference's key of that seed); ``node_info_from_wire`` takes the
 ``p2p_config_from_fields`` a ``P2PConfig`` from the reference's fields
 (``dataclasses.asdict`` of its ``P2PConfig``), of which it keeps the ones
 the port reads.
+
+The RPC tier carries indexes and proofs: ``indexers_from_items`` puts a
+reference index's DB items under the port's ``KVTxIndexer`` and
+``KVBlockIndexer``, and ``proof_ops_from_wire`` takes a query's proof ops
+as proto bytes (tendermint.crypto.ProofOps).
 """
 
 from __future__ import annotations
@@ -297,6 +302,29 @@ def node_info_from_wire(encoded: bytes):
     from cometbft_tpu_torch.p2p.node_info import NodeInfo
 
     return NodeInfo.decode(encoded)
+
+
+def indexers_from_items(items):
+    """The port's ``KVTxIndexer`` and ``KVBlockIndexer`` over one ``MemDB``
+    holding a reference index's (key, value) pairs (its indexers' DB items,
+    the tx and block indexes in one DB or two): the keys and values are the
+    same bytes in both packages."""
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.state.txindex import KVBlockIndexer, KVTxIndexer
+
+    db = MemDB()
+    for k, v in items:
+        db.set(bytes(k), bytes(v))
+    return KVTxIndexer(db), KVBlockIndexer(db)
+
+
+def proof_ops_from_wire(encoded: bytes):
+    """A ``crypto/merkle.proof_op.ProofOps`` from its proto bytes
+    (tendermint.crypto.ProofOps, as ``ResponseQuery.proof_ops`` carries it)."""
+    from cometbft_tpu_torch.crypto.merkle.proof_op import ProofOps
+    from cometbft_tpu_torch.wire.types import decode_proof_ops
+
+    return ProofOps(ops=decode_proof_ops(encoded))
 
 
 def p2p_config_from_fields(fields: dict):

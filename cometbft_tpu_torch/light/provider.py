@@ -5,8 +5,8 @@ A Provider serves a chain's LightBlocks and takes evidence reports.
 ``BlockStoreProvider`` serves a node's own block and state stores;
 ``HTTPProvider`` sits over a duck-typed RPC client (``commit(height)``,
 ``validators(height, page, per_page)``, ``broadcast_evidence(ev)``, JSON as
-a node's ``/commit`` and ``/validators`` routes answer): the HTTP client
-itself is not ported yet."""
+a node's ``/commit`` and ``/validators`` routes answer): in a node's
+peers, ``rpc/client.HTTPClient`` over ``rpc/jsonrpc/server.JSONRPCServer``."""
 
 from __future__ import annotations
 

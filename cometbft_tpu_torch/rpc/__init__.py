@@ -1,3 +1,5 @@
-"""RPC payload codecs (rpc/ in CometBFT): the port has ``json_codec``, which
-the light client's HTTP provider decodes with; the RPC server and its HTTP
-client are not ported yet."""
+"""RPC / API layer (rpc/ in CometBFT), the port's copy of
+``cometbft_tpu/rpc``: ``json_codec`` (RPC JSON to types), ``jsonrpc.server``
+(``JSONRPCServer``), ``core`` (``Environment`` and the route table) and
+``client`` (``HTTPClient``, ``LocalClient``, ``MockClient``). The gRPC
+broadcast server waits for its slice."""

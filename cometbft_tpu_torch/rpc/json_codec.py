@@ -3,7 +3,8 @@ serializers; rpc/core/types/responses.go and the types' JSON), the port's
 copy of ``cometbft_tpu/rpc/json_codec.py``.
 
 The light client's HTTP provider decodes a node's ``/commit`` answer with
-it."""
+it; ``tx_proof_from_json`` decodes the proof of a ``tx`` answer with
+``prove`` (the port's route answers it in JSON, ROADMAP §3 F4)."""
 from __future__ import annotations
 
 import base64
@@ -89,4 +90,24 @@ def signed_header_from_json(d: dict) -> SignedHeader:
     return SignedHeader(
         header=header_from_json(d["header"]),
         commit=commit_from_json(d["commit"]),
+    )
+
+
+def tx_proof_from_json(d: dict):
+    """A ``types/tx.TxProof`` from the ``proof`` of a ``tx`` answer:
+    ``root_hash`` upper-hex, ``data`` base64, ``proof`` with ``total``,
+    ``index`` and base64 ``leaf_hash`` and ``aunts``."""
+    from cometbft_tpu_torch.crypto.merkle import Proof
+    from cometbft_tpu_torch.types.tx import TxProof
+
+    p = d["proof"]
+    return TxProof(
+        root_hash=_hx(d["root_hash"]),
+        data=base64.b64decode(d["data"]),
+        proof=Proof(
+            total=int(p["total"]),
+            index=int(p["index"]),
+            leaf_hash=base64.b64decode(p["leaf_hash"]),
+            aunts=[base64.b64decode(a) for a in p["aunts"]],
+        ),
     )

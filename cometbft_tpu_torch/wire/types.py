@@ -39,3 +39,36 @@ def decode_value_op(data: bytes):
     key = wire.get_bytes(f, 1)
     proof_raw = wire.get_bytes(f, 2)
     return key, decode_proof(proof_raw)
+
+
+def encode_proof_ops(ops: list) -> bytes:
+    """tendermint.crypto.ProofOps {ops=1: ProofOp {type=1, key=2, data=3}}:
+    the body of ``ResponseQuery.proof_ops`` (the reference encodes it in
+    ``abci/wire.py``, as ``_enc_proof_ops``)."""
+    out = b""
+    for op in ops:
+        body = (
+            wire.field_string(1, op.type)
+            + wire.field_bytes(2, op.key)
+            + wire.field_bytes(3, op.data)
+        )
+        out += wire.field_message(1, body, emit_empty=True)
+    return out
+
+
+def decode_proof_ops(data: bytes) -> list:
+    """The inverse of ``encode_proof_ops``: a list of ``ProofOp``."""
+    from cometbft_tpu_torch.crypto.merkle.proof_op import ProofOp
+
+    f = wire.decode_fields(data)
+    out = []
+    for b in wire.get_repeated_bytes(f, 1):
+        of = wire.decode_fields(b)
+        out.append(
+            ProofOp(
+                type=wire.get_string(of, 1),
+                key=wire.get_bytes(of, 2),
+                data=wire.get_bytes(of, 3),
+            )
+        )
+    return out

@@ -180,8 +180,13 @@ def test_kvstore_matches_reference():
         a.begin_block(mod.RequestBeginBlock())
         a.deliver_tx(mod.RequestDeliverTx(tx=b"p=1"))
     assert provable.commit().data == ref_provable.commit().data
-    with pytest.raises(NotImplementedError, match="proof_value"):
-        provable.query(abci.RequestQuery(data=b"p", prove=True))
+    from cometbft_tpu.abci.wire import _enc_proof_ops as ref_enc_proof_ops
+    from cometbft_tpu_torch.wire.types import encode_proof_ops
+
+    proven = provable.query(abci.RequestQuery(data=b"p", prove=True))
+    ref_proven = ref_provable.query(ref_abci.RequestQuery(data=b"p", prove=True))
+    assert len(proven.proof_ops) == 1
+    assert encode_proof_ops(proven.proof_ops) == ref_enc_proof_ops(ref_proven.proof_ops)
 
 
 def test_persistent_kvstore_validator_txs():

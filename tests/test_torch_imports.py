@@ -1,11 +1,12 @@
 """Boundaries of the port: it imports neither jax nor the JAX package (the
 native loader, the supervisor, chaos, the fleet tier, the BN254 chain, the
 tooling, the types, commit verification, blocksync, the light client,
-evidence, sigbatch, the RPC codec, consensus, privval, the simnet, p2p and
-the consensus and mempool reactors included), it never falls back to the
-CPU when CUDA is asked for (the hybrid tier and the chains neither), and a
-missing CUDA compiler is an error, not a silent switch to the plain
-versions."""
+evidence, sigbatch, the RPC codec, consensus, privval, the simnet, p2p, the
+consensus and mempool reactors, the Merkle proof operators, the Handshaker,
+the indexers and the RPC server, routes and client included), it never
+falls back to the CPU when CUDA is asked for (the hybrid tier and the
+chains neither), and a missing CUDA compiler is an error, not a silent
+switch to the plain versions."""
 
 import pkgutil
 import subprocess
@@ -158,6 +159,17 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.p2p.conn.connection",
         "cometbft_tpu_torch.consensus.reactor",
         "cometbft_tpu_torch.mempool.reactor",
+        "cometbft_tpu_torch.crypto.merkle",
+        "cometbft_tpu_torch.crypto.merkle.proof_op",
+        "cometbft_tpu_torch.crypto.merkle.proof_value",
+        "cometbft_tpu_torch.crypto.merkle.proof_key_path",
+        "cometbft_tpu_torch.consensus.replay",
+        "cometbft_tpu_torch.state.txindex",
+        "cometbft_tpu_torch.rpc.jsonrpc",
+        "cometbft_tpu_torch.rpc.jsonrpc.server",
+        "cometbft_tpu_torch.rpc.jsonrpc.ws_client",
+        "cometbft_tpu_torch.rpc.core",
+        "cometbft_tpu_torch.rpc.client",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 

@@ -638,3 +638,54 @@ def test_http_provider_and_remote_gateway_decode_the_reference_json(node_chain):
         {k: v for k, v in q.items() if k != "light_block"}
     assert remote.stats() == ref_remote.stats()
     assert ref_backend is not None and ref_engine.CLASS_LIGHT == engine.CLASS_LIGHT
+
+
+def test_http_provider_and_remote_gateway_over_the_port_server(node_chain):
+    """The same assertions through the port's real RPC tier: its
+    ``JSONRPCServer`` on 127.0.0.1:0 serving its ``routes`` over the chain's
+    stores (carried across), and its ``HTTPClient``. The evidence a provider
+    reports lands in the server's evidence pool."""
+    from cometbft_tpu.types.evidence import encode_evidence as ref_encode_evidence
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.rpc.core import Environment as PortEnvironment
+    from cometbft_tpu_torch.rpc.core import routes as port_routes
+    from cometbft_tpu_torch.rpc.jsonrpc.server import JSONRPCServer
+
+    bs, ss = convert.stores_from_items(node_chain.db_items)
+    gw = gateway.LightGateway(tc.CHAIN_ID, provider.BlockStoreProvider(tc.CHAIN_ID, bs, ss))
+    ref_gw = ref_gateway.LightGateway(tc.CHAIN_ID, ref_provider.BlockStoreProvider(
+        tc.CHAIN_ID, node_chain.block_store, node_chain.state_store))
+    pool = EvidencePool(MemDB(), ss, bs)
+    prev = backend._backend
+    backend.set_backend(backend.CpuBackend())  # the server's evidence check
+    srv = JSONRPCServer(port_routes(PortEnvironment(block_store=bs, state_store=ss,
+                                                    evidence_pool=pool,
+                                                    light_gateway=lambda: gw)), port=0)
+    srv.start()
+    try:
+        rpc = HTTPClient(f"http://127.0.0.1:{srv.port}")
+        fake = _FakeRPC(Environment(block_store=node_chain.block_store,
+                                    state_store=node_chain.state_store,
+                                    light_gateway=lambda: ref_gw))
+        port = provider.HTTPProvider(tc.CHAIN_ID, rpc)
+        ref = ref_provider.HTTPProvider(tc.CHAIN_ID, rpc)
+        for h in (0, 1, 3, 5):
+            assert port.light_block(h).encode() == ref.light_block(h).encode() == \
+                ref_provider.HTTPProvider(tc.CHAIN_ID, fake).light_block(h).encode()
+        assert lc.outcome(lambda: port.light_block(9)) == lc.outcome(lambda: ref.light_block(9))
+        dup = tc._duplicate_vote(node_chain.states[3], node_chain.pvs[1], 3)
+        port.report_evidence(convert.evidence_from_wire(ref_encode_evidence(dup)))
+        assert [ev.hash() for ev in pool.pending_evidence(1 << 20)[0]] == [dup.hash()]
+        remote, ref_remote = gateway.RemoteGateway(rpc), ref_gateway.RemoteGateway(rpc)
+        assert [lb.encode() for lb in remote.sync_plan(1, 5)] == \
+            [lb.encode() for lb in ref_remote.sync_plan(1, 5)]
+        p, q = remote.prove(4, anchor_height=1), ref_remote.prove(4, anchor_height=1)
+        assert p["light_block"].encode() == q["light_block"].encode()
+        assert {k: v for k, v in p.items() if k != "light_block"} == \
+            {k: v for k, v in q.items() if k != "light_block"}
+        assert remote.stats() == ref_remote.stats()
+    finally:
+        srv.stop()
+        backend.set_backend(prev)
