@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bn254-lanes   # only the bn254 kernel's times
+    python3 chip_smoke.py --blocksync     # only the blocksync path (and what it needs)
     python3 chip_smoke.py --light         # only the light path (and what it needs)
     python3 chip_smoke.py --consensus     # only the consensus path (and what it needs)
     python3 chip_smoke.py --network       # only the network path (and what it needs)
     python3 chip_smoke.py --rpc           # only the RPC path (and what it needs)
+    python3 chip_smoke.py --node          # only the node path (and what it needs)
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -44,7 +46,11 @@ the RPC path a restart through ``consensus/replay.Handshaker``, a light
 client syncing the 10,240-validator chain over HTTP from the port's
 ``rpc/jsonrpc/server.JSONRPCServer`` (``rpc/core`` routes, ``rpc/client``)
 and a one-validator chain served over RPC with proven answers
-(``state/txindex``, ``crypto/merkle/proof_op``).
+(``state/txindex``, ``crypto/merkle/proof_op``), and the node path the
+port's ``node/node.Node`` as ``default_new_node`` builds it from a home on
+disk: a node admitting signed transactions through its QoS ingress
+(``mempool/ingress``) over HTTP, and a fresh node catching up with the
+10,240-validator chain over TCP (blocksync, PEX, the consensus catch-up).
 In order:
 
   1. prints the PyTorch version and the card (name, power limit);
@@ -68,9 +74,11 @@ In order:
      turns, verdict and accumulator; the sha256 tree entry at the 65,536-
      and 10,000-leaf roots, its leaf and inner entries level by level, and
      its levels entry (every tree level, what the proofs run) at 65,536 and
-     10,000 leaves, at the part set, its ragged form and a short/long mix,
-     and the part set's block cut into leaves of several lengths under each
-     leaf load and chunk; the bn254 Miller loop at 8,192, 4,096 and 32
+     10,000 leaves, at the part set, its ragged form and a short/long mix
+     (the long-leaf sets' plain version on the CPU, in the process pool the
+     fixtures are signed in, started after the build, while the card's
+     comparisons run), and the part set's block cut into leaves of several
+     lengths under each leaf load and chunk; the bn254 Miller loop at 8,192, 4,096 and 32
      lanes (the aggregate's two chunks, the vote batch) with edge lanes (the padding lane, coordinates 0, 1 and
      P - 1, off-curve field elements); prints ptxas's registers and spills,
      the ladder's and bn254's launch shapes and, where cuobjdump exists,
@@ -192,14 +200,17 @@ In order:
      completes the sync (``sync_errors`` 1, ``prefetch_errors`` 0). Then
      ``blocksync_10k_ms_per_block`` and ``blocksync_150_ms_per_block``:
      the default (pipeline on, the native proofs pass) under
-     ``TorchBackend()`` and the process default in turns, BSYNC_REPS rounds,
-     the pipeline off beside it, ``pipeline_overlap_ms``, the stage split
-     of each height; no ChainExhausted fallback. Last, the three verify
-     kernels at each batch shape the path gave them (both windows, one
-     commit, both light checks: 20,480, 10,240, 6,827, 4,650 and 101 lanes,
-     four lanes of each corrupted), each against its plain version on the
-     same operands with max abs err 0 and the verdicts false at exactly the
-     corrupted lanes, then timed by events;
+     ``TorchBackend()`` (under ``--blocksync`` the process default too, in
+     turns), BSYNC_REPS rounds, the counted runs' pipeline off beside it,
+     ``pipeline_overlap_ms``, the stage split of each height; no
+     ChainExhausted fallback. Last, the
+     three verify kernels at each batch shape the path gave them (both
+     windows, one commit, both light checks: 20,480, 10,240, 6,827, 4,650
+     and 101 lanes, four lanes of each corrupted), each against its plain
+     version on the same operands (the plain versions once over every
+     batch's lanes joined, each batch's lanes held to its own) with max abs
+     err 0 and the verdicts false at exactly the corrupted lanes, then
+     timed by events;
  17. runs the light path (``light/``, ``evidence/``, ``crypto/sigbatch``):
      fixtures built with the port's types (``light_fixtures``): a
      10,240-validator chain of LIGHT_HEIGHTS heights whose set rotates
@@ -228,23 +239,23 @@ In order:
      default (its engine), a flipped copy is refused; every error counter
      as planted (none), one sha512 / decompress / ladder set a card call.
      Then ``light_sync_10k_ms``, ``light_sync_150_ms`` and
-     ``evidence_verify_10k_ms`` (medians of LIGHT_REPS, ``TorchBackend()``
-     and the process default in turns, cold caches), ``light_gateway_64_ms``
-     in each mode, the 10,240 sync's stage split, the lanes of every call by
-     its caller; last, the three verify kernels at the path's own batches
+     ``evidence_verify_10k_ms`` (medians of LIGHT_REPS, ``TorchBackend()``,
+     under ``--light`` the process default too, in turns, cold caches),
+     ``light_gateway_64_ms`` in each mode, the 10,240 sync's stage split,
+     the lanes of every call by its caller; last, the three verify kernels at the path's own batches
      (the largest prewarm at each size, the evidence check), four lanes of
      each corrupted, held to their plain versions and timed;
  18. runs the consensus path (``consensus/``, ``types/vote_set``,
      ``simnet/``), launch counts zeroed before it and read after. (a) The
-     port's simnet (``simnet/scenario``, CONS_SIM: 150 validators, 2 blocks,
+     port's simnet (``simnet/scenario``, CONS_SIM: 150 validators, 1 block,
      seed 7, 25 ms vote buckets, the simnet's WAN defaults over 4 zones),
      with one verified-triple cache a node (``SimCaches``: as in a network
      of a process a node, each node checks every vote it receives), under a
-     recording ``TorchBackend()`` and under the process default: each run
-     ok, hash agreement and safety, no straggler, every error counter 0
-     (prebatch errors, consensus failures, drain failures, sigbatch
-     fallbacks), the same block hashes, commit times, simulated time and
-     events under both, card lanes at every height and one sha512 /
+     recording ``TorchBackend()`` and, under ``--consensus``, the process
+     default: each run ok, hash agreement and safety, no straggler, every
+     error counter 0 (prebatch errors, consensus failures, drain failures,
+     sigbatch fallbacks), the same block hashes, commit times, simulated
+     time and events under both, card lanes at every height and one sha512 /
      decompress / ladder set a card call; a flood run (2 blocks, the
      reference's flooder window on node 1 with each replay's signature bit
      flipped and sent through the vote buckets): the card refuses the bad
@@ -265,9 +276,10 @@ In order:
      ``simnet_150_ms_per_height`` (wall ms a committed height, with the
      card's calls and lanes a height and the scalar checks) and
      ``consensus_10k_ms_per_height`` (the proposal's enqueue to the commit,
-     the median of heights 2 to CONS_HEIGHTS, ``TorchBackend()`` and the
-     process default in turns; in the full run these runs are the network
-     phase's, in turns with path (c)) with the stage split of each height; last,
+     the median of heights 2 to CONS_HEIGHTS: under ``--consensus`` of
+     timed runs under ``TorchBackend()`` and the process default in turns,
+     in the full run of the counted run) with the stage split of each
+     height; last,
      the three verify kernels at the path's batches (the follower's largest
      and smallest prebatch, the simnet's and the flood's largest bucket),
      four lanes of each corrupted, held to plain and timed;
@@ -288,9 +300,11 @@ In order:
      connection both ways (the flowrate monitors), the demux shed nothing
      of the consensus class, the relays received only NewRoundSteps, no
      error counted on any Switch, reactor, MConnection or SecretConnection;
-     then NET_TIMED rounds of (b) and (c) in turns under ``TorchBackend()``
-     and the process default: ``consensus_10k_wire_ms_per_height`` (median
-     of heights 2 to CONS_HEIGHTS) beside (b)'s, ``AEAD_PROVIDER``, each
+     then, under ``--network``, NET_TIMED rounds of (b) and (c) in turns
+     under ``TorchBackend()`` and the process default:
+     ``consensus_10k_wire_ms_per_height`` (median of heights 2 to
+     CONS_HEIGHTS; in the full run the counted run's) beside (b)'s,
+     ``AEAD_PROVIDER``, each
      connection's handshake ms, bytes and frames a height, the demux's
      counters. (d) NET_MESH validators (the port's ConsensusState,
      ConsensusReactor and MempoolReactor on a Switch each) in a full mesh
@@ -320,7 +334,8 @@ In order:
      the IndexerService from the bus, no pump left after ``stop()``;
      ``handshake_replay_10k_ms`` of each from a bare run, its stage split
      from a second, instrumented run. (g) The port's JSONRPCServer in a
-     process of its own serving ``routes(Environment(...))`` over the
+     process of its own (started before (f), sent (f)'s indexes after it)
+     serving ``routes(Environment(...))`` over the
      source's stores and (f)'s indexes; the port's light client over
      ``HTTPProvider(HTTPClient(url))`` as primary and witness, height 1
      trusted in its store, syncs to 6 from a cold cache (a recording
@@ -332,8 +347,10 @@ In order:
      whose tip commit
      carries a flipped signature is refused (the reference's ValueError and
      text); under ``--rpc`` the default's sync too, in turns. (h)
-     A one-validator chain (FilePV, provable kvstore, CListMempool, the
-     event bus, IndexerService, JSONRPCServer) takes RPC_TXS transactions
+     A one-validator chain, a port ``Node`` built by ``default_new_node``
+     from a home on disk (FilePV, provable kvstore, the WAL, the ingress in
+     front of CListMempool, the event bus, IndexerService, JSONRPCServer),
+     takes RPC_TXS transactions
      through ``broadcast_tx_async`` over HTTP before its first height, then
      RPC_COMMIT_TXS through ``broadcast_tx_commit``; a websocket on NewBlock
      sees every height; under ``CMTPU_DEVICE_PROOFS=1`` the card's proof
@@ -349,7 +366,49 @@ In order:
      each corrupted) and the sha256 levels entry at the first block's
      transactions and the kv leaves, each held to its plain version and
      timed;
- 21. runs the mesh path (the lane-split programs) on two virtual shards of
+ 21. runs the node path (``node/``, ``config/``, ``mempool/ingress``,
+     ``p2p/pex``, ``statesync/``), launch counts zeroed before it and read
+     after. Every node is built by ``default_new_node(load_toml(...))``
+     from a home the port's own functions wrote (``write_config_file``, the
+     genesis, ``FilePV``, ``NodeKey``), under ``test_config()`` with p2p
+     and RPC on 127.0.0.1:0 and a loopback address book, every other field
+     at the reference's default; (k)'s server process is started first,
+     and builds while (j) runs. (j) A one-validator node (its own FilePV,
+     the kvstore) under a recording ``TorchBackend()``: NODE_SENDERS
+     senders' NODE_PER_SENDER signed envelopes each (one of each sender's
+     corrupted) through ``broadcast_tx_async`` from NODE_CLIENTS HTTP
+     threads, then a valid, a corrupted, a malformed and a duplicate one
+     through ``broadcast_tx_sync`` (codes 0, 102, 101, 105): every valid
+     envelope in exactly one block, no corrupted or malformed one at the
+     app's CheckTx, the preverify lanes the sigs less the verified-triple
+     cache hits, ``preverify_fallbacks`` and every error counter 0, three
+     launches a card call from the device-owner thread, the
+     ``ingress_stats`` route equal to ``stats()``, lanes descending within
+     each block; ``node_ingress_4096_ms`` (the first send to the store of
+     the height holding the last valid envelope) with its split. (k) The
+     10,240-validator source's stores under a non-validator node in a
+     process of its own (its Handshaker replays the app); a fresh node
+     with it as persistent peer: the counted catch-up (the blocksync
+     pipeline off, each stage timed): the last height but one reached by
+     blocksync with the source's blocks and state, blocksync's batches
+     adding up to the window arithmetic (over TCP blocks may come one at a
+     time: no window is required, the light and full checks are counted),
+     then the handoff to consensus and
+     its catch-up of the last height within NODE_LAST_WAIT_S
+     (NODE_DEEP_WAIT_S under ``--node``; reported: in both packages it can
+     stall, ROADMAP §3), each address book holding the other node, PEX
+     messages both ways, no error counted on either node, every verify
+     launch from the device-owner thread, three a card call;
+     ``node_catchup_10k_ms_per_block`` (the start to blocksync's last
+     height) from that run, and under ``--node`` from bare runs under
+     ``TorchBackend()`` and the process default. Last, the three verify kernels at
+     (j)'s smallest, median and largest preverify batch (one valid lane
+     corrupted under 8 lanes, else four; the envelopes the ingress refused
+     stay rejected) and at (k)'s batches as the counted catch-up sent
+     them (the first light check, full check and consensus batch, and the
+     first window of each size if any came; four lanes corrupted, one under
+     8 lanes), held to their plain versions and timed;
+ 22. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -362,7 +421,7 @@ In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 22. prints the ``kernels`` line (launches summed over the paths, and by
+ 23. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -464,6 +523,14 @@ N_VOTES = 16
 BAD_VOTE = 9
 
 
+T_START = time.perf_counter()  # the run's clock, for ``stamp``
+
+
+def stamp(what: str) -> None:
+    """Prints the seconds since the run started beside what starts now."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -534,10 +601,19 @@ def sign_batch(pure, fb: FixedBase, seeds, msgs):
 
 
 def make_fixtures(pure, n_sigs: int, n_leaves: int):
+    """The keys (from fixed seeds) and their signatures of one message each,
+    made in the pool (``sign_jobs``, as ``sign_batch`` makes them), the
+    block's leaves and the part set's parts."""
     fb = FixedBase(pure)
     seeds = [hashlib.sha256(b"chip-smoke-key-%d-%d" % (SEED, i)).digest() for i in range(n_sigs)]
     msgs = [b"commit-vote-%d" % i for i in range(n_sigs)]
-    pubs, sigs = sign_batch(pure, fb, seeds, msgs)
+
+    def pooled(jobs):
+        chunks = [jobs[i : i + 512] for i in range(0, len(jobs), 512)]
+        return [x for c in sign_pool().map(sign_jobs, chunks, chunksize=1) for x in c]
+
+    pubs = pooled([("pub", s) for s in seeds])
+    sigs = pooled([("ed25519", s, p, m) for s, p, m in zip(seeds, pubs, msgs)])
     leaves = [b"bench-tx-%08d" % i for i in range(n_leaves)]
     block = np.random.default_rng(SEED).bytes(N_PARTS * PART_BYTES)
     parts = [block[i * PART_BYTES : (i + 1) * PART_BYTES] for i in range(N_PARTS)]
@@ -707,6 +783,10 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
     L = ek.L
 
     _, _, pubs, msgs, sigs, leaves, parts = fixtures
+    # The long-leaf sets' plain levels run on the CPU in the pool while the
+    # card's comparisons go on (compare_levels).
+    cpu_plain = {name: sign_pool().apply_async(levels_plain_job, (items,))
+                 for name, items in long_leaf_sets(leaves, parts).items()}
     records = {}
     operands, host_ok = ek.pack_batch(pubs, msgs, sigs)
     check(host_ok[: len(pubs)].all(), "fixture batch fails host checks")
@@ -856,7 +936,8 @@ def compare_kernels(fixtures, merkle_oracle, dev, sms, clock_hz, rates):
         shape=f"{nl} leaves, 2 launches ({-(-nl // mk.CHUNK)} chunks of {mk.CHUNK})",
     )
     rec = records["sha256"]
-    rec.update(compare_levels(leaves, parts, dev, sms, clock_hz))
+    stamp("kernels: the sha256 levels entry")
+    rec.update(compare_levels(leaves, parts, dev, sms, clock_hz, cpu_plain))
     rec["max_abs_err"] = max(rec["max_abs_err"], rec["levels_max_abs_err"])
     print(f"sha256 root path (tree entry, 65,536 leaves): {rec['kernel_ms']} ms CUPTI, "
           f"{rec['queued_ms']} queued, {rec['ms']} by events (before: 0.0747-0.0753 CUPTI, 0.0780 "
@@ -941,17 +1022,30 @@ def chain_floor_ms(leaf_blocks: int, n: int, clock_hz) -> float:
     return (leaf_blocks + 2 * (n - 1).bit_length()) * SHA256_BLOCK_OPS / clock_hz * 1e3
 
 
-def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
+def levels_plain_job(items) -> tuple:
+    """Pool worker: the levels entry's plain version on the CPU over the
+    leaves ``items`` (packed here as ``pack_leaves`` packs them for the
+    card) -> (the levels, ms)."""
+    from cometbft_tpu_torch.ops import merkle_kernel as mk
+
+    flat, offsets = mk.pack_leaves(items, "cpu")
+    t0 = time.perf_counter()
+    want = mk.tree_levels_raw_plain(flat, offsets)
+    return want.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def compare_levels(leaves, parts, dev, sms, clock_hz, cpu_plain: dict) -> dict:
     """The sha256 kernel's levels entry (the counterpart of
     merkle_kernel._leaves_to_levels_core) against tree_levels_raw_plain,
     every word, at the 65,536-leaf block, the 10,000-leaf ragged count, the
     part set, the ragged part set and the short/long mix, each at the chunk
     the wrapper picks; times at 65,536 leaves and at the part set, with the
     part set's chain floor. The plain version runs on the card, but for the
-    long leaves on the CPU, on copies of the same inputs: its 1,025
-    compressions a part run one after another, each ~2,600 tiny tensor
-    operations, which cost ~66 ms a compression on the card (launch-bound;
-    68 s for the part set) against a few ms on the CPU."""
+    long leaves (``long_leaf_sets``) on the CPU, on the same leaves, in the
+    pool (``cpu_plain``: name -> the pending ``levels_plain_job``): its
+    1,025 compressions a part run one after another, each ~2,600 tiny
+    tensor operations, which cost ~66 ms a compression on the card
+    (launch-bound; 68 s for the part set) against a few ms on the CPU."""
     from cometbft_tpu_torch.ops import merkle_kernel as mk
 
     out, err = {}, 0
@@ -961,11 +1055,15 @@ def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
         long = mk.long_leaves(len(items), flat.numel())
         chunk = mk.LONG_LEAF_CHUNK if long else mk.CHUNK
         got = mk.tree_levels_raw(flat, offsets)
-        plain_dev = dev if name in ("64k", "10k") else "cpu"
-        t0 = time.perf_counter()
-        want = mk.tree_levels_raw_plain(flat.to(plain_dev), offsets.to(plain_dev))
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
+        if name in cpu_plain:
+            want, plain = cpu_plain[name].get(timeout=600)
+            want, plain_dev = torch.from_numpy(want), "cpu"
+        else:
+            plain_dev = dev
+            t0 = time.perf_counter()
+            want = mk.tree_levels_raw_plain(flat, offsets)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
         err = max(err, max_abs_err(got.cpu(), want.cpu()))
         check(got.shape == want.shape == (mk.level_rows(len(items))[-1][0] + 1, 8),
               f"sha256 levels entry: {name} levels have shape {tuple(got.shape)}")
@@ -989,6 +1087,7 @@ def compare_levels(leaves, parts, dev, sms, clock_hz) -> dict:
         })
     check(err == 0, f"sha256 levels entry != plain (max abs err {err})")
     out["levels_max_abs_err"] = err
+    stamp("kernels: the levels entry by leaf length")
     out["levels_by_leaf_bytes"] = levels_by_leaf_bytes(mk, parts, dev)
     return out
 
@@ -2063,6 +2162,30 @@ COMMIT_REPS = 5
 SIGN_PROCESSES = min(8, os.cpu_count() or 1)
 
 _worker_fb = None
+_sign_pool = None
+
+
+def sign_pool():
+    """The one pool of SIGN_PROCESSES spawned workers that every phase
+    signs its fixtures in (``sign_jobs``) and that runs the long-leaf plain
+    levels (``levels_plain_job``), started at its first call (``main``
+    calls it before the build, so that its workers, each importing this
+    module and torch, start while the kernels build) and ended by
+    ``close_sign_pool``."""
+    global _sign_pool
+    if _sign_pool is None:
+        import multiprocessing
+
+        _sign_pool = multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES)
+    return _sign_pool
+
+
+def close_sign_pool() -> None:
+    global _sign_pool
+    if _sign_pool is not None:
+        _sign_pool.terminate()
+        _sign_pool.join()
+        _sign_pool = None
 
 
 def sign_jobs(jobs) -> list:
@@ -2097,10 +2220,8 @@ def commit_fixtures(fixtures) -> dict:
     validators holding most of its power and signing, the rest absent; the
     commit of a COMMIT_SMALL-validator set; and an N_BN254_COMMIT-validator
     BN254 set's commit in aggregate form, with a copy in which one signer
-    signed other bytes. Every signature is made in a pool of
-    SIGN_PROCESSES processes (spawned; ended when it returns)."""
-    import multiprocessing
-
+    signed other bytes. Every signature is made in the pool of
+    SIGN_PROCESSES processes (``sign_pool``)."""
     from cometbft_tpu_torch.crypto import bn254, ed25519
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.types import (BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig,
@@ -2161,8 +2282,8 @@ def commit_fixtures(fixtures) -> dict:
     bn_idx = [i for i, job in enumerate(jobs) if job[0] == "bn254"]
     ed_idx = [i for i, job in enumerate(jobs) if job[0] != "bn254"]
     chunks = [[i] for i in bn_idx] + [ed_idx[i : i + 512] for i in range(0, len(ed_idx), 512)]
-    with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
-        results = pool.map(sign_jobs, [[jobs[i] for i in c] for c in chunks], chunksize=1)
+    pool = sign_pool()
+    results = pool.map(sign_jobs, [[jobs[i] for i in c] for c in chunks], chunksize=1)
     sig_of = {i: sig for c, res in zip(chunks, results) for i, sig in zip(c, res)}
 
     def signed(name):
@@ -2650,16 +2771,22 @@ def bsync_flipped(source, height: int) -> bytes:
 class BsyncRecorder:
     """A backend that records the size of each batch it is asked to verify
     and which check asked (``BsyncStages.check``): the window, the light
-    check or validate_block's full check."""
+    check or validate_block's full check (None: no check of the sync
+    loop's, as consensus's after the handoff); with ``keep``, its triples
+    too (the kernel comparisons run on them)."""
 
-    def __init__(self, inner, stages=None):
+    def __init__(self, inner, stages=None, keep: bool = False):
         self.inner = inner
         self.stages = stages
+        self.keep = keep
         self.calls: list = []
+        self.triples: list = []
 
     def batch_verify(self, pubs, msgs, sigs):
         who = self.stages.check if self.stages is not None else None
         self.calls.append((who, len(pubs)))
+        if self.keep:
+            self.triples.append((list(pubs), list(msgs), list(sigs)))
         return self.inner.batch_verify(pubs, msgs, sigs)
 
     def merkle_root(self, leaves):
@@ -2842,8 +2969,6 @@ def bsync_gates(source, torch_backend, stages: BsyncStages) -> dict:
     at 150 one window of 31 commits, 4,650 lanes); the checks after a window
     send nothing (the verified-triple cache), but the last height's light
     check, which no window covered (2/3 of the set + 1 lanes); no error."""
-    from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor
-
     n, heights = source["n_vals"], len(source["blocks"])
     recorder = BsyncRecorder(torch_backend, stages)
     with stages:
@@ -2852,7 +2977,30 @@ def bsync_gates(source, torch_backend, stages: BsyncStages) -> dict:
     check((run["prefetch_errors"], run["sync_errors"], run["stops"]) == (0, 0, []),
           f"errors in a clean sync: {run['prefetch_errors']}, {run['sync_errors']}, "
           f"{run['stops']}, {run['last_prefetch_error']}, {run['last_sync_error']}")
-    # The window arithmetic, height by height as the reactor goes.
+    want_windows, want_later = bsync_window_arithmetic(n, heights)
+    windows = [k for who, k in recorder.calls if who == "window"]
+    later = {who: [k for w, k in recorder.calls if w == who] for who in ("light", "full")}
+    check(windows == want_windows, f"window batches {windows}, expected {want_windows}")
+    check(later == want_later, f"the checks after the windows sent {later}; the window "
+          f"arithmetic leaves {want_later}")
+    checks = sum(len(h.get("verify_commit_light", [])) + len(h.get("verify_commit", []))
+                 for h in stages.heights)
+    paths = [h.get("proofs_path") for h in stages.heights]
+    want_paths = ["device" if p >= 32 else "pure-python" for p in source["parts"][:-1]]
+    check(paths == want_paths, f"proofs paths {paths}, expected {want_paths}")
+    return {"run": run, "calls": recorder.calls, "windows": windows, "later_lanes": later,
+            "lanes_sent": sum(k for _, k in recorder.calls), "checks": checks,
+            "checks_answered_by_the_cache": checks - sum(len(v) for v in later.values()),
+            "proofs_paths": paths}
+
+
+def bsync_window_arithmetic(n: int, heights: int) -> tuple:
+    """The batches a sync of ``heights`` blocks of ``n`` validators sends,
+    height by height as the reactor goes: the windows' lanes, then the
+    light checks no window covered (2/3 of the set + 1 lanes) and the full
+    checks of commits neither covered (the rest of the set, once)."""
+    from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor
+
     wb = min(BlocksyncReactor.PREFETCH_WINDOW, BlocksyncReactor.PREFETCH_MAX_SIGS // n)
     light_n = n * 2 // 3 + 1
     want_windows, covered, sent = [], set(), {}
@@ -2870,20 +3018,7 @@ def bsync_gates(source, torch_backend, stages: BsyncStages) -> dict:
         if h >= 2 and h - 1 not in covered and sent.get(h - 1, 0) < n:
             want_later["full"].append(n - sent.get(h - 1, 0))  # commit h - 1, once
             sent[h - 1] = n
-    windows = [k for who, k in recorder.calls if who == "window"]
-    later = {who: [k for w, k in recorder.calls if w == who] for who in ("light", "full")}
-    check(windows == want_windows, f"window batches {windows}, expected {want_windows}")
-    check(later == want_later, f"the checks after the windows sent {later}; the window "
-          f"arithmetic leaves {want_later}")
-    checks = sum(len(h.get("verify_commit_light", [])) + len(h.get("verify_commit", []))
-                 for h in stages.heights)
-    paths = [h.get("proofs_path") for h in stages.heights]
-    want_paths = ["device" if p >= 32 else "pure-python" for p in source["parts"][:-1]]
-    check(paths == want_paths, f"proofs paths {paths}, expected {want_paths}")
-    return {"run": run, "calls": recorder.calls, "windows": windows, "later_lanes": later,
-            "lanes_sent": sum(k for _, k in recorder.calls), "checks": checks,
-            "checks_answered_by_the_cache": checks - sum(len(v) for v in later.values()),
-            "proofs_paths": paths}
+    return want_windows, want_later
 
 
 def bsync_stage_table(stages: BsyncStages) -> dict:
@@ -2961,40 +3096,76 @@ def bsync_compare_kernels(batches, dev) -> dict:
     operands at each blocksync batch (``bsync_batches``, padded by
     ``pack_batch`` to its bucket): challenge_digits, decompress_words (the
     points through point_freeze, and ok) and verify_lanes (the verdicts and
-    the accumulator). Requires max_abs_err 0 for each, and the kernel's
-    verdicts false at exactly the corrupted lanes. Returns label -> {bucket,
-    lanes, corrupted, max_abs_err by kernel} and the device operands."""
+    the accumulator). The kernels run batch by batch, as the path launches
+    them; each plain version runs once over every batch's lanes joined (its
+    lanes are independent, and its time is launch-bound, not lane-bound),
+    and each batch's lanes of its answer are held to that batch's. Requires
+    max_abs_err 0 for each, and the kernel's verdicts false at exactly the
+    corrupted lanes. Returns label -> {bucket, lanes, corrupted, max_abs_err
+    by kernel} and the device operands."""
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
     from cometbft_tpu_torch.ops import edwards as ed
     from cometbft_tpu_torch.ops import ladder
     from cometbft_tpu_torch.ops import sha512_kernel as s5
 
-    out, operands = {}, {}
+    operands, got, host_oks = {}, {}, {}
     for label, (pubs, msgs, sigs, bad) in batches.items():
-        n = len(pubs)
         packed, host_ok = ek.pack_batch(pubs, msgs, sigs)
         a_w, r_w, s_w, msg_w, msg_nb = ek.operands_to_device(packed, dev)
         s_dig, k_dig = s5.challenge_digits(msg_w, msg_nb, s_w)
-        err_sha = max_abs_err(torch.stack([s_dig, k_dig]),
-                              torch.stack(s5.challenge_digits_plain(msg_w, msg_nb, s_w)))
         pt, ok = ed.decompress_words(a_w, r_w)
-        pt_p, ok_p = ed.decompress_words_plain(a_w, r_w)
-        err_dec = max(max_abs_err(torch.stack(ed.point_freeze(pt)),
-                                  torch.stack(ed.point_freeze(pt_p))), max_abs_err(ok, ok_p))
-        got, acc = ladder.verify_lanes(s_dig, k_dig, pt, ok, with_acc=True)
-        want, acc_p = ladder.verify_lanes_plain(s_dig, k_dig, pt, ok)
-        err_lad = max(max_abs_err(got, want), max_abs_err(torch.stack(ed.point_freeze(acc)),
-                                                          torch.stack(ed.point_freeze(acc_p))))
+        verdict, acc = ladder.verify_lanes(s_dig, k_dig, pt, ok, with_acc=True)
+        operands[label] = (msg_w, msg_nb, s_w, a_w, r_w, s_dig, k_dig, pt, ok)
+        got[label] = (s_dig, k_dig, pt, ok, verdict, acc)
+        host_oks[label] = host_ok
+
+    # The plain versions over the joined lanes: each batch's message words
+    # padded with zero blocks to the widest (the block counts mask them);
+    # A lanes then R lanes, as decompress_words and verify_lanes order them.
+    ops = list(operands.values())
+    widths = [o[3].shape[1] for o in ops]
+    spans, at = [], 0
+    for w in widths:
+        spans.append((at, at + w))
+        at += w
+    words = max(o[0].shape[1] for o in ops)
+    msg_all = torch.cat([torch.nn.functional.pad(o[0], (0, words - o[0].shape[1])) for o in ops])
+    s_p, k_p = s5.challenge_digits_plain(msg_all, torch.cat([o[1] for o in ops]),
+                                         torch.cat([o[2] for o in ops], dim=1))
+    pt_p, ok_p = ed.decompress_words_plain(torch.cat([o[3] for o in ops], dim=1),
+                                           torch.cat([o[4] for o in ops], dim=1))
+    pt_p = torch.stack(ed.point_freeze(pt_p))
+    s_dig_all = torch.cat([o[5] for o in ops], dim=1)
+    k_dig_all = torch.cat([o[6] for o in ops], dim=1)
+    pt_all = torch.cat([o[7][:, :, :w] for o, w in zip(ops, widths)]
+                       + [o[7][:, :, w:] for o, w in zip(ops, widths)], dim=2)
+    ok_all = torch.cat([o[8][:w] for o, w in zip(ops, widths)]
+                       + [o[8][w:] for o, w in zip(ops, widths)])
+    want_all, acc_p = ladder.verify_lanes_plain(s_dig_all, k_dig_all, pt_all, ok_all)
+    acc_p = torch.stack(ed.point_freeze(acc_p))
+
+    out = {}
+    for (label, (pubs, msgs, sigs, bad)), (lo, hi) in zip(batches.items(), spans):
+        n = len(pubs)
+        s_dig, k_dig, pt, ok, verdict, acc = got[label]
+        m = at  # the joined A lanes end where the R lanes start
+        err_sha = max_abs_err(torch.stack([s_dig, k_dig]),
+                              torch.stack([s_p[:, lo:hi], k_p[:, lo:hi]]))
+        pt_k = torch.stack(ed.point_freeze(pt))
+        w = hi - lo
+        err_dec = max(max_abs_err(pt_k[:, :, :w], pt_p[:, :, lo:hi]),
+                      max_abs_err(pt_k[:, :, w:], pt_p[:, :, m + lo : m + hi]),
+                      max_abs_err(ok[:w], ok_p[lo:hi]), max_abs_err(ok[w:], ok_p[m + lo : m + hi]))
+        err_lad = max(max_abs_err(verdict, want_all[lo:hi]),
+                      max_abs_err(torch.stack(ed.point_freeze(acc)), acc_p[:, :, lo:hi]))
         errs = {"sha512": err_sha, "decompress": err_dec, "ladder": err_lad}
         check(all(e == 0 for e in errs.values()),
               f"blocksync batch of {n}: a kernel != plain (max abs err {errs})")
-        verdicts = (got.cpu().numpy() & host_ok)[:n]
+        verdicts = (verdict.cpu().numpy() & host_oks[label])[:n]
         rejected = set(np.nonzero(~verdicts)[0].tolist())
         check(rejected == bad, f"blocksync batch of {n}: rejected lanes {sorted(rejected)[:8]}, "
               f"corrupted {sorted(bad)}")
-        out[label] = {"lanes": n, "bucket": int(a_w.shape[1]), "corrupted": sorted(bad),
-                      "max_abs_err": errs}
-        operands[label] = (msg_w, msg_nb, s_w, a_w, r_w, s_dig, k_dig, pt, ok)
+        out[label] = {"lanes": n, "bucket": w, "corrupted": sorted(bad), "max_abs_err": errs}
     return out, operands
 
 
@@ -3029,18 +3200,16 @@ def bsync_sources(fixtures, torch_backend) -> dict:
     10,240-validator one of BSYNC_HEIGHTS and the BSYNC_SMALL-validator one
     of BSYNC_SMALL_HEIGHTS, their validators signing in a pool of
     SIGN_PROCESSES processes; the light phase goes on with them."""
-    import multiprocessing
-
     from cometbft_tpu_torch.sidecar import backend as be
 
     _, seeds, pubs, *_ = fixtures
     t0 = time.perf_counter()
     be.set_backend(torch_backend)  # the source verifies each LastCommit it applies
     try:
-        with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
-            big = bsync_source(seeds, pubs, BSYNC_HEIGHTS, BSYNC_TXS, pool)
-            small = bsync_source(seeds[:BSYNC_SMALL], pubs[:BSYNC_SMALL], BSYNC_SMALL_HEIGHTS,
-                                 BSYNC_TXS, pool)
+        pool = sign_pool()
+        big = bsync_source(seeds, pubs, BSYNC_HEIGHTS, BSYNC_TXS, pool)
+        small = bsync_source(seeds[:BSYNC_SMALL], pubs[:BSYNC_SMALL], BSYNC_SMALL_HEIGHTS,
+                             BSYNC_TXS, pool)
     finally:
         be.set_backend(None)
     fixtures_s = time.perf_counter() - t0
@@ -3052,10 +3221,11 @@ def bsync_sources(fixtures, torch_backend) -> dict:
     return {"10k": big, "150": small, "fixtures_s": fixtures_s}
 
 
-def drive_blocksync_path(sources, torch_backend, dev) -> dict:
+def drive_blocksync_path(sources, torch_backend, dev, with_default: bool = False) -> dict:
     """The blocksync phase (module docstring, step 16) over the sources of
     ``bsync_sources``: returns its launches, gates, stage splits, timings
-    and the window's kernel times."""
+    (under the process default too ``with_default``, ``--blocksync``) and
+    the window's kernel times."""
     from cometbft_tpu_torch.crypto import ed25519
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.sidecar import backend as be
@@ -3065,6 +3235,7 @@ def drive_blocksync_path(sources, torch_backend, dev) -> dict:
 
     # The counted runs: launch counts zeroed, pipeline off, the part sets'
     # proofs on the card (CMTPU_DEVICE_PROOFS=1: the sha256 levels entry).
+    stamp("blocksync: the counted runs")
     ed25519._verified.clear()
     _build.reset_launches()
     gates = {}
@@ -3083,6 +3254,7 @@ def drive_blocksync_path(sources, torch_backend, dev) -> dict:
     # The bad peer: p1 serves the 150-validator chain with one flipped
     # signature bit in the LastCommit of the block at BSYNC_BAD_HEIGHT; p2 the
     # honest chain.
+    stamp("blocksync: the bad peer")
     ed25519._verified.clear()
     bad = bsync_run(small, torch_backend, pipeline=True,
                     corrupt={BSYNC_BAD_HEIGHT: bsync_flipped(small, BSYNC_BAD_HEIGHT)})
@@ -3092,15 +3264,17 @@ def drive_blocksync_path(sources, torch_backend, dev) -> dict:
           f"bad peer: prefetch_errors {bad['prefetch_errors']}, sync_errors {bad['sync_errors']}")
     check("wrong signature (#0)" in bad["last_sync_error"], f"bad peer: {bad['last_sync_error']}")
 
-    # Timed: the default (pipeline on, the native proofs pass), in turns
-    # under TorchBackend() and the process default, BSYNC_REPS rounds; and
-    # the pipeline off under TorchBackend() in each round (the counted runs
-    # above are pipeline off too, but staged and with the card's proofs:
-    # kept apart as torch_pipeline_off_staged).
-    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
-                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
-        auto = be._make_backend()
-    runs = {name: {"torch": [], "auto": [], "torch_pipeline_off": []} for name in ("10k", "150")}
+    # Timed: the default (pipeline on, the native proofs pass), BSYNC_REPS
+    # rounds under TorchBackend() (and the process default, in turns, with
+    # ``with_default``); the pipeline off is the counted runs' above (staged
+    # and with the card's proofs: torch_pipeline_off_staged).
+    stamp("blocksync: the timed runs")
+    auto = None
+    if with_default:
+        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                     CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+            auto = be._make_backend()
+    runs = {name: {"torch": [], "auto": []} for name in ("10k", "150")}
     for name in runs:
         runs[name]["torch_pipeline_off_staged"] = [gates[name]["run"]["ms_per_block"]]
     overlap = {name: [] for name in runs}
@@ -3115,23 +3289,22 @@ def drive_blocksync_path(sources, torch_backend, dev) -> dict:
 
     try:
         for rep in range(BSYNC_REPS):
-            tiers = [("torch", torch_backend), ("auto", auto)]
+            tiers = [("torch", torch_backend)] + ([("auto", auto)] if auto else [])
             for tier, backend in tiers if rep % 2 == 0 else tiers[::-1]:
                 for name, source in (("10k", big), ("150", small)):
                     r = timed(name, source, backend, True)
                     runs[name][tier].append(r["ms_per_block"])
                     if tier == "torch":
                         overlap[name].append(r["pipeline_overlap_ms"])
-            for name, source in (("10k", big), ("150", small)):
-                runs[name]["torch_pipeline_off"].append(
-                    timed(name, source, torch_backend, False)["ms_per_block"])
     finally:
-        auto.close()
+        if auto is not None:
+            auto.close()
     check(ed25519.scalar_fallbacks == fallbacks, "a verification took the ChainExhausted fallback")
 
     # The verify kernels at the batches the path gave them (both windows,
     # one commit, both light checks), each held against its plain version
     # with corrupted lanes, then timed in turns.
+    stamp("blocksync: the kernels at the path's batches")
     window_kernels = bsync_window_kernels(bsync_batches(big, small), dev)
     return {
         "fixtures_s": fixtures_s, "launches": launches,
@@ -3971,15 +4144,16 @@ def light_kernel_batches(gates, ev10k) -> dict:
     return out
 
 
-def light_metrics(lf, sources, torch_backend, auto) -> dict:
+def light_metrics(lf, sources, torch_backend, auto, with_default: bool) -> dict:
     """Medians of LIGHT_REPS cold syncs (fresh client, empty cache) under
-    ``TorchBackend()`` and the process default in turns: the 10,240-
-    validator client to height 9 and the 150-validator client to LIGHT_SMALL_HEIGHTS; the
-    10,240-validator evidence check; then the 10,240 sync's stage split
-    (one staged run under ``TorchBackend()``)."""
+    ``TorchBackend()`` and, ``with_default`` (``--light``), the process
+    default in turns: the 10,240-validator client to height 9 and the
+    150-validator client to LIGHT_SMALL_HEIGHTS; the 10,240-validator
+    evidence check; then the 10,240 sync's stage split (one staged run
+    under ``TorchBackend()``)."""
     runs = {k: {"torch": [], "auto": []} for k in ("10k", "150", "evidence_10k")}
     for rep in range(LIGHT_REPS):
-        tiers = [("torch", torch_backend), ("auto", auto)]
+        tiers = [("torch", torch_backend)] + ([("auto", auto)] if with_default else [])
         for tier, backend in tiers if rep % 2 == 0 else tiers[::-1]:
             runs["10k"][tier].append(light_sync(lf["10k"], backend, LIGHT_HEIGHTS, witness=True)["ms"])
             runs["150"][tier].append(light_sync(lf["150"], backend, LIGHT_SMALL_HEIGHTS)["ms"])
@@ -3988,67 +4162,71 @@ def light_metrics(lf, sources, torch_backend, auto) -> dict:
     staged = light_sync(lf["10k"], LightRecorder(torch_backend), LIGHT_HEIGHTS, witness=True,
                         stages=stages)
     return {"runs_ms": runs,
-            "medians_ms": {k: {t: statistics.median(v) for t, v in r.items()}
+            "medians_ms": {k: {t: statistics.median(v) for t, v in r.items() if v}
                            for k, r in runs.items()},
             "stages_10k": {"wall_ms": staged["ms"], "stages": stages.table()}}
 
 
-def drive_light_path(fixtures, sources, torch_backend, dev) -> dict:
+def drive_light_path(fixtures, sources, torch_backend, dev, with_default: bool) -> dict:
     """The light phase (module docstring, step 17): returns its launches,
-    gates, metrics and the kernels at the path's own batches."""
-    import multiprocessing
-
+    gates, metrics (timed under the process default too ``with_default``)
+    and the kernels at the path's own batches."""
     from cometbft_tpu_torch.crypto import ed25519, sigbatch
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.sidecar import backend as be
 
     fallbacks = ed25519.scalar_fallbacks
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
-        lf = light_fixtures(fixtures, sources, pool)
-        fixtures_s = time.perf_counter() - t0
-        print(f"light fixtures: {N_SIGS} validators x {LIGHT_HEIGHTS} heights rotating "
-              f"{LIGHT_ROTATE} a height (heights {LIGHT_SIGNED} signed), {LIGHT_SMALL} x "
-              f"{LIGHT_SMALL_HEIGHTS} rotating {LIGHT_SMALL_ROTATE}, two conflicting tips: "
-              f"{lf['signatures']} signatures, keys {lf['keys_s']:.1f} s, signing "
-              f"{lf['sign_s']:.1f} s, built in {fixtures_s:.1f} s", flush=True)
+    pool = sign_pool()
+    lf = light_fixtures(fixtures, sources, pool)
+    fixtures_s = time.perf_counter() - t0
+    print(f"light fixtures: {N_SIGS} validators x {LIGHT_HEIGHTS} heights rotating "
+          f"{LIGHT_ROTATE} a height (heights {LIGHT_SIGNED} signed), {LIGHT_SMALL} x "
+          f"{LIGHT_SMALL_HEIGHTS} rotating {LIGHT_SMALL_ROTATE}, two conflicting tips: "
+          f"{lf['signatures']} signatures, keys {lf['keys_s']:.1f} s, signing "
+          f"{lf['sign_s']:.1f} s, built in {fixtures_s:.1f} s", flush=True)
 
-        # The counted run: launch counts zeroed just before, read just after.
-        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
-                     CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
-            auto = be._make_backend()
-        try:
-            _build.reset_launches()
-            gates = light_gates(lf, torch_backend)
-            swarm = {mode: light_swarm(lf, torch_backend, mode == "mmr")
-                     for mode in ("plan", "mmr")}
-            attack = light_attack(sources, lf, torch_backend, pool)
-            ev10k = light_evidence_10k(sources, lf, torch_backend)
-            dup = light_duplicate_votes(sources, lf, fixtures, torch_backend, auto)
-            launches = dict(_build.LAUNCHES)
-            calls = (sum(len(r.calls) for r in gates[1].values())
-                     + sum(len(s["lanes"]) for s in swarm.values()) + len(attack["calls"])
-                     + len(ev10k["calls"]) + dup["torch"]["launch_sets"]
-                     + dup["auto"]["launch_sets"])
-            check(launches == {"ladder": calls, "decompress": calls, "sha512": calls,
-                               "sha256": 0, "bn254": 0},
-                  f"light path launches {launches}: expected one sha512 / decompress / ladder "
-                  f"set a card call ({calls})")
-            check(ev10k["calls"] == [("blocksync", N_SIGS // 3 + 1)],
-                  f"the evidence check's calls {ev10k['calls']}")
-            lone = sum(gates[1]["150"].lanes())
-            for mode, s in swarm.items():
-                check(s["lanes_total"] <= lone + s["gateway"]["prewarmed_sigs"],
-                      f"swarm ({mode}): {s['lanes_total']} lanes, more than one lone client's "
-                      f"{lone} plus the gateway's prewarm {s['gateway']['prewarmed_sigs']}")
-            check(ed25519.scalar_fallbacks == fallbacks,
-                  "a light-path verification took the ChainExhausted fallback")
-            metrics = light_metrics(lf, sources, torch_backend, auto)
-        finally:
-            auto.close()
+    # The counted run: launch counts zeroed just before, read just after.
+    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+        auto = be._make_backend()
+    try:
+        stamp("light: the gates")
+        _build.reset_launches()
+        gates = light_gates(lf, torch_backend)
+        stamp("light: the swarm")
+        swarm = {mode: light_swarm(lf, torch_backend, mode == "mmr")
+                 for mode in ("plan", "mmr")}
+        stamp("light: the attack, the evidence, the duplicate votes")
+        attack = light_attack(sources, lf, torch_backend, pool)
+        ev10k = light_evidence_10k(sources, lf, torch_backend)
+        dup = light_duplicate_votes(sources, lf, fixtures, torch_backend, auto)
+        launches = dict(_build.LAUNCHES)
+        calls = (sum(len(r.calls) for r in gates[1].values())
+                 + sum(len(s["lanes"]) for s in swarm.values()) + len(attack["calls"])
+                 + len(ev10k["calls"]) + dup["torch"]["launch_sets"]
+                 + dup["auto"]["launch_sets"])
+        check(launches == {"ladder": calls, "decompress": calls, "sha512": calls,
+                           "sha256": 0, "bn254": 0},
+              f"light path launches {launches}: expected one sha512 / decompress / ladder "
+              f"set a card call ({calls})")
+        check(ev10k["calls"] == [("blocksync", N_SIGS // 3 + 1)],
+              f"the evidence check's calls {ev10k['calls']}")
+        lone = sum(gates[1]["150"].lanes())
+        for mode, s in swarm.items():
+            check(s["lanes_total"] <= lone + s["gateway"]["prewarmed_sigs"],
+                  f"swarm ({mode}): {s['lanes_total']} lanes, more than one lone client's "
+                  f"{lone} plus the gateway's prewarm {s['gateway']['prewarmed_sigs']}")
+        check(ed25519.scalar_fallbacks == fallbacks,
+              "a light-path verification took the ChainExhausted fallback")
+        stamp("light: the timed syncs")
+        metrics = light_metrics(lf, sources, torch_backend, auto, with_default)
+    finally:
+        auto.close()
     check(ed25519.scalar_fallbacks == fallbacks,
           "a light-path verification took the ChainExhausted fallback")
     check(sigbatch.counters()["fallbacks"] == 0, "a sigbatch fallback on the light path")
+    stamp("light: the kernels at the path's batches")
     kernels = bsync_window_kernels(light_kernel_batches(gates, ev10k), dev)
     ev10k.pop("recorder")
     return {
@@ -4081,7 +4259,7 @@ CONS_FLOOD = {"role": "flooder", "node": 1, "from_s": 5.0, "until_s": 45.0, "rat
 # Path (b): a node with no priv validator follows heights 1..CONS_HEIGHTS of
 # the blocksync phase's 10,240-validator source chain through start() and
 # send_peer_message; the counted run corrupts one prevote (height, index).
-CONS_HEIGHTS = 3  # 4 until the RPC phase came (the run near 1,050 s)
+CONS_HEIGHTS = 2  # 4 until the RPC phase came, 3 until the node phase (the run near 1,100 s)
 CONS_BAD = (2, 5)
 CONS_TIMED = 1  # timed runs of path (b) under each backend, in turns
 CONS_PEERS = 8  # the peer ids the follower's messages arrive from
@@ -4321,9 +4499,10 @@ def cons_sim_summary(run: dict) -> dict:
 
 def cons_simnet(torch_backend, auto) -> dict:
     """Path (a): the simnet at CONS_SIM under ``TorchBackend()`` (recorded)
-    and the process default, then the flood run; the gates (module
-    docstring, step 18). Returns the summaries, the launches of the
-    recorded run and the recorders' largest batches."""
+    and, where ``auto`` is given (``--consensus``), the process default,
+    then the flood run; the gates (module docstring, step 18). Returns the
+    summaries, the launches of the recorded run and the recorders' largest
+    batches."""
     from cometbft_tpu_torch.ops import _build
 
     _build.reset_launches()
@@ -4334,12 +4513,14 @@ def cons_simnet(torch_backend, auto) -> dict:
                        "bn254": 0},
           f"simnet launches {launches}: expected one sha512 / decompress / ladder set a card "
           f"call ({calls})")
-    runs["auto"] = cons_sim_run(auto, CONS_SIM, record=False)
+    if auto is not None:
+        runs["auto"] = cons_sim_run(auto, CONS_SIM, record=False)
     for tier, run in runs.items():
         cons_sim_gates(run, CONS_SIM["blocks"], tier)
-    a, b = runs["torch"]["report"], runs["auto"]["report"]
-    for key in ("block_hashes", "commit_times", "sim_time_s", "events"):
-        check(a[key] == b[key], f"simnet: {key} differs between TorchBackend and the default")
+    if auto is not None:
+        a, b = runs["torch"]["report"], runs["auto"]["report"]
+        for key in ("block_hashes", "commit_times", "sim_time_s", "events"):
+            check(a[key] == b[key], f"simnet: {key} differs between TorchBackend and the default")
     per = runs["torch"]["recorder"].by_height()
     check(all(per.get(h, {}).get("lanes", 0) > 0 for h in range(1, CONS_SIM["blocks"] + 1)),
           f"simnet: a height without card lanes: {sorted(per.items())}")
@@ -4379,8 +4560,6 @@ def cons_follow_fixtures(source, fixtures) -> list:
     pool of SIGN_PROCESSES processes, timestamps after the block's) and the
     source's seen commit turned back into 10,240 precommits; with the
     source's block and state bytes for the gates."""
-    import multiprocessing
-
     from cometbft_tpu_torch.crypto import ed25519
     from cometbft_tpu_torch.types.block import PRECOMMIT_TYPE, PREVOTE_TYPE, Block, BlockID
     from cometbft_tpu_torch.types.proposal import Proposal
@@ -4416,8 +4595,8 @@ def cons_follow_fixtures(source, fixtures) -> list:
                         "block": source["blocks"][h - 1], "state": source["states"][h - 1],
                         "seen": seen})
     chunks = [jobs[i : i + CONS_SIGN_CHUNK] for i in range(0, len(jobs), CONS_SIGN_CHUNK)]
-    with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
-        sigs = iter([s for chunk in pool.map(sign_jobs, chunks, chunksize=1) for s in chunk])
+    pool = sign_pool()
+    sigs = iter([s for chunk in pool.map(sign_jobs, chunks, chunksize=1) for s in chunk])
     from dataclasses import replace
 
     for hx in heights:
@@ -4655,8 +4834,8 @@ def cons_follow_path(sources, fixtures, torch_backend, auto, timed: int = CONS_T
     ConsRecorder, the stages timed, one prevote corrupted), then ``timed``
     unstaged runs under ``TorchBackend()`` and the process default in turns;
     ``consensus_10k_ms_per_height`` is the median of heights 2..CONS_HEIGHTS
-    (None without timed runs: the full run times (b) in the network phase,
-    in turns with path (c))."""
+    (None without timed runs: the full run's is the counted run's,
+    ``consensus_phase``)."""
     from cometbft_tpu_torch.crypto import ed25519
     from cometbft_tpu_torch.ops import _build
 
@@ -4703,21 +4882,26 @@ def cons_follow_path(sources, fixtures, torch_backend, auto, timed: int = CONS_T
 
 
 def drive_consensus_path(fixtures, sources, torch_backend, dev, timed: int = CONS_TIMED) -> dict:
-    """The consensus phase (module docstring, step 18): paths (a) and (b),
-    the launch counts of the whole drive, the kernels at the path's batches."""
+    """The consensus phase (module docstring, step 18): paths (a) and (b)
+    (under the process default too with ``timed``), the launch counts of
+    the whole drive, the kernels at the path's batches."""
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.sidecar import backend as be
 
-    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
-                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
-        auto = be._make_backend()
+    auto = None  # the process default, timed under --consensus only
+    if timed:
+        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                     CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+            auto = be._make_backend()
     try:
         _build.reset_launches()
         sim = cons_simnet(torch_backend, auto)
+        stamp("consensus: path (b)")
         follow = cons_follow_path(sources, fixtures, torch_backend, auto, timed)
         launches = dict(_build.LAUNCHES)
     finally:
-        auto.close()
+        if auto is not None:
+            auto.close()
     check(all(launches[k] > 0 for k in ("sha512", "decompress", "ladder")),
           f"consensus path launches {launches}")
     batches = {}
@@ -4733,8 +4917,9 @@ def drive_consensus_path(fixtures, sources, torch_backend, dev, timed: int = CON
 def consensus_phase(fixtures, sources, backend, dev, card, records, timed: int = CONS_TIMED):
     """Runs the consensus path (step 18), prints its metrics and gates,
     merges its kernel comparisons into ``records``; returns its launches and
-    path (b)'s fixtures. With ``timed`` 0 (the full run) path (b) is timed
-    by the network phase, which prints ``consensus_10k_ms_per_height``."""
+    path (b)'s fixtures. With ``timed`` 0 (the full run)
+    ``consensus_10k_ms_per_height`` is the counted run's (a recording
+    backend, each stage ended by a synchronize)."""
     start = time.perf_counter()
     out = drive_consensus_path(fixtures, sources, backend, dev, timed)
     fx = out["follow"].pop("fx")
@@ -4743,8 +4928,9 @@ def consensus_phase(fixtures, sources, backend, dev, card, records, timed: int =
             b["max_abs_err"][k] for b in out["kernels"].values()])
     sim, fol = out["simnet"], out["follow"]
     print(f"consensus path ok (the {CONS_SIM['validators']}-validator simnet committed "
-          f"{CONS_SIM['blocks']} blocks under TorchBackend and the default, the same blocks, "
-          f"card lanes at every height; the flood refused on the card, none admitted; the "
+          f"{CONS_SIM['blocks']} blocks under TorchBackend"
+          + (" and the default, the same blocks" if timed else "")
+          + f", card lanes at every height; the flood refused on the card, none admitted; the "
           f"follower committed the {N_SIGS}-validator source's heights 1-{CONS_HEIGHTS}, its "
           f"corrupted prevote refused); launches {out['launches']}", flush=True)
     common = {"device": torch.cuda.get_device_name(0), "card": card}
@@ -4753,12 +4939,14 @@ def consensus_phase(fixtures, sources, backend, dev, card, records, timed: int =
                       "validators": CONS_SIM["validators"], "blocks": CONS_SIM["blocks"],
                       "by_backend": {t: s["ms_per_height"] for t, s in sim["summary"].items()},
                       "runs": sim["summary"], "flood": sim["flood"], **common}), flush=True)
-    if timed:
-        print(json.dumps({"metric": "consensus_10k_ms_per_height",
-                          "value": fol["ms_per_height"]["torch"], "validators": N_SIGS,
-                          "heights": CONS_HEIGHTS, "by_backend": fol["ms_per_height"],
-                          "runs_ms": fol["runs_ms"], "counted_ms": fol["counted_ms"], **common}),
-              flush=True)
+    counted = statistics.median(fol["counted_ms"][1:])
+    print(json.dumps({"metric": "consensus_10k_ms_per_height",
+                      "value": fol["ms_per_height"]["torch"] if timed else counted,
+                      "from": "timed runs" if timed else "the counted run (each stage synchronized)",
+                      "validators": N_SIGS, "heights": CONS_HEIGHTS,
+                      "by_backend": fol["ms_per_height"] if timed else {"torch": counted},
+                      "runs_ms": fol["runs_ms"], "counted_ms": fol["counted_ms"], **common}),
+          flush=True)
     print(json.dumps({"consensus_stages_10k": fol["stages_by_height"],
                       "card_by_height": fol["card_by_height"],
                       "prebatched_by_height": fol["prebatched_by_height"], **common}), flush=True)
@@ -4771,16 +4959,14 @@ def consensus_phase(fixtures, sources, backend, dev, card, records, timed: int =
 def bsync_10k_source(fixtures, backend) -> dict:
     """The blocksync phase's 10,240-validator source chain alone (what the
     consensus and network phases follow), built under ``backend``."""
-    import multiprocessing
-
     from cometbft_tpu_torch.sidecar import backend as be
 
     _, seeds, pubs, *_ = fixtures
     t0 = time.perf_counter()
     be.set_backend(backend)
     try:
-        with multiprocessing.get_context("spawn").Pool(SIGN_PROCESSES) as pool:
-            big = bsync_source(seeds, pubs, BSYNC_HEIGHTS, BSYNC_TXS, pool)
+        pool = sign_pool()
+        big = bsync_source(seeds, pubs, BSYNC_HEIGHTS, BSYNC_TXS, pool)
     finally:
         be.set_backend(None)
     print(f"blocksync source: {N_SIGS} validators x {BSYNC_HEIGHTS} heights in "
@@ -5113,12 +5299,14 @@ class WireFeed:
             self.sw.stop()
 
 
-def net_wire_path(fx, gen, torch_backend, auto) -> dict:
+def net_wire_path(fx, gen, torch_backend, auto, timed: int = NET_TIMED) -> dict:
     """Path (c) in turns with path (b): the counted run of (c) (a recording
     ``TorchBackend()``, the corrupted prevote, every gate of path (b) and
-    the wire's), untimed; then NET_TIMED rounds of (c) and (b) under
-    ``TorchBackend()`` and the process default, each unrecorded and
-    uncorrupted as (b)'s are; the medians of heights 2..CONS_HEIGHTS."""
+    the wire's); then ``timed`` rounds of (c) and (b) under
+    ``TorchBackend()`` and the process default (``auto``), each unrecorded
+    and uncorrupted as (b)'s are; the medians of heights 2..CONS_HEIGHTS.
+    With ``timed`` 0 (the full run) (c)'s median is the counted run's, and
+    (b)'s and the default's are None."""
     from cometbft_tpu_torch.crypto import ed25519
     from cometbft_tpu_torch.ops import _build
 
@@ -5144,7 +5332,7 @@ def net_wire_path(fx, gen, torch_backend, auto) -> dict:
     dwells = [sum(1 for a, b in zip(counted["ms"], counted["full_ms"])
                   if b - a >= 0.9e3 * NET_COMMIT_DWELL_S)]
     order = [("c", "torch"), ("b", "torch"), ("b", "auto"), ("c", "auto")]
-    for rep in range(NET_TIMED):
+    for rep in range(timed):
         for path, tier in order if rep % 2 == 0 else order[::-1]:
             backend = torch_backend if tier == "torch" else auto
             out = cons_follow(fx, gen, backend, wire=WireFeed(plans) if path == "c" else None)
@@ -5154,7 +5342,9 @@ def net_wire_path(fx, gen, torch_backend, auto) -> dict:
                 dwells.append(sum(1 for a, b in zip(out["ms"], out["full_ms"])
                                   if b - a >= 0.9e3 * NET_COMMIT_DWELL_S))
     check(ed25519.scalar_fallbacks == fallbacks, "a wire check took the ChainExhausted fallback")
-    med = {f"{p}_{t}": statistics.median(ms for r in rs for ms in r[1:])
+    if not timed:
+        runs[("c", "torch")].append(counted["ms"])
+    med = {f"{p}_{t}": statistics.median(ms for r in rs for ms in r[1:]) if rs else None
            for (p, t), rs in runs.items()}
     return {"ms_per_height": med, "runs_ms": {f"{p}_{t}": rs for (p, t), rs in runs.items()},
             "counted_ms": counted["ms"], "counted_full_ms": counted["full_ms"],
@@ -5384,9 +5574,11 @@ def net_sim_mesh(fixtures, backend) -> dict:
         be.set_backend(None)
 
 
-def drive_network_path(fixtures, sources, torch_backend, dev, fx=None) -> dict:
-    """The network phase (module docstring, step 19): paths (c), (d) and
-    (e), the launch counts of the whole drive, the verify kernels at (c)'s
+def drive_network_path(fixtures, sources, torch_backend, dev, fx=None,
+                       timed: int = NET_TIMED) -> dict:
+    """The network phase (module docstring, step 19): paths (c) (with
+    ``timed`` rounds of (b) and (c) under each backend), (d) and (e), the
+    launch counts of the whole drive, the verify kernels at (c)'s
     batches."""
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.sidecar import backend as be
@@ -5397,21 +5589,26 @@ def drive_network_path(fixtures, sources, torch_backend, dev, fx=None) -> dict:
         fx = cons_follow_fixtures(source, fixtures)
         print(f"network fixtures: path (b)'s {CONS_HEIGHTS} heights in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
-                 CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
-        auto = be._make_backend()
+    auto = None
+    if timed:
+        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                     CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+            auto = be._make_backend()
     try:
         _build.reset_launches()
-        wire = net_wire_path(fx, source["gen"], torch_backend, auto)
+        wire = net_wire_path(fx, source["gen"], torch_backend, auto, timed)
+        stamp("network: the TCP mesh")
         mesh_rec = ConsRecorder(torch_backend, lambda: 0)
         mesh = net_tcp_mesh(fixtures, mesh_rec)
         mesh["card_calls"] = len(mesh_rec.calls)
+        stamp("network: the SimTransport mesh")
         sim_rec = ConsRecorder(torch_backend, lambda: 0)
         sim = net_sim_mesh(fixtures, sim_rec)
         sim["card_calls"] = len(sim_rec.calls)
         launches = dict(_build.LAUNCHES)
     finally:
-        auto.close()
+        if auto is not None:
+            auto.close()
     check(all(launches[k] > 0 for k in ("sha512", "decompress", "ladder")),
           f"network path launches {launches}")
     batches = {}
@@ -5423,11 +5620,15 @@ def drive_network_path(fixtures, sources, torch_backend, dev, fx=None) -> dict:
             "kernels": kernels}
 
 
-def network_phase(fixtures, sources, backend, dev, card, records, fx=None) -> dict:
+def network_phase(fixtures, sources, backend, dev, card, records, fx=None,
+                  timed: int = NET_TIMED) -> dict:
     """Runs the network path (step 19), prints its metrics and gates, merges
-    its kernel comparisons into ``records``; returns its launches."""
+    its kernel comparisons into ``records``; returns its launches. With
+    ``timed`` 0 (the full run) ``consensus_10k_wire_ms_per_height`` is the
+    counted run's and ``consensus_10k_ms_per_height`` the consensus
+    phase's; ``--network`` times NET_TIMED rounds under each backend."""
     start = time.perf_counter()
-    out = drive_network_path(fixtures, sources, backend, dev, fx)
+    out = drive_network_path(fixtures, sources, backend, dev, fx, timed)
     for k in ("sha512", "decompress", "ladder"):
         records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
             b["max_abs_err"][k] for b in out["kernels"].values()])
@@ -5444,19 +5645,22 @@ def network_phase(fixtures, sources, backend, dev, card, records, fx=None) -> di
           + f"); launches {out['launches']}", flush=True)
     common = {"device": torch.cuda.get_device_name(0), "card": card}
     med = wire["ms_per_height"]
-    print(json.dumps({"metric": "consensus_10k_ms_per_height", "value": med["b_torch"],
-                      "validators": N_SIGS, "heights": CONS_HEIGHTS,
-                      "by_backend": {"torch": med["b_torch"], "auto": med["b_auto"]},
-                      "runs_ms": {"torch": wire["runs_ms"]["b_torch"],
-                                  "auto": wire["runs_ms"]["b_auto"]},
-                      "timed_in": "the network phase, in turns with path (c)", **common}),
-          flush=True)
+    if timed:
+        print(json.dumps({"metric": "consensus_10k_ms_per_height", "value": med["b_torch"],
+                          "validators": N_SIGS, "heights": CONS_HEIGHTS,
+                          "by_backend": {"torch": med["b_torch"], "auto": med["b_auto"]},
+                          "runs_ms": {"torch": wire["runs_ms"]["b_torch"],
+                                      "auto": wire["runs_ms"]["b_auto"]},
+                          "timed_in": "the network phase, in turns with path (c)", **common}),
+              flush=True)
     print(json.dumps({"metric": "consensus_10k_wire_ms_per_height", "value": med["c_torch"],
+                      "from": "timed runs" if timed else "the counted run (a recording backend)",
                       "validators": N_SIGS, "heights": CONS_HEIGHTS, "peers": NET_PEERS,
                       "by_backend": {"torch": med["c_torch"], "auto": med["c_auto"]},
                       "path_b_ms_per_height": {"torch": med["b_torch"], "auto": med["b_auto"]},
-                      "wire_minus_b_ms": {"torch": med["c_torch"] - med["b_torch"],
-                                          "auto": med["c_auto"] - med["b_auto"]},
+                      "wire_minus_b_ms": {t: med[f"c_{t}"] - med[f"b_{t}"]
+                                          for t in ("torch", "auto")
+                                          if None not in (med[f"c_{t}"], med[f"b_{t}"])},
                       "runs_ms": wire["runs_ms"], "counted_ms": wire["counted_ms"],
                       "dwell_hits": wire["dwell_hits"], "aead_provider": w["aead_provider"], "handshake_ms": w["handshake_ms"],
                       **common}), flush=True)
@@ -5729,15 +5933,17 @@ def rpc_doctored_commit(honest, bs):
     return commit
 
 
-def rpc_serve_main(conn, items, index_items, gen_json: str) -> None:
+def rpc_serve_main(conn) -> None:
     """(g)'s node, in a process of its own (so that its server threads do
-    not hold the client's interpreter lock): the port's JSONRPCServer on
-    127.0.0.1:0 serving ``routes(Environment(...))`` over the source's
-    stores and indexes (their items), and a second one whose /commit is
-    doctored (``rpc_doctored_commit``). Sends the two ports, then serves
-    until ``close``."""
+    not hold the client's interpreter lock), started before (f) and sent
+    (f)'s indexes when (f) is done: the port's JSONRPCServer on 127.0.0.1:0
+    serving ``routes(Environment(...))`` over the source's stores and
+    indexes (their items, the genesis, from the pipe), and a second one
+    whose /commit is doctored (``rpc_doctored_commit``). Sends the two
+    ports, then serves until ``close``."""
     servers = []
     try:
+        items, index_items, gen_json = conn.recv()
         from cometbft_tpu_torch import convert
         from cometbft_tpu_torch.config import test_config
         from cometbft_tpu_torch.rpc.core import Environment, routes
@@ -5830,8 +6036,22 @@ def rpc_light_sync(url: str, anchor, backend, witness: bool = True):
     return {"ms": wall, "trace": trace, "client": client, "stages": stages}
 
 
-def rpc_light_path(source, index_items, torch_backend, sync_reps: int) -> dict:
-    """(g): the node in its own process (``rpc_serve_main``); the counted
+def rpc_server_start() -> tuple:
+    """(g)'s server process (``rpc_serve_main``), started: (the process,
+    the pipe). It imports while (f) runs."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=rpc_serve_main, args=(child,), daemon=True)
+    proc.start()
+    child.close()
+    return proc, conn
+
+
+def rpc_light_path(source, index_items, torch_backend, sync_reps: int, started) -> dict:
+    """(g): the node in its own process (``rpc_server_start``'s
+    ``started``, sent the stores' and indexes' items here); the counted
     sync under a recording ``TorchBackend()`` (every verify launch from the
     device-owner thread, three a card call), its trace equal to a
     BlockStoreProvider client's over the same stores, the doctored tip
@@ -5839,8 +6059,6 @@ def rpc_light_path(source, index_items, torch_backend, sync_reps: int) -> dict:
     rounds of the default's sync (built only then), in turns with
     TorchBackend()'s after the first (the counted run is its first), each
     with its stage split."""
-    import multiprocessing
-
     from cometbft_tpu_torch.libs.db import MemDB
     from cometbft_tpu_torch.light.client import Client, TrustOptions
     from cometbft_tpu_torch.light.provider import BlockStoreProvider
@@ -5853,15 +6071,11 @@ def rpc_light_path(source, index_items, torch_backend, sync_reps: int) -> dict:
     items = list(node["db"].iterator())
     anchor = BlockStoreProvider(BSYNC_CHAIN_ID, node["block_store"], node["state_store"]) \
         .light_block(1)
-    ctx = multiprocessing.get_context("spawn")
-    conn, child = ctx.Pipe()
-    proc = ctx.Process(target=rpc_serve_main, args=(child, items, index_items,
-                                                    source["gen"].to_json()), daemon=True)
-    t0 = time.perf_counter()
-    proc.start()
-    child.close()
+    proc, conn = started
     out = {}
     try:
+        t0 = time.perf_counter()  # the server's start from its stores' items
+        conn.send((items, index_items, source["gen"].to_json()))
         check(conn.poll(RPC_WAIT_S), "the RPC server process did not start")
         hello = conn.recv()
         check("error" not in hello, f"the RPC server process failed: {hello.get('error')}")
@@ -5980,13 +6194,17 @@ def rpc_verify_tx_answer(ans: dict, data_hash: bytes, tx: bytes) -> None:
 
 
 def rpc_node_path(torch_backend, tmpdir: str) -> dict:
-    """(h): a one-validator chain assembled as the reference's node.py does
-    (ConsensusState with a FilePV, a provable kvstore, CListMempool, the
-    event bus, KV indexers behind IndexerService, JSONRPCServer on
-    127.0.0.1:0) under ``test_config()``'s timeouts. RPC_TXS transactions
-    through ``broadcast_tx_async`` over HTTP before the first height (so
-    that it carries them all), a websocket subscribed to NewBlock, then
-    RPC_COMMIT_TXS through ``broadcast_tx_commit``. Under
+    """(h): a one-validator chain, a port ``Node`` (``node/node.py``) built
+    by ``default_new_node`` from a home under ``tmpdir`` written by the
+    port's own functions (``node_home``: config.toml from ``test_config()``
+    with RPC on 127.0.0.1:0 and no p2p listener, the genesis, a FilePV, a
+    node key), with a provable kvstore: the WAL, the event bus, the KV
+    indexers behind IndexerService, the ingress (legacy transactions pass
+    it to CListMempool) and JSONRPCServer. RPC_TXS transactions through
+    ``broadcast_tx_async`` over HTTP before the first height (consensus is
+    held back while ``start()`` brings the rest up, so that it carries them
+    all), a websocket subscribed to NewBlock, then RPC_COMMIT_TXS through
+    ``broadcast_tx_commit``. Under
     ``CMTPU_DEVICE_PROOFS=1`` the card's proof set of the first block (the
     one its tx route computes) holds every proof, each verified against the
     header's data hash, and every RPC_PROOF_STRIDE-th ``tx?prove=true``
@@ -5996,60 +6214,35 @@ def rpc_node_path(torch_backend, tmpdir: str) -> dict:
     the next header's app hash, each equal to the native pass's. Two sha256
     launches a proof set on the card, none else."""
     from cometbft_tpu_torch.abci.example.kvstore import KVStoreApplication
-    from cometbft_tpu_torch.config import test_config
-    from cometbft_tpu_torch.consensus.state import ConsensusState
-    from cometbft_tpu_torch.crypto import ed25519, merkle
+    from cometbft_tpu_torch.crypto import merkle
     from cometbft_tpu_torch.crypto.merkle.proof_op import ProofOp, ProofOps, default_proof_runtime
-    from cometbft_tpu_torch.libs.db import MemDB
-    from cometbft_tpu_torch.mempool import CListMempool
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import merkle_kernel as mk
-    from cometbft_tpu_torch.privval.file import FilePV
-    from cometbft_tpu_torch.proxy import AppConns, local_client_creator
     from cometbft_tpu_torch.rpc.client import HTTPClient, RPCClientError
-    from cometbft_tpu_torch.rpc.core import Environment, routes
-    from cometbft_tpu_torch.rpc.jsonrpc.server import JSONRPCServer
     from cometbft_tpu_torch.rpc.jsonrpc.ws_client import WSClient
     from cometbft_tpu_torch.sidecar import backend as be
-    from cometbft_tpu_torch.state import BlockExecutor, StateStore, make_genesis_state
-    from cometbft_tpu_torch.state.txindex import IndexerService, KVBlockIndexer, KVTxIndexer
-    from cometbft_tpu_torch.store import BlockStore
     from cometbft_tpu_torch.types import Time
-    from cometbft_tpu_torch.types.events import EventBus
     from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from cometbft_tpu_torch.types.tx import tx_hash
 
-    pv = FilePV(ed25519.gen_priv_key_from_secret(b"chip-smoke-rpc-validator"),
-                os.path.join(tmpdir, "priv_validator_key.json"),
-                os.path.join(tmpdir, "priv_validator_state.json"))
-    pv.save()
+    home = os.path.join(tmpdir, "rpc-node")
+    cfg = node_config(p2p__laddr="")
+    pv = node_home(home, cfg, b"chip-smoke-rpc-validator")
     gen = GenesisDoc(chain_id=RPC_CHAIN_ID, genesis_time=Time(BSYNC_T0, 0), validators=[
         GenesisValidator(pv.address(), pv.get_pub_key(), 10, "validator")])
     gen.validate_and_complete()
-    state = make_genesis_state(gen)
-    cfg = test_config()
-    conns = AppConns(local_client_creator(KVStoreApplication(provable=True)))
-    conns.start()
-    mempool = CListMempool(cfg.mempool, conns.mempool)
-    ss, bs = StateStore(MemDB()), BlockStore(MemDB())
-    ss.save(state)
-    bus = EventBus()
-    bus.start()
-    tx_ix, blk_ix = KVTxIndexer(MemDB()), KVBlockIndexer(MemDB())
-    indexer = IndexerService(tx_ix, blk_ix, bus)
-    indexer.start()
-    executor = BlockExecutor(ss, conns.consensus, mempool, None, bs, event_bus=bus)
-    cs = ConsensusState(cfg.consensus, state, executor, bs, mempool, event_bus=bus)
-    cs.set_priv_validator(pv)
-    env = Environment(config=cfg, state_store=ss, block_store=bs, consensus_state=cs,
-                      mempool=mempool, event_bus=bus, genesis_doc=gen,
-                      priv_validator_pub_key=pv.get_pub_key(), tx_indexer=tx_ix,
-                      block_indexer=blk_ix, proxy_app_query=conns.query,
-                      node_info={"moniker": "chip-smoke-rpc", "network": RPC_CHAIN_ID})
-    srv = JSONRPCServer(routes(env), host="127.0.0.1", port=0)
-    srv.start()
-    rpc = HTTPClient(f"http://127.0.0.1:{srv.port}", timeout=RPC_WAIT_S)
-    ws = WSClient(srv.port, timeout=RPC_WAIT_S)
+    node_genesis(cfg, gen.to_json())
+    node = node_load(home, app=KVStoreApplication(provable=True))
+    cs, bs, tx_ix = node.consensus_state, node.block_store, node.tx_indexer
+    hold_start, cs.start = cs.start, lambda: None  # consensus waits for the txs below
+    before = set(threading.enumerate())
+    try:
+        node.start()
+    finally:
+        cs.start = hold_start
+    rpc = HTTPClient(f"http://127.0.0.1:{node.rpc_port}", timeout=RPC_WAIT_S)
+    ws = WSClient(node.rpc_port, timeout=RPC_WAIT_S)
+    app = node.proxy_app.query._app
     rec = LightRecorder(torch_backend)
     device_sets = []
     proof_threads = collections.Counter()  # the caller's thread of each card proof set
@@ -6094,9 +6287,16 @@ def rpc_node_path(torch_backend, tmpdir: str) -> dict:
         for tx in txs:
             check(rpc.broadcast_tx_async(tx)["code"] == 0, "broadcast_tx_async refused a tx")
         out["broadcast_async_ms_per_tx"] = (time.perf_counter() - t0) * 1e3 / len(txs)
-        check(mempool.size() == RPC_TXS, f"the mempool holds {mempool.size()} of {RPC_TXS}")
+        check(node.ingress.flush_queue(RPC_WAIT_S), "the ingress did not drain its lanes")
+        deadline = time.monotonic() + RPC_WAIT_S
+        while node.mempool.size() < RPC_TXS:  # the ingress hands them on from its dispatcher
+            check(time.monotonic() < deadline,
+                  f"the mempool holds {node.mempool.size()} of {RPC_TXS}")
+            time.sleep(0.005)
+        out["ingress_admitted_ms"] = (time.perf_counter() - t0) * 1e3
         start = time.perf_counter()
-        cs.start()
+        with node.threads.scope():  # consensus's threads join the node's, as in start()
+            cs.start()
         deadline = time.monotonic() + RPC_WAIT_S
         while bs.height() < 1:  # the first height reaps the mempool whole
             check(time.monotonic() < deadline, "the one-validator chain made no block")
@@ -6205,17 +6405,28 @@ def rpc_node_path(torch_backend, tmpdir: str) -> dict:
         check(cs.prebatch_errors == 0 and cs.consensus_failures == 0,
               f"the node counted errors: prebatch {cs.prebatch_errors}, consensus "
               f"{cs.consensus_failures}")
+        ingress = node.ingress.stats()
+        check(ingress["legacy_passthrough"] == ingress["admitted"] == RPC_TXS + RPC_COMMIT_TXS
+              and all(ingress[k] == 0 for k in NODE_INGRESS_ERRORS),
+              f"the ingress: {ingress}")
+        out["ingress"] = {k: ingress[k] for k in ("submitted", "admitted", "legacy_passthrough")}
     finally:
-        mk.proofs_from_byte_slices_device = orig_device
-        _build.check_launch = orig_check
-        be.set_backend(None)
-        cs.stop()
         ws.close()
         if reader is not None:
             reader.join(RPC_WAIT_S)
-        indexer.stop()
-        srv.stop()
-        bus.stop()
+        # Every thread started since the node was built, held before stop(),
+        # but the process's own: the backend's device-owner thread and the
+        # vote batcher's window (``crypto/sigbatch``), which outlive nodes.
+        held = [t for t in threading.enumerate() if t not in before and t is not reader
+                and t.name not in ("cmtpu-torch-dev", "sigbatch")]
+        node.stop()  # before its backend goes: no thread of it can call get_backend() after
+        mk.proofs_from_byte_slices_device = orig_device
+        _build.check_launch = orig_check
+        be.set_backend(None)
+    alive = [t.name for t in held if t.is_alive()]
+    check(cs._thread in held and not alive and node.threads_left_at_stop == 0,
+          f"threads of the node outlived stop(): {alive} ({node.threads_left_at_stop} of its "
+          f"group); consensus's receive routine held: {cs._thread in held}")
     check(not ws_error, f"websocket: {ws_error}")
     heights = [h for h, _ in seen]
     check(heights == list(range(1, len(heights) + 1)) and heights[-1] >= height - 1,
@@ -6237,7 +6448,7 @@ def rpc_node_path(torch_backend, tmpdir: str) -> dict:
         "proof_set_callers": {"main": proof_threads[me], "request_threads": sum(
             n for t, n in proof_threads.items() if t != me), "distinct_request_threads": len(
             [t for t in proof_threads if t != me])},
-        "tx_leaves": txs[:RPC_TXS], "kv_leaves": conns.query._app._kv_leaves()[1],
+        "tx_leaves": txs[:RPC_TXS], "kv_leaves": app._kv_leaves()[1],
     })
     return out
 
@@ -6273,16 +6484,26 @@ def drive_rpc_path(sources, torch_backend, dev, sms, clock_hz, sync_reps: int) -
     from cometbft_tpu_torch.ops import _build
 
     source = sources["10k"]
-    _build.reset_launches()
-    restart = rpc_restart(source, torch_backend)
-    restart_launches = dict(_build.LAUNCHES)
-    check(restart_launches == {"sha512": 2, "decompress": 2, "ladder": 2, "sha256": 0,
-                               "bn254": 0},
-          f"restart: launches {restart_launches}, expected one verify set (the LastCommit) "
-          f"in each of (ii)'s two runs")
-    light = rpc_light_path(source, restart.pop("index_items"), torch_backend, sync_reps)
+    started = rpc_server_start()  # ended by rpc_light_path, or here if (f) fails
+    try:
+        _build.reset_launches()
+        restart = rpc_restart(source, torch_backend)
+        restart_launches = dict(_build.LAUNCHES)
+        check(restart_launches == {"sha512": 2, "decompress": 2, "ladder": 2, "sha256": 0,
+                                   "bn254": 0},
+              f"restart: launches {restart_launches}, expected one verify set (the LastCommit) "
+              f"in each of (ii)'s two runs")
+    except BaseException:
+        started[0].kill()
+        started[0].join()
+        started[1].close()
+        raise
+    stamp("RPC: (g)")
+    light = rpc_light_path(source, restart.pop("index_items"), torch_backend, sync_reps, started)
+    stamp("RPC: (h)")
     with tempfile.TemporaryDirectory() as tmp:
         node = rpc_node_path(torch_backend, tmp)
+    stamp("RPC: the kernels at the path's batches")
     launches = dict(_build.LAUNCHES)
     batches = {}
     for label, trip in (("final_block", restart.pop("final_block")),
@@ -6354,6 +6575,925 @@ def rpc_only(card, dev, sms, clock_hz) -> int:
     launches, _ = rpc_phase({"10k": big}, backend, dev, card, records, sms, clock_hz,
                             sync_reps=1)
     print(json.dumps({"rpc_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
+# -- the node path ---------------------------------------------------------------
+
+# (j) A one-validator port Node under its defaults (the QoS ingress, PEX,
+# blocksync) admits signed envelopes sent over HTTP; (k) a fresh port Node
+# catches up with the 10,240-validator source over TCP from a port Node in a
+# process of its own. Every node is built by ``default_new_node`` from a home
+# on disk that the port's own functions wrote.
+NODE_CHAIN_ID = "chip-smoke-node"
+NODE_SENDERS = 64
+NODE_PER_SENDER = 64  # 4,096 envelopes in all, one of each sender's corrupted
+NODE_CLIENTS = 8  # HTTP client threads; each sender's envelopes in order from one
+NODE_PAYLOAD_BYTES = 48
+NODE_WAIT_S = 300.0
+NODE_LAST_WAIT_S = 4.0  # the consensus catch-up of the source's last block, after blocksync
+NODE_DEEP_WAIT_S = 150.0  # ... under --node, long enough to see it commit
+NODE_INGRESS_ERRORS = ("preverify_fallbacks", "dispatcher_errors", "callback_errors",
+                       "rejected_other", "rejected_mempool_full", "rejected_queue_full",
+                       "rejected_rate_limited", "shed_total")
+
+
+def node_config(**fields):
+    """``test_config()`` with p2p and RPC on 127.0.0.1:0, a loopback address
+    book (strict refuses loopback, as the reference's own PEX test says) and
+    only errors logged; every other field at the reference's default (the
+    ingress, PEX and blocksync on). ``fields`` are ``section__field=value``."""
+    from cometbft_tpu_torch.config import test_config
+
+    cfg = test_config()
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.addr_book_strict = False
+    cfg.base.log_level = "error"
+    for k, v in fields.items():
+        section, _, field = k.partition("__")
+        setattr(getattr(cfg, section), field, v)
+    return cfg
+
+
+def node_home(home: str, cfg, pv_secret: bytes | None = None, items=()):
+    """A node's home written by the port's own functions: config.toml
+    (``config/toml.write_config_file``), the FilePV (the key of
+    ``pv_secret``, else a fresh one), the node key and, for a sqlite home,
+    the block and state stores holding ``items``. Returns the FilePV (the
+    genesis comes with ``node_genesis``)."""
+    from cometbft_tpu_torch.config.toml import write_config_file
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.libs.db import new_db
+    from cometbft_tpu_torch.p2p.key import NodeKey
+    from cometbft_tpu_torch.privval.file import FilePV
+
+    cfg.set_root(home)
+    os.makedirs(os.path.join(home, "config"), exist_ok=True)
+    os.makedirs(cfg.base.db_path(), exist_ok=True)
+    write_config_file(os.path.join(home, "config", "config.toml"), cfg)
+    if pv_secret is not None:
+        FilePV(ed25519.gen_priv_key_from_secret(pv_secret), cfg.base.priv_validator_key_path(),
+               cfg.base.priv_validator_state_path()).save()
+    pv = FilePV.load_or_generate(cfg.base.priv_validator_key_path(),
+                                 cfg.base.priv_validator_state_path())
+    NodeKey.load_or_gen(cfg.base.node_key_path())
+    for name in ("blockstore", "state") if items else ():
+        db = new_db(name, cfg.base.db_backend, cfg.base.db_path())
+        for k, v in items:
+            db.set(k, v)
+        db.close()
+    return pv
+
+
+def node_genesis(cfg, gen_json: str) -> None:
+    with open(cfg.base.genesis_path(), "w") as f:
+        f.write(gen_json)
+
+
+def node_load(home: str, app=None):
+    """``default_new_node`` over the home's config.toml, as a CLI would."""
+    from cometbft_tpu_torch.config.toml import load_toml
+    from cometbft_tpu_torch.node import default_new_node
+
+    cfg = load_toml(os.path.join(home, "config", "config.toml"))
+    cfg.set_root(home)
+    return default_new_node(cfg, app=app)
+
+
+def node_errors(node) -> dict:
+    """Every error a node counts (ROADMAP §3, counted exceptions), by name."""
+    out = {"prebatch_errors": node.consensus_state.prebatch_errors,
+           "consensus_failures": node.consensus_state.consensus_failures,
+           "wal_catchup_errors": node.consensus_state.wal_catchup_errors}
+    if node.ingress is not None:
+        st = node.ingress.stats()
+        out.update({f"ingress_{k}": st[k] for k in NODE_INGRESS_ERRORS})
+    if node.switch is not None:
+        out.update(node.switch.errors())
+        out["gossip_errors"] = node.consensus_reactor.gossip_errors
+        out["check_tx_errors"] = sum(node.mempool_reactor.check_tx_errors.values())
+        out["evidence_receive_errors"] = node.evidence_reactor.receive_errors
+        out["blocksync_prefetch_errors"] = node.blocksync_reactor.prefetch_errors
+        out["blocksync_sync_errors"] = node.blocksync_reactor.sync_errors
+        out["pex_dial_errors"] = node.pex_reactor.dial_errors
+        out["addrbook_load_errors"] = node.addr_book.load_errors
+    return out
+
+
+def node_envelopes() -> dict:
+    """(j)'s traffic: NODE_SENDERS senders (ed25519 keys from fixed seeds),
+    NODE_PER_SENDER envelopes each (a NODE_PAYLOAD_BYTES-byte ``k...=v...``
+    payload, priorities cycling 0-3, nonces in order; the one at nonce i mod
+    NODE_PER_SENDER of sender i with R's first byte flipped), signed here
+    with the fixed-base table; then the four ``broadcast_tx_sync`` probes:
+    a valid envelope, a corrupted one, a malformed one (truncated) and a
+    duplicate of one already admitted."""
+    from cometbft_tpu_torch.crypto import ed25519, ed25519_pure as pure
+    from cometbft_tpu_torch.mempool import ingress as ing
+
+    fb = FixedBase(pure)
+    seeds = [hashlib.sha256(b"chip-smoke-node-sender-%d" % i).digest()
+             for i in range(NODE_SENDERS)]
+    pubs = [pure.point_compress(fb.mult(pure.secret_expand(s)[0])) for s in seeds]
+
+    def envelope(i: int, j: int, corrupt: bool = False) -> bytes:
+        payload = (b"node-%02d-%02d=" % (i, j)).ljust(NODE_PAYLOAD_BYTES, b"v")
+        env = ing.SignedTxEnvelope(pubs[i], j % 4, j, payload, b"")
+        sig = sign_known(pure, fb, seeds[i], pubs[i], env.sign_bytes())
+        if corrupt:
+            sig = bytes([sig[0] ^ 0x01]) + sig[1:]
+        return (bytes([ing.ENVELOPE_MAGIC, ing.ENVELOPE_VERSION]) + pubs[i]
+                + bytes([j % 4]) + env.nonce.to_bytes(8, "big") + payload + sig)
+
+    check(envelope(3, 5) == ing.encode_envelope(ed25519._from_seed(seeds[3]),
+                                                (b"node-03-05=").ljust(NODE_PAYLOAD_BYTES, b"v"),
+                                                priority=1, nonce=5),
+          "the envelopes signed here differ from ingress.encode_envelope's")
+    streams = [[envelope(i, j, corrupt=(j == i % NODE_PER_SENDER))
+                for j in range(NODE_PER_SENDER)] for i in range(NODE_SENDERS)]
+    corrupted = {s[i % NODE_PER_SENDER] for i, s in enumerate(streams)}
+    valid = [tx for s in streams for tx in s if tx not in corrupted]
+    probes = {"valid": envelope(0, NODE_PER_SENDER), "corrupted": envelope(
+        1, NODE_PER_SENDER, corrupt=True), "malformed": envelope(2, NODE_PER_SENDER)[:60],
+              "duplicate": streams[2][0]}
+    return {"streams": streams, "valid": valid, "corrupted": corrupted, "probes": probes}
+
+
+def node_ingress_run(env: dict, backend, label: str, tmpdir: str, keep: bool = False) -> dict:
+    """(j) once: a one-validator node (its own FilePV, the kvstore) under
+    ``set_backend(recorder(backend))``; NODE_CLIENTS threads send the
+    streams through the port's ``HTTPClient.broadcast_tx_async``; then the
+    probes through ``broadcast_tx_sync``. Times from the first send to the
+    store of the height holding the last valid envelope, with the split
+    (HTTP submit, lane wait, the preverify backend calls, CheckTx, the
+    heights); gates the commits, the rejections, the counters, the lanes
+    against the verified-triple cache, the launches and their thread, the
+    ingress_stats route and the reap order."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import Time
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    home = os.path.join(tmpdir, f"ingress-{label}")
+    cfg = node_config()
+    pv = node_home(home, cfg, b"chip-smoke-node-validator")
+    gen = GenesisDoc(chain_id=NODE_CHAIN_ID, genesis_time=Time(BSYNC_T0, 0), validators=[
+        GenesisValidator(pv.address(), pv.get_pub_key(), 10, "validator")])
+    gen.validate_and_complete()
+    node_genesis(cfg, gen.to_json())
+    node = node_load(home)
+    ing, mp, lanes = node.ingress, node.mempool, node.ingress.lanes
+    app = node.proxy_app.mempool._app
+    rec = LightRecorder(backend, keep=keep)
+
+    # Instruments, on this node's objects (and the launch and verify hooks,
+    # restored after): lane wait, CheckTx, the app's CheckTx txs, the
+    # verified-triple cache hits of the ingress's batches, launch threads.
+    pushed, waits, check_ms, app_seen, hits = {}, [], [], set(), [0]
+    launch_threads = collections.Counter()
+    orig_push, orig_drain, orig_mp_check = lanes.push, lanes.drain, mp.check_tx
+    orig_app_check, orig_launch = app.check_tx, _build.check_launch
+    orig_verify = ed25519.BatchVerifier.verify
+
+    def push(item):
+        pushed[id(item)] = time.perf_counter()
+        try:
+            orig_push(item)
+        except Exception:
+            pushed.pop(id(item), None)
+            raise
+
+    def drain(budget):
+        out = orig_drain(budget)
+        now = time.perf_counter()
+        waits.extend((now - pushed.pop(id(it))) * 1e3 for it in out)
+        return out
+
+    def mp_check(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig_mp_check(*a, **kw)
+        finally:
+            check_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def app_check(req):
+        app_seen.add(bytes(req.tx))
+        return orig_app_check(req)
+
+    def verify(self):
+        if threading.current_thread().name == "tx-ingress":
+            hits[0] += sum(1 for k in zip(self._pubs, self._sigs, self._msgs)
+                           if k in ed25519._verified)
+        return orig_verify(self)
+
+    def check_launch(kernel, rc):
+        launch_threads[(kernel, threading.current_thread().name)] += 1
+        return orig_launch(kernel, rc)
+
+    lanes.push, lanes.drain, mp.check_tx, app.check_tx = push, drain, mp_check, app_check
+    ed25519.BatchVerifier.verify, _build.check_launch = verify, check_launch
+    ed25519._verified.clear()  # a cold cache, as in a fresh node's process
+    be.set_backend(rec)
+    blocks, out = {}, {}
+    try:
+        node.start()
+        rpc = HTTPClient(f"http://127.0.0.1:{node.rpc_port}", timeout=NODE_WAIT_S)
+        deadline = time.monotonic() + NODE_WAIT_S
+        while node.block_store.height() < 1:
+            check(time.monotonic() < deadline, f"(j) {label}: the node made no block")
+            time.sleep(0.01)
+        launches0 = dict(_build.LAUNCHES)
+        send_ms = [[] for _ in range(NODE_CLIENTS)]
+        answers = [[] for _ in range(NODE_CLIENTS)]
+
+        def client(t: int) -> None:
+            c = HTTPClient(f"http://127.0.0.1:{node.rpc_port}", timeout=NODE_WAIT_S)
+            mine = [s for i, s in enumerate(env["streams"]) if i % NODE_CLIENTS == t]
+            for j in range(NODE_PER_SENDER):
+                for s in mine:
+                    t1 = time.perf_counter()
+                    answers[t].append(c.broadcast_tx_async(s[j])["code"])
+                    send_ms[t].append((time.perf_counter() - t1) * 1e3)
+
+        # The store time of each height, from a watcher polling the block store.
+        seen_at, watching = {}, threading.Event()
+
+        def watcher() -> None:
+            h_seen = node.block_store.height()
+            while not watching.is_set():
+                h = node.block_store.height()
+                now = time.perf_counter()
+                for hh in range(h_seen + 1, h + 1):
+                    seen_at[hh] = now
+                h_seen = h
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=client, args=(t,), name=f"node-client-{t}")
+                   for t in range(NODE_CLIENTS)]
+        watch = threading.Thread(target=watcher, name="node-watcher")
+        watch.start()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(NODE_WAIT_S)
+        t_sent = time.perf_counter()
+        check(all(a == 0 for ans in answers for a in ans)
+              and sum(map(len, answers)) == NODE_SENDERS * NODE_PER_SENDER,
+              f"(j) {label}: broadcast_tx_async answered {collections.Counter(sum(answers, []))}")
+
+        # The heights as they are stored, until every valid envelope is in one.
+        want, committed, scanned = set(env["valid"]), set(), set()
+        t_last = None
+        deadline = time.monotonic() + NODE_WAIT_S
+        try:
+            while not want <= committed:
+                check(time.monotonic() < deadline,
+                      f"(j) {label}: {len(want - committed)} valid envelopes never committed; "
+                      f"the mempool holds {mp.size()}, the ingress {ing.stats()}")
+                for hh in sorted(set(seen_at) - scanned):
+                    txs = {bytes(tx) for tx in node.block_store.load_block(hh).data.txs}
+                    committed.update(txs)
+                    scanned.add(hh)
+                    if want & txs:
+                        t_last = max(t_last or 0.0, seen_at[hh])
+                time.sleep(0.005)
+        finally:
+            watching.set()
+            watch.join()
+        seen_h = max(seen_at)
+        out["ms"] = (t_last - t0) * 1e3
+        sent_ms = sorted(x for s in send_ms for x in s)
+        lane_waits = sorted(waits)
+        ingress_calls = [c for c in rec.calls if c["class"] == "ingress"]
+        lanes_of = sorted(c["lanes"] for c in ingress_calls)
+        heights = [hh for hh in sorted(seen_at) if hh >= 2]
+        per_height = [len(node.block_store.load_block(hh).data.txs) for hh in heights]
+        out["split"] = {
+            "http_submit": {"wall_ms": (t_sent - t0) * 1e3, "calls": len(sent_ms),
+                            "ms_median": statistics.median(sent_ms), "ms_max": sent_ms[-1]},
+            "lane_wait": {"items": len(lane_waits), "ms_median": statistics.median(lane_waits),
+                          "ms_p95": lane_waits[int(0.95 * (len(lane_waits) - 1))],
+                          "ms_max": lane_waits[-1]},
+            "preverify": {"calls": len(ingress_calls), "lanes_min": lanes_of[0],
+                          "lanes_median": statistics.median(lanes_of), "lanes_max": lanes_of[-1],
+                          "lanes": sum(lanes_of),
+                          "backend_ms_median": statistics.median(c["ms"] for c in ingress_calls),
+                          "backend_ms_sum": sum(c["ms"] for c in ingress_calls)},
+            "check_tx": {"calls": len(check_ms), "ms_sum": sum(check_ms),
+                         "ms_median": statistics.median(check_ms)},
+            "heights": {"to_commit": len([hh for hh in heights if seen_at[hh] <= t_last]),
+                        "txs_min": min(per_height), "txs_median": statistics.median(per_height),
+                        "txs_max": max(per_height)},
+        }
+
+        # The sync probes: their codes and codespaces, then the valid one committed.
+        probes = {k: rpc.broadcast_tx_sync(tx) for k, tx in env["probes"].items()}
+        got = {k: (r["code"], r["codespace"]) for k, r in probes.items()}
+        check(got == {"valid": (0, ""), "corrupted": (102, "ingress"), "malformed": (101, "ingress"),
+                      "duplicate": (105, "ingress")}, f"(j) {label}: broadcast_tx_sync {got}")
+        out["probes"] = {k: {"code": r["code"], "codespace": r["codespace"], "log": r["log"]}
+                         for k, r in probes.items()}
+        want.add(env["probes"]["valid"])
+        deadline = time.monotonic() + NODE_WAIT_S
+        while env["probes"]["valid"] not in committed:
+            check(time.monotonic() < deadline, f"(j) {label}: the valid probe never committed")
+            h = node.block_store.height()
+            for hh in range(seen_h + 1, h + 1):
+                committed.update(bytes(tx) for tx in node.block_store.load_block(hh).data.txs)
+            seen_h = h
+            time.sleep(0.01)
+        check(ing.flush_queue(NODE_WAIT_S), f"(j) {label}: the ingress lanes did not drain")
+        launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+
+        # Gates.
+        count = collections.Counter()
+        order_ok = True
+        for hh in range(1, node.block_store.height() + 1):
+            txs = [bytes(tx) for tx in node.block_store.load_block(hh).data.txs]
+            count.update(txs)
+            prios = [tx[34] for tx in txs if tx[:1] == b"\xce"]
+            order_ok &= prios == sorted(prios, reverse=True)
+        check(all(count[tx] == 1 for tx in want),
+              f"(j) {label}: valid envelopes not in exactly one block: "
+              f"{collections.Counter(count[tx] for tx in want)}")
+        bad = env["corrupted"] | {env["probes"]["corrupted"], env["probes"]["malformed"]}
+        check(not (bad & app_seen) and not (bad & set(count)),
+              f"(j) {label}: {len(bad & app_seen)} corrupted or malformed envelopes reached "
+              f"CheckTx")
+        check(order_ok, f"(j) {label}: a block's envelopes are not in descending lanes")
+        st = ing.stats()
+        n_valid = len(env["valid"]) + 1
+        check(st["submitted"] == NODE_SENDERS * NODE_PER_SENDER + 4 and st["admitted"] == n_valid
+              and st["rejected_invalid_sig"] == len(env["corrupted"]) + 1
+              and st["rejected_bad_envelope"] == 1 and st["rejected_duplicate"] == 1
+              and st["legacy_passthrough"] == 0, f"(j) {label}: ingress counters {st}")
+        all_lanes = sum(c["lanes"] for c in rec.calls if c["class"] == "ingress")
+        check(all_lanes == st["preverify_sigs"] - hits[0],
+              f"(j) {label}: preverify lanes {all_lanes}, preverify_sigs "
+              f"{st['preverify_sigs']}, cache hits {hits[0]}")
+        errors = node_errors(node)
+        check(all(v == 0 for v in errors.values()), f"(j) {label}: errors {errors}")
+        route = rpc.call("ingress_stats")
+        check(route.pop("enabled") is True and route == ing.stats(),
+              f"(j) {label}: the ingress_stats route {route} != stats() {ing.stats()}")
+        calls = len(rec.calls)
+        if label == "torch":
+            check(launched == {"sha512": calls, "decompress": calls, "ladder": calls,
+                               "sha256": 0, "bn254": 0},
+                  f"(j) torch: launches {launched} for {calls} card calls")
+            check({t for (_, t) in launch_threads} <= {"cmtpu-torch-dev"},
+                  f"(j) torch: kernels launched from {dict(launch_threads)}")
+        out.update({"launches": launched, "card_calls": calls, "cache_hits": hits[0],
+                    "counters": st, "heights": node.block_store.height(),
+                    "launch_threads": {f"{k}@{t}": n for (k, t), n in launch_threads.items()}})
+        if keep:
+            out["batches"] = sorted((c for c in rec.triples), key=lambda t: len(t[0]))
+    finally:
+        node.stop()  # before its backend goes: no thread of it can call get_backend() after
+        lanes.push, lanes.drain, mp.check_tx, app.check_tx = (
+            orig_push, orig_drain, orig_mp_check, orig_app_check)
+        ed25519.BatchVerifier.verify, _build.check_launch = orig_verify, orig_launch
+        be.set_backend(None)
+    check(node.threads_left_at_stop == 0,
+          f"(j) {label}: {node.threads_left_at_stop} threads outlived stop(): "
+          f"{thread_stacks(node.threads.threads())}")
+    return out
+
+
+def node_serve_main(conn, items, gen_json: str, home: str) -> None:
+    """(k)'s server, in a process of its own (its threads off the
+    follower's interpreter lock): a port Node built by
+    ``default_new_node`` from a sqlite home whose stores hold the source's
+    items, a fresh FilePV (no validator), the persistent kvstore, PEX on and
+    RPC off, ``TorchBackend()`` its process backend (its consensus checks
+    the seen commit it rebuilds as LastCommit); its Handshaker replays the
+    app at build. Sends its p2p address (with the seconds from its entry
+    to then), then answers "stats" until "close"."""
+    entered = time.perf_counter()
+    node = None
+    try:
+        from cometbft_tpu_torch.sidecar import backend as be
+
+        # The card, where there is one (a CPU rehearsal asks for the CPU).
+        be.set_backend(be.TorchBackend(device=None if torch.cuda.is_available() else "cpu"))
+        # No stall watchdog: the source's validators run nowhere, so the
+        # server's consensus waits at the next height by design.
+        cfg = node_config(base__db_backend="sqlite", base__proxy_app="persistent_kvstore",
+                          rpc__laddr="", consensus__stall_watchdog_factor=0.0)
+        node_home(home, cfg, items=items)
+        node_genesis(cfg, gen_json)
+        # The WAL a node that committed the stores' last height leaves: its
+        # end height, so that consensus starts past it with nothing to replay.
+        from cometbft_tpu_torch.consensus.wal import WAL, EndHeightMessage
+        from cometbft_tpu_torch.state import StateStore
+
+        wal = WAL(cfg.consensus.wal_path())
+        wal.start()
+        from cometbft_tpu_torch.libs.db import new_db
+
+        sdb = new_db("state", "sqlite", cfg.base.db_path())
+        wal.write_sync(EndHeightMessage(StateStore(sdb).load().last_block_height))
+        sdb.close()
+        wal.stop()
+        t0 = time.perf_counter()
+        node = node_load(home)
+        build_s = time.perf_counter() - t0
+        pex_in = collections.Counter()
+        orig_receive = node.pex_reactor.receive
+
+        def receive(chan_id, peer, msg_bytes):
+            from cometbft_tpu_torch.p2p.pex.reactor import decode_pex_message
+
+            pex_in[decode_pex_message(msg_bytes)[0]] += 1
+            return orig_receive(chan_id, peer, msg_bytes)
+
+        node.pex_reactor.receive = receive
+        node.start()
+        state = node.consensus_state.state
+        conn.send({"addr": f"{node.node_key.id}@{node.p2p_laddr}", "build_s": build_s,
+                   "ready_s": time.perf_counter() - entered,
+                   "height": state.last_block_height, "app_hash": state.app_hash.hex()})
+        while True:
+            msg = conn.recv()
+            if msg == "close":
+                break
+            conn.send({"pex_in": dict(pex_in), "book": sorted(node.addr_book._addrs),
+                       "errors": node_errors(node), "peers": [p.id for p in node.switch.peers()]})
+    except Exception as e:  # reported to the parent, which fails the run
+        conn.send({"error": repr(e)})
+    finally:
+        if node is not None:
+            node.stop()
+        conn.close()
+
+
+def node_catchup_run(source, backend, server: dict, tmpdir: str, label: str,
+                     counted: bool, conn=None, last_wait_s: float = NODE_LAST_WAIT_S) -> dict:
+    """(k) once: a fresh port Node from a home holding only the source's
+    genesis, the server its persistent peer. ``counted``: the blocksync
+    pipeline off and every stage timed (``BsyncStages``), the backend calls
+    tagged by check. Returns the wall ms from ``start()`` to the source's
+    last height but one (blocksync's last), the heights' store times, the
+    handoff to consensus, whether consensus then committed the last
+    height within ``last_wait_s``, and the node's end state, read after
+    ``stop()`` (its last backend calls included), and when ``counted`` the
+    triples of each backend call; with ``conn``, the server's stats taken
+    while the follower is still connected."""
+    from cometbft_tpu_torch.consensus import messages as cmsg
+    from cometbft_tpu_torch.crypto import ed25519, sigbatch
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    last = len(source["blocks"])
+    home = os.path.join(tmpdir, f"follower-{label}-{'counted' if counted else 'timed'}")
+    cfg = node_config(base__proxy_app="persistent_kvstore", rpc__laddr="",
+                      p2p__persistent_peers=server["addr"])
+    node_home(home, cfg)
+    node_genesis(cfg, source["gen"].to_json())
+    with environ(CMTPU_BLOCKSYNC_PIPELINE="0" if counted else None):
+        node = node_load(home)
+    stages = BsyncStages() if counted else None
+    rec = BsyncRecorder(backend, stages, keep=True) if counted else LightRecorder(backend)
+    launch_threads = collections.Counter()
+    orig_launch = _build.check_launch
+    wire = {"parts": [], "votes": []}
+    orig_send = node.consensus_state.send_peer_message
+    orig_caught_up = node.blocksync_reactor.on_caught_up
+    pex_in = collections.Counter()
+    orig_pex = node.pex_reactor.receive
+    handoff = {}
+
+    def check_launch(kernel, rc):
+        launch_threads[(kernel, threading.current_thread().name)] += 1
+        return orig_launch(kernel, rc)
+
+    def send_peer_message(msg, peer_id="peer"):
+        if getattr(msg, "height", None) == last or getattr(
+                getattr(msg, "vote", None), "height", None) == last:
+            kind = "parts" if isinstance(msg, cmsg.BlockPartMessage) else "votes"
+            wire[kind].append(time.perf_counter())
+        return orig_send(msg, peer_id)
+
+    def on_caught_up(state):
+        handoff["t"] = time.perf_counter()
+        handoff["calls"] = len(rec.calls)
+        handoff["height"] = state.last_block_height
+        orig_caught_up(state)
+        handoff["t_started"] = time.perf_counter()
+
+    def pex_receive(chan_id, peer, msg_bytes):
+        from cometbft_tpu_torch.p2p.pex.reactor import decode_pex_message
+
+        pex_in[decode_pex_message(msg_bytes)[0]] += 1
+        return orig_pex(chan_id, peer, msg_bytes)
+
+    node.consensus_state.send_peer_message = send_peer_message
+    node.blocksync_reactor.on_caught_up = on_caught_up
+    node.pex_reactor.receive = pex_receive
+    _build.check_launch = check_launch
+    ed25519._verified.clear()  # a cold cache, as in a fresh node's process
+    fallbacks0 = sigbatch.counters()["fallbacks"]
+    be.set_backend(rec)
+    stored, out = {}, {}
+    stopped = False
+    try:
+        with stages if counted else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            node.start()
+            deadline = time.monotonic() + NODE_WAIT_S
+            seen_h = 0
+            while (node.consensus_state.state.last_block_height < last - 1
+                   or "t_started" not in handoff):
+                check(time.monotonic() < deadline,
+                      f"(k) {label}: the follower stopped at {node.block_store.height()}")
+                h = node.block_store.height()
+                for hh in range(seen_h + 1, h + 1):
+                    stored[hh] = (time.perf_counter() - t0) * 1e3
+                seen_h = h
+                time.sleep(0.005)
+            t_sync = time.perf_counter()
+            deadline = time.monotonic() + last_wait_s
+            while node.consensus_state.state.last_block_height < last:
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.005)
+            t_end = time.perf_counter()
+            torch.cuda.synchronize()
+            if conn is not None:
+                conn.send("stats")
+                out["server_stats"] = conn.recv()
+            bytes_io = {p.id[:8]: {"sent": p.mconn.send_monitor.status()["bytes"],
+                                   "received": p.mconn.recv_monitor.status()["bytes"]}
+                        for p in node.switch.peers()}
+            t_stop = time.perf_counter()
+            node.stop()  # before the calls are read: its last ones are counted
+            stopped = True
+            stop_s = time.perf_counter() - t_stop
+        reached = node.consensus_state.state.last_block_height
+        out.update({
+            "ms_to_blocksync_end": (t_sync - t0) * 1e3,
+            "ms_per_block": (t_sync - t0) * 1e3 / (last - 1),
+            "stored_ms": stored, "reached": reached, "last_reached": reached == last,
+            "handoff_ms": (handoff["t_started"] - handoff["t"]) * 1e3,
+            "handoff_at_ms": (handoff["t"] - t0) * 1e3, "handoff_height": handoff["height"],
+            "last_height_ms": (t_end - handoff["t"]) * 1e3 if reached == last else None,
+            "wire_last_height": {k: {"messages": len(v), "first_ms": (v[0] - handoff["t"]) * 1e3,
+                                     "span_ms": (v[-1] - v[0]) * 1e3} if v else {"messages": 0}
+                                 for k, v in wire.items()},
+            "calls": list(rec.calls) if counted else [c["lanes"] for c in rec.calls],
+            "calls_before_handoff": handoff["calls"],
+            "launch_threads": {f"{k}@{t}": n for (k, t), n in launch_threads.items()},
+            "pex_in": dict(pex_in), "book": sorted(node.addr_book._addrs),
+            "errors": {**node_errors(node),
+                       "sigbatch_fallbacks": sigbatch.counters()["fallbacks"] - fallbacks0},
+            "node_id": node.node_key.id, "stop_s": stop_s, "bytes": bytes_io,
+        })
+        if not counted:
+            out["backend_ms"] = [c["ms"] for c in rec.calls]
+        # Blocks and state: the source's, to the height reached.
+        from cometbft_tpu_torch.state import store as state_store
+
+        for hh in range(1, reached + 1):
+            check(node.block_store.load_block(hh).encode() == source["blocks"][hh - 1],
+                  f"(k) {label}: stored block {hh} differs from the source's")
+        check(state_store._encode_state(node.consensus_state.state) == source["states"][reached - 1],
+              f"(k) {label}: the state at {reached} differs from the source's")
+        if counted:
+            out["stages"] = bsync_stage_table(stages)
+            out["triples"] = rec.triples
+    finally:
+        if not stopped:
+            node.stop()  # before its backend goes: no thread of it calls get_backend() after
+        node.consensus_state.send_peer_message = orig_send
+        node.blocksync_reactor.on_caught_up = orig_caught_up
+        _build.check_launch = orig_launch
+        be.set_backend(None)
+    check(node.threads_left_at_stop == 0,
+          f"(k) {label}: {node.threads_left_at_stop} threads outlived stop(): "
+          f"{thread_stacks(node.threads.threads())}")
+    return out
+
+
+def thread_stacks(threads) -> dict:
+    """Each thread's name and the last frames of its stack."""
+    import traceback
+
+    frames = sys._current_frames()
+    return {t.name: "".join(traceback.format_stack(frames[t.ident])[-3:])
+            for t in threads if t.ident in frames}
+
+
+def node_window_arithmetic(calls, n: int, heights: int) -> bool:
+    """Blocksync's batches over the wire, against the window arithmetic
+    (``bsync_window_arithmetic``) made for blocks that arrive as they may:
+    each window covers from 2 to its size less one commits (n lanes each),
+    each light check sends 2/3 of the set + 1 lanes and each full check the
+    rest; every commit of heights 1 to ``heights`` - 1 is covered by a
+    window or a light check, once, and every light-checked commit but the
+    last is fully checked once (the last one's block is not applied).
+    Over TCP the blocks may arrive one at a time, so no window is required:
+    a run without one is held to the light and full checks' counts alone."""
+    from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor as R
+
+    wb = min(R.PREFETCH_WINDOW, R.PREFETCH_MAX_SIGS // n)
+    light_n = n * 2 // 3 + 1
+    windows = [k for who, k in calls if who == "window"]
+    light = [k for who, k in calls if who == "light"]
+    full = [k for who, k in calls if who == "full"]
+    return (len(calls) == len(windows) + len(light) + len(full)
+            and all(k % n == 0 and 2 <= k // n <= wb - 1 for k in windows)
+            and all(k == light_n for k in light) and all(k == n - light_n for k in full)
+            and sum(windows) // n + len(light) == heights - 1
+            and len(light) - 1 <= len(full) <= len(light))
+
+
+def node_catchup_batches(calls, triples) -> dict:
+    """Batches that (k)'s counted catch-up sent to the card, as sent: the
+    first of each window size, the first light check, the first full check
+    and the first batch of consensus's catch-up after the handoff (a check
+    of no sync stage). Requires a light check, a full check and a
+    consensus batch. Returns label -> (pubs, msgs, sigs)."""
+    picks = {}
+    for (who, n), t in zip(calls, triples):
+        kind = who or "consensus"
+        if kind == "window" or not any(k.startswith(f"catchup_{kind}_") for k in picks):
+            picks.setdefault(f"catchup_{kind}_{n}", t)
+    kinds = {k.split("_")[1] for k in picks}
+    check({"light", "full", "consensus"} <= kinds,
+          f"(k): the counted catch-up sent no batch of {sorted({'light', 'full', 'consensus'} - kinds)}")
+    return picks
+
+
+def node_server_start(source, tmpdir: str) -> tuple:
+    """(k)'s server (``node_serve_main``) started in a process of its own,
+    fed the source's items over a pipe: (the process, the pipe, its start
+    time). The node phase starts it first, so that it builds its home and
+    replays its app while (j) runs."""
+    import multiprocessing
+
+    items = list(source["node"]["db"].iterator())
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=node_serve_main, daemon=True, args=(
+        child, items, source["gen"].to_json(), os.path.join(tmpdir, "server")))
+    t0 = time.perf_counter()
+    proc.start()
+    child.close()
+    return proc, conn, t0
+
+
+def node_server_end(started) -> int:
+    """Asks (k)'s server to close (again, where the catch-up did; at once,
+    where a step before it failed), waits for it to end (killed after
+    NODE_WAIT_S), closes its pipe; returns its exit code."""
+    proc, conn, _ = started
+    with contextlib.suppress(OSError):
+        conn.send("close")
+    proc.join(NODE_WAIT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    conn.close()
+    return proc.exitcode
+
+
+def node_catchup_path(source, torch_backend, auto, tmpdir: str, started,
+                      deep: bool = False) -> dict:
+    """(k): the server (``node_server_start``'s, ``started``); when it is
+    up, the counted catch-up under a BsyncRecorder around
+    ``TorchBackend()`` (gates: the last height but one reached with
+    the source's blocks and state, the window batches of the window
+    arithmetic, each book holding the other node, PEX bytes both ways, no
+    error counted, every verify launch from the device-owner thread, three
+    a card call); then the timed catch-ups, ``TorchBackend()`` and, with
+    ``auto``, the process default in turns. ``deep`` (``--node``): the
+    counted run waits NODE_DEEP_WAIT_S for consensus to commit the last
+    height, and the timed runs are made; else the counted run is the timed
+    one too (its stage wrappers add a synchronize a stage). Ends by asking
+    the server to close."""
+    from cometbft_tpu_torch.ops import _build
+
+    _, conn, t0 = started
+    out = {}
+    t_wait = time.perf_counter()
+    check(conn.poll(NODE_WAIT_S), "(k): the server process did not start")
+    server = conn.recv()
+    check("error" not in server, f"(k): the server process failed: {server.get('error')}")
+    out["server"] = {"ready_s": server["ready_s"], "build_s": server["build_s"],
+                     "since_start_s": time.perf_counter() - t0,
+                     "wait_s": time.perf_counter() - t_wait}
+    check(server["height"] == len(source["blocks"])
+          and server["app_hash"] == source["state"].app_hash.hex(),
+          f"(k): the server's Handshaker left it at {server['height']}, app hash "
+          f"{server['app_hash']}")
+    launches0 = dict(_build.LAUNCHES)
+    counted = node_catchup_run(
+        source, torch_backend, server, tmpdir, "torch", counted=True, conn=conn,
+        last_wait_s=NODE_DEEP_WAIT_S if deep else NODE_LAST_WAIT_S)
+    launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+    sstats = counted.pop("server_stats")
+    out["batches"] = node_catchup_batches(counted["calls"], counted.pop("triples"))
+    print(f"node (k) counted: height {counted['reached']} (blocksync to "
+          f"{counted['handoff_height']} in {counted['ms_to_blocksync_end']:.0f} ms, the last "
+          f"height {'in ' + format(counted['last_height_ms'], '.0f') + ' ms' if counted['last_reached'] else 'not committed'}); "
+          f"{len(counted['calls'])} backend calls; server ready {out['server']['ready_s']:.1f} s "
+          f"after its entry (waited for {out['server']['wait_s']:.1f} s after (j)); stored at ms "
+          f"{counted['stored_ms']}; stage "
+          f"medians {json.dumps(counted['stages']['median_ms'])}, decode "
+          f"{counted['stages']['decode_median_ms']:.1f} ms; bytes {counted['bytes']}; stop "
+          f"{counted['stop_s']:.1f} s", flush=True)
+    before = counted["calls"][:counted["calls_before_handoff"]]
+    check(node_window_arithmetic(before, source["n_vals"], len(source["blocks"])),
+          f"(k): blocksync's batches {before} do not add up to its window arithmetic")
+    calls = len(counted["calls"])
+    check(launched == {"sha512": calls, "decompress": calls, "ladder": calls, "sha256": 0,
+                       "bn254": 0},
+          f"(k): launches {launched} for {calls} card calls; launches by thread "
+          f"{counted['launch_threads']}; calls "
+          f"by check {collections.Counter(w for w, _ in counted['calls'])}, lanes "
+          f"{collections.Counter(k for _, k in counted['calls']).most_common(12)}")
+    check({k.split("@", 1)[1] for k in counted["launch_threads"]} <= {"cmtpu-torch-dev"},
+          f"(k): kernels launched from {counted['launch_threads']}")
+    server_id = server["addr"].split("@", 1)[0]
+    check(server_id in counted["book"] and counted["node_id"] in sstats["book"],
+          f"(k): the books: the follower's {counted['book']}, the server's {sstats['book']}")
+    check(counted["pex_in"].get("addrs", 0) >= 1 and sstats["pex_in"].get("request", 0) >= 1,
+          f"(k): PEX in at the follower {counted['pex_in']}, at the server "
+          f"{sstats['pex_in']}")
+    errors = {**counted["errors"], **{f"server_{k}": v for k, v in sstats["errors"].items()}}
+    check(all(v == 0 for v in errors.values()), f"(k): errors {errors}")
+    out["counted"] = {k: v for k, v in counted.items() if k not in ("book", "stored_ms")}
+    out["counted"]["calls"] = [[who, k] for who, k in counted["calls"]]
+    out["counted"]["server_pex_in"] = sstats["pex_in"]
+    out["launches"] = launched
+    runs = {"torch": [] if deep else [counted["ms_per_block"]], "auto": []}
+    timed = {}
+    for label, bk in ([("torch", torch_backend)] + ([("auto", auto)] if auto else [])
+                      if deep else []):
+        r = node_catchup_run(source, bk, server, tmpdir, label, counted=False,
+                             last_wait_s=0.0)
+        # The server's book holds the followers before this one, gone: PEX
+        # dials them and fails (reported, not gated).
+        check(all(v == 0 for k, v in r["errors"].items() if k != "pex_dial_errors"),
+              f"(k) {label}: errors {r['errors']}")
+        runs[label].append(r["ms_per_block"])
+        timed[label] = {k: v for k, v in r.items() if k not in ("book",)}
+    out["runs_ms_per_block"] = runs
+    out["ms_per_block"] = {k: statistics.median(v) for k, v in runs.items() if v}
+    out["timed"] = timed
+    out["metric_from"] = "bare runs" if deep else "the counted run (a synchronize a stage)"
+    conn.send("close")
+    return out
+
+
+def corrupt_valid(pubs, msgs, sigs):
+    """A batch of the ingress (which holds corrupted envelopes) for the
+    kernel comparison: ``corrupt_four``'s four flips (R, the message, S, A)
+    on its first, a third, a half and the last of its valid lanes, or one R
+    flip on its middle valid lane where it has fewer than 8 lanes. Returns
+    (pubs, msgs, sigs, the lanes that must be rejected: the corrupted and
+    the invalid ones, by the pure ZIP-215 check)."""
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+
+    pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
+    invalid = {i for i, t in enumerate(zip(pubs, msgs, sigs)) if not pure.verify_zip215(*t)}
+    ok = [i for i in range(len(pubs)) if i not in invalid]
+
+    def flip(b: bytes, at: int) -> bytes:
+        return b[:at] + bytes([b[at] ^ 0x01]) + b[at + 1:]
+
+    if len(pubs) < 8:
+        lane = ok[len(ok) // 2]
+        sigs[lane] = flip(sigs[lane], 0)
+        return pubs, msgs, sigs, invalid | {lane}
+    lanes = (ok[0], ok[len(ok) // 3], ok[len(ok) // 2], ok[-1])
+    sigs[lanes[0]] = flip(sigs[lanes[0]], 0)
+    msgs[lanes[1]] = flip(msgs[lanes[1]], len(msgs[lanes[1]]) - 1)
+    sigs[lanes[2]] = flip(sigs[lanes[2]], 33)
+    pubs[lanes[3]] = flip(pubs[lanes[3]], 0)
+    return pubs, msgs, sigs, invalid | set(lanes)
+
+
+def drive_node_path(sources, torch_backend, dev, with_default: bool) -> dict:
+    """The node phase (module docstring, step 21): (j) and (k) under
+    ``TorchBackend()`` (and the process default with ``with_default``),
+    the launch counts of the whole drive, then the verify kernels at the
+    path's batches."""
+    import tempfile
+
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    source = sources["10k"]
+    auto = None
+    with tempfile.TemporaryDirectory() as tmp:
+        started = node_server_start(source, tmp)
+        try:
+            t0 = time.perf_counter()
+            env = node_envelopes()
+            env_s = time.perf_counter() - t0
+            if with_default:
+                with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                             CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+                    auto = be._make_backend()
+            _build.reset_launches()
+            ingress = {"torch": node_ingress_run(env, torch_backend, "torch", tmp, keep=True)}
+            if auto is not None:
+                ingress["auto"] = node_ingress_run(env, auto, "auto", tmp)
+            for b, r in ingress.items():
+                print(f"node (j) {b}: {r['ms']:.1f} ms, {r['card_calls']} backend calls, "
+                      f"launches {r['launches']}; split {json.dumps(r['split'])}", flush=True)
+            stamp("node: (k)")
+            catchup = node_catchup_path(source, torch_backend, auto, tmp, started,
+                                        deep=with_default)
+            launches = dict(_build.LAUNCHES)
+        finally:
+            if auto is not None:
+                auto.close()
+            exitcode = node_server_end(started)
+    check(exitcode == 0, f"(k): the server process exited {exitcode}")
+    check(all(launches[k] > 0 for k in ("sha512", "decompress", "ladder")),
+          f"node path launches {launches}")
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+
+    batches = ingress["torch"].pop("batches")
+
+    def with_valid(order):  # the first batch in that order with a lane to corrupt
+        return next(batches[i] for i in order if any(pure.verify_zip215(*t)
+                                                     for t in zip(*batches[i])))
+
+    n_b = len(batches)
+    picks = {"smallest": with_valid(range(n_b)),
+             "median": with_valid(list(range(n_b // 2, n_b)) + list(range(n_b // 2))),
+             "largest": with_valid(range(n_b - 1, -1, -1))}
+    kb = {f"preverify_{k}_{len(t[0])}": corrupt_valid(*t) for k, t in picks.items()}
+    # The catch-up's batches hold only valid signatures; a consensus batch
+    # may have fewer than 8 lanes.
+    for label, t in catchup.pop("batches").items():
+        kb[label] =(corrupt_valid if label.startswith("catchup_consensus") else corrupt_four)(*t)
+    stamp("node: the kernels at the path's batches")
+    kernels = bsync_window_kernels(kb, dev)
+    return {"launches": launches, "ingress": ingress, "catchup": catchup, "kernels": kernels,
+            "envelopes_s": env_s}
+
+
+def node_phase(sources, backend, dev, card, records, with_default: bool = False) -> dict:
+    """Runs the node path (step 21), prints its metrics and gates, merges its
+    kernel comparisons into ``records``; returns its launches."""
+    start = time.perf_counter()
+    out = drive_node_path(sources, backend, dev, with_default)
+    for k in ("sha512", "decompress", "ladder"):
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in out["kernels"].values()])
+    j, k = out["ingress"], out["catchup"]
+    c = k["counted"]
+    print(f"node path ok ((j) a default node committed every one of "
+          f"{j['torch']['counters']['admitted']} valid envelopes "
+          f"once and refused the {j['torch']['counters']['rejected_invalid_sig']} corrupted "
+          f"without CheckTx, preverify_fallbacks 0; (k) a fresh node caught up over TCP to height "
+          f"{c['reached']} of {BSYNC_HEIGHTS} (blocksync to {c['handoff_height']}, the last "
+          f"height {'committed' if c['last_reached'] else 'not committed'} by consensus), PEX "
+          f"both ways); launches {out['launches']}", flush=True)
+    common = {"device": torch.cuda.get_device_name(0), "card": card}
+    print(json.dumps({"metric": "node_ingress_4096_ms", "value": j["torch"]["ms"],
+                      "by_backend": {b: r["ms"] for b, r in j.items()},
+                      "envelopes": NODE_SENDERS * NODE_PER_SENDER, "senders": NODE_SENDERS,
+                      "clients": NODE_CLIENTS, "split": {b: r["split"] for b, r in j.items()},
+                      "runs": {b: {x: v for x, v in r.items() if x not in ("split", "ms")}
+                               for b, r in j.items()}, **common}), flush=True)
+    print(json.dumps({"metric": "node_catchup_10k_ms_per_block",
+                      "value": k["ms_per_block"]["torch"], "validators": N_SIGS,
+                      "heights": BSYNC_HEIGHTS, "txs_a_block": BSYNC_TXS,
+                      "by_backend": k["ms_per_block"], "runs": k["runs_ms_per_block"],
+                      "from": k["metric_from"], "counted": c, "timed": k["timed"],
+                      "server": k["server"], **common}),
+          flush=True)
+    print(json.dumps({"node": {"kernels": out["kernels"], "launches": out["launches"],
+                               "envelopes_s": out["envelopes_s"]},
+                      "phase_s": time.perf_counter() - start, **common}), flush=True)
+    return out["launches"]
+
+
+def node_only(card, dev) -> int:
+    """``--node``: the keys, the 10,240-validator blocksync source and the node
+    phase alone, (j) and (k) under the process default too (a quick check of
+    that phase on the card; no result line)."""
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    backend = TorchBackend()
+    big = bsync_10k_source(fixtures, backend)
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
+    launches = node_phase({"10k": big}, backend, dev, card, records, with_default=True)
+    print(json.dumps({"node_launches": launches, "max_abs_err": records}), flush=True)
     return 0
 
 
@@ -6578,11 +7718,67 @@ def time_bn254_lanes() -> int:
     return 0
 
 
-def light_phase(fixtures, sources, backend, dev, card, records) -> dict:
+def blocksync_phase(fixtures, backend, dev, card, records, with_default: bool = False):
+    """Builds the blocksync sources and runs the blocksync path (step 16),
+    prints its metrics and gates, merges its kernel comparisons into
+    ``records``; returns its launches and the sources (the later phases
+    go on with them). The syncs are timed under the process default too
+    only ``with_default`` (``--blocksync``)."""
+    bsync_start = time.perf_counter()
+    sources = bsync_sources(fixtures, backend)
+    bs_out = drive_blocksync_path(sources, backend, dev, with_default)
+    launches = bs_out.pop("launches")
+    for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in bs_out["window_kernels"].values()])
+    print(f"blocksync path ok (a fresh node synced the {N_SIGS}-validator chain's "
+          f"{BSYNC_HEIGHTS - 1} heights and the {BSYNC_SMALL}-validator chain's "
+          f"{BSYNC_SMALL_HEIGHTS - 1} from two peer doubles, state and blocks equal to the "
+          f"source's; window batches {bs_out['gates']['10k']['windows']} and "
+          f"{bs_out['gates']['150']['windows']}, later checks "
+          f"{bs_out['gates']['10k']['later_lanes']} and {bs_out['gates']['150']['later_lanes']}; "
+          f"the bad peer stopped once); launches {launches}", flush=True)
+    for name, n in (("10k", N_SIGS), ("150", BSYNC_SMALL)):
+        print(json.dumps({
+            "metric": f"blocksync_{name}_ms_per_block",
+            "value": bs_out["ms_per_block"][name]["torch"],
+            "validators": n, "by_backend": bs_out["ms_per_block"][name],
+            "runs_ms": bs_out["ms_per_block_runs"][name],
+            "pipeline_overlap_ms": bs_out["pipeline_overlap_ms"][name],
+            "gates": bs_out["gates"][name],
+            "stages_pipeline_off": bs_out["stages"][name],
+            "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    print(json.dumps({"blocksync": {k: v for k, v in bs_out.items()
+                                    if k not in ("gates", "stages", "ms_per_block_runs")},
+                      "phase_s": time.perf_counter() - bsync_start,
+                      "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    return launches, sources
+
+
+def blocksync_only(card, dev) -> int:
+    """``--blocksync``: the keys, the blocksync sources and the blocksync
+    phase alone, timed under the process default too (a quick check of
+    that phase on the card; no result line)."""
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
+    launches, _ = blocksync_phase(fixtures, TorchBackend(), dev, card, records, with_default=True)
+    print(json.dumps({"blocksync_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
+def light_phase(fixtures, sources, backend, dev, card, records,
+                with_default: bool = False) -> dict:
     """Runs the light path (step 17), prints its metrics and gates, merges
-    its kernel comparisons into ``records``; returns its launches."""
+    its kernel comparisons into ``records``; returns its launches. The
+    syncs are timed under the process default too only ``with_default``
+    (``--light``)."""
     start = time.perf_counter()
-    out = drive_light_path(fixtures, sources, backend, dev)
+    out = drive_light_path(fixtures, sources, backend, dev, with_default)
     for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
         records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
             b["max_abs_err"][k] for b in out["kernels"].values()])
@@ -6622,7 +7818,7 @@ def light_only(card, dev) -> int:
     backend = TorchBackend()
     records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
     launches = light_phase(fixtures, bsync_sources(fixtures, backend), backend, dev, card,
-                           records)
+                           records, with_default=True)
     print(json.dumps({"light_launches": launches, "max_abs_err": records}), flush=True)
     return 0
 
@@ -6634,7 +7830,7 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--bn254-lanes"]:
         return time_bn254_lanes()
-    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import _build  # noqa: F401 - alone, the run stops here
 
     card = card_line()
     dev = torch.device("cuda")
@@ -6643,6 +7839,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}; "
           f"{props.multi_processor_count} SMs, max SM clock {clock_hz / 1e6:.0f} MHz; card: {card}",
           flush=True)
+
+    sign_pool()  # its workers start while the kernels build
+    try:
+        return run_modes(card, dev, props, clock_hz)
+    finally:
+        close_sign_pool()
+
+
+def run_modes(card, dev, props, clock_hz) -> int:
+    """The build, then the mode the arguments ask for (the module
+    docstring's usage), by default every phase."""
+    from cometbft_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     so = _build.build()
@@ -6656,6 +7864,8 @@ def main() -> int:
             print(f"  {name}" + (f"<{', '.join(args)}>" if args else ""))
         elif line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
+    if sys.argv[1:] == ["--blocksync"]:
+        return blocksync_only(card, dev)
     if sys.argv[1:] == ["--light"]:
         return light_only(card, dev)
     if sys.argv[1:] == ["--consensus"]:
@@ -6664,6 +7874,8 @@ def main() -> int:
         return network_only(card, dev)
     if sys.argv[1:] == ["--rpc"]:
         return rpc_only(card, dev, props.multi_processor_count, clock_hz)
+    if sys.argv[1:] == ["--node"]:
+        return node_only(card, dev)
     procs: list = []  # every process the phases start, ended here
     try:
         return run_phases(card, dev, props, clock_hz, so, procs)
@@ -6675,7 +7887,7 @@ def main() -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-22 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-23 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -6689,6 +7901,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
         print(f"ladder SASS at {g} threads a lane (static instruction counts): {mix}", flush=True)
     from cometbft_tpu_torch.probe import issue_rates
 
+    stamp("the issue rates")
     rates = issue_rates.measure(props.multi_processor_count, clock_hz)
     print(f"issue rates (thread-instructions a clock per SM, measured): {json.dumps(rates)}",
           flush=True)
@@ -6704,6 +7917,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     procs.append(probe_proc)
 
+    stamp("the fixtures")
     t0 = time.perf_counter()
     fixtures = make_fixtures(pure, N_SIGS, N_LEAVES)
     print(f"fixtures: {N_SIGS} signatures, {N_LEAVES} leaves, {N_PARTS} parts of {PART_BYTES} "
@@ -6720,9 +7934,11 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     print(f"sidecar process serving on {remote}; device probe exit {probe_proc.returncode}",
           flush=True)
 
+    stamp("the kernels against their plain versions")
     t0 = time.perf_counter()
     records = compare_kernels(fixtures, hash_from_byte_slices, dev, props.multi_processor_count,
                               clock_hz, rates)
+    stamp("kernels: bn254")
     records["bn254"] = compare_bn254(bn, dev, props.multi_processor_count, clock_hz, rates)
     print(f"kernels equal their plain versions (compare + timing {time.perf_counter() - t0:.1f} s)",
           flush=True)
@@ -6731,6 +7947,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
         print(f"ladder issue estimate at {g} threads a lane (ms, static mix over measured "
               f"rates): {est}; measured {records['ladder']['ms_by_group'][g]}", flush=True)
 
+    stamp("the Ed25519 / Merkle path")
     backend = TorchBackend()
     _build.reset_launches()
     drive_main_path(fixtures, pure, hash_from_byte_slices, backend)
@@ -6766,6 +7983,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                           trace["device_ms"] / statistics.median(totals) if complete else None}),
           flush=True)
 
+    stamp("the proofs path")
     _build.reset_launches()
     drive_proofs(fixtures, host)
     by_path["proofs"] = dict(_build.LAUNCHES)
@@ -6776,6 +7994,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     print(json.dumps({**proofs_metrics(fixtures, host, dev), "device": torch.cuda.get_device_name(0),
                       "card": card}), flush=True)
 
+    stamp("the sidecar path")
     sc = drive_sidecar(fixtures, pure, hash_from_byte_slices)
     by_path["sidecar"] = sc["launches"]
     print(f"sidecar path ok through the socket ({sc['dispatches']} verify dispatches); launches "
@@ -6787,6 +8006,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
         "scheduler": sc["scheduler"], "device": torch.cuda.get_device_name(0), "card": card,
     }), flush=True)
 
+    stamp("the BN254 path")
     bn_backend = Bn254DeviceBackend()
     _build.reset_launches()
     bn_times = drive_bn254_path(bn_fix, bn_backend)
@@ -6807,6 +8027,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
         "card": card,
     }), flush=True)
 
+    stamp("the hybrid path")
     hybrid, root, plan, by_path["hybrid"] = drive_hybrid_path(fixtures, pure, backend)
     print(f"hybrid path ok (shares 0, {HYBRID_SPLIT} and {N_SIGS}: bitmaps equal TorchBackend's; "
           f"verify_and_root's root too); launches {by_path['hybrid']}; planner {json.dumps(plan)}",
@@ -6814,11 +8035,13 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     hm = hybrid_metrics(fixtures, hybrid, backend)
     print(json.dumps({"metric": "hybrid_verify_10k_commit_ms", "value": hm["verify_ms"]["hybrid"],
                       **hm, "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    stamp("the chain path")
     by_path["chain"], chain_rec = drive_chain_path(fixtures, pure, bn_fix, root)
     print(f"chain path ok (hybrid serves, an injected error degrades to cpu with the same bitmaps; "
           f"the BN254 chain serves from bn254-device, then bn254-host); launches {by_path['chain']}; "
           f"{json.dumps(chain_rec)}", flush=True)
 
+    stamp("the auto path")
     auto = drive_auto_path(fixtures, pure, backend)
     by_path["auto"] = auto.pop("launches")
     print(f"auto path ok (CMTPU_BACKEND=auto: the coalesced chain, its hybrid warmed in "
@@ -6826,6 +8049,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
           f"{by_path['auto']}", flush=True)
     print(json.dumps({"metric": "auto_verify_ms", **auto, "device": torch.cuda.get_device_name(0),
                       "card": card}), flush=True)
+    stamp("the fanout path")
     fan = drive_fanout_path(fixtures, pure, backend, sidecar_proc, remote, root)
     by_path["fanout"] = fan.pop("launches")
     print(f"fanout path ok (fanout -> hybrid -> cpu; two sidecars, one in another process, and "
@@ -6836,17 +8060,20 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                       "torch_ms": statistics.median(fan["times_ms"]["torch_commit"]),
                       "note": "three shards on ONE card, not a multi-host figure", **fan,
                       "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    stamp("the proofs paths")
     pp = drive_proofs_paths(fixtures, host)
     by_path["proofs_paths"] = pp.pop("launches")
     print(f"proofs paths ok (the card and the native host pass equal the pure pass; default "
           f"{pp['default']}); launches {by_path['proofs_paths']}", flush=True)
     print(json.dumps({"metric": "proofs_paths_ms", **pp, "device": torch.cuda.get_device_name(0),
                       "card": card}), flush=True)
+    stamp("the tooling")
     tools = drive_tooling(fixtures, backend, probe_proc.returncode, probe_out)
     by_path["tooling"] = tools.pop("launches")
     print(f"tooling ok (pprof endpoints, dryrun_multichip(2), entry(), the device probe); "
           f"launches {by_path['tooling']}; {json.dumps(tools)}", flush=True)
 
+    stamp("the commit path")
     commit_start = time.perf_counter()
     cf = commit_fixtures(fixtures)
     print(f"commit fixtures: a {N_SIGS}-validator ed25519 set and its commits at heights "
@@ -6854,6 +8081,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
           f"{CANT_TRUST_SIGNERS} signers, a {COMMIT_SMALL}-validator commit and a "
           f"{N_BN254_COMMIT}-validator BN254 aggregate commit, signed in {SIGN_PROCESSES} "
           f"processes, built in {time.perf_counter() - commit_start:.1f} s", flush=True)
+    stamp("commit: the counted checks")
     cp = drive_commit_path(cf, backend)
     by_path["commit"] = cp.pop("launches")
     print(f"commit path ok (verify_commit, verify_commit_light and both hops of the "
@@ -6874,41 +8102,23 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                       "phase_s": time.perf_counter() - commit_start,
                       "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
 
-    bsync_start = time.perf_counter()
-    sources = bsync_sources(fixtures, backend)
-    bs_out = drive_blocksync_path(sources, backend, dev)
-    by_path["blocksync"] = bs_out.pop("launches")
-    for k in ("sha512", "decompress", "ladder"):  # held at the path's own batches too
-        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
-            b["max_abs_err"][k] for b in bs_out["window_kernels"].values()])
-    print(f"blocksync path ok (a fresh node synced the {N_SIGS}-validator chain's "
-          f"{BSYNC_HEIGHTS - 1} heights and the {BSYNC_SMALL}-validator chain's "
-          f"{BSYNC_SMALL_HEIGHTS - 1} from two peer doubles, state and blocks equal to the "
-          f"source's; window batches {bs_out['gates']['10k']['windows']} and "
-          f"{bs_out['gates']['150']['windows']}, later checks "
-          f"{bs_out['gates']['10k']['later_lanes']} and {bs_out['gates']['150']['later_lanes']}; "
-          f"the bad peer stopped once); launches {by_path['blocksync']}", flush=True)
-    for name, n in (("10k", N_SIGS), ("150", BSYNC_SMALL)):
-        print(json.dumps({
-            "metric": f"blocksync_{name}_ms_per_block",
-            "value": bs_out["ms_per_block"][name]["torch"],
-            "validators": n, "by_backend": bs_out["ms_per_block"][name],
-            "runs_ms": bs_out["ms_per_block_runs"][name],
-            "pipeline_overlap_ms": bs_out["pipeline_overlap_ms"][name],
-            "gates": bs_out["gates"][name],
-            "stages_pipeline_off": bs_out["stages"][name],
-            "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
-    print(json.dumps({"blocksync": {k: v for k, v in bs_out.items()
-                                    if k not in ("gates", "stages", "ms_per_block_runs")},
-                      "phase_s": time.perf_counter() - bsync_start,
-                      "device": torch.cuda.get_device_name(0), "card": card}), flush=True)
+    stamp("the blocksync path")
+    by_path["blocksync"], sources = blocksync_phase(fixtures, backend, dev, card, records)
 
+    stamp("the light path")
     by_path["light"] = light_phase(fixtures, sources, backend, dev, card, records)
+    stamp("the consensus path")
     by_path["consensus"], cons_fx = consensus_phase(fixtures, sources, backend, dev, card,
                                                     records, timed=0)
-    by_path["network"] = network_phase(fixtures, sources, backend, dev, card, records, cons_fx)
+    stamp("the network path")
+    by_path["network"] = network_phase(fixtures, sources, backend, dev, card, records, cons_fx,
+                                       timed=0)
+    stamp("the RPC path")
     by_path["rpc"], records["sha256"]["rpc_levels"] = rpc_phase(
         sources, backend, dev, card, records, props.multi_processor_count, clock_hz)
+    stamp("the node path")
+    by_path["node"] = node_phase(sources, backend, dev, card, records)
+    stamp("the mesh path")
 
     mesh_start = time.perf_counter()
     records["sha256"]["digests"], digests = compare_digests(
@@ -6961,6 +8171,7 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
                         "queued_ms")
                or k.startswith("levels")},
         })
+    stamp("the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

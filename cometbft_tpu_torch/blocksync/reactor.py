@@ -26,6 +26,7 @@ import threading
 import time
 
 from cometbft_tpu_torch.blocksync.pool import BlockPool
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.reactor import BLOCKSYNC_CHANNEL, ChannelDescriptor, Reactor
 from cometbft_tpu_torch.sidecar import engine
 from cometbft_tpu_torch.types.block import Block, BlockID
@@ -125,7 +126,7 @@ class BlocksyncReactor(Reactor):
     def start(self) -> None:
         self._running = True
         if self.block_sync_enabled:
-            threading.Thread(target=self._pool_routine, daemon=True).start()
+            threads.spawn(self._pool_routine)
 
     def stop(self) -> None:
         self._running = False
@@ -142,7 +143,7 @@ class BlocksyncReactor(Reactor):
         was_enabled = self.block_sync_enabled
         self.block_sync_enabled = True
         if self._running and not was_enabled:
-            threading.Thread(target=self._pool_routine, daemon=True).start()
+            threads.spawn(self._pool_routine)
 
     # -- peers ----------------------------------------------------------------
 
@@ -314,7 +315,7 @@ class BlocksyncReactor(Reactor):
                 done.set()
 
         self._pf_job = (done, times)
-        threading.Thread(target=run, daemon=True).start()
+        threads.spawn(run)
 
     def _pipeline_wait(self) -> None:
         """Barrier before the serial verify: the producer must have finished

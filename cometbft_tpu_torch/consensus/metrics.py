@@ -3,7 +3,8 @@ copy of the no-op default of ``cometbft_tpu/consensus/metrics.py``: each
 metric the state machine records, a no-op, so that
 ``ConsensusState`` never branches on instrumentation being enabled (the
 reference's NopMetrics pattern). Metrics bound to a registry wait for the
-port of ``libs/metrics.py`` (the node slice)."""
+port of ``libs/metrics.py``; the node raises for
+``instrumentation.prometheus`` until then."""
 
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ from cometbft_tpu_torch.consensus.cstypes import (
     STEP_PREVOTE_WAIT,
     STEP_PROPOSE,
 )
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor
 from cometbft_tpu_torch.p2p.reactor import (
     CONSENSUS_DATA_CHANNEL,
@@ -120,10 +121,15 @@ class PeerState:
 class ConsensusReactor(Reactor):
     """consensus/reactor.go Reactor."""
 
-    def __init__(self, consensus_state, gossip_sleep: float = 0.1):
+    def __init__(self, consensus_state, gossip_sleep: float = 0.1, wait_sync: bool = False):
         super().__init__("CONSENSUS")
         self.cs = consensus_state
         self.gossip_sleep = gossip_sleep
+        # reactor.go waitSync, which the JAX package's reactor lacks: while
+        # the node blocksyncs it announces no round step and takes no
+        # consensus data or votes, so that peers send it no catch-up gossip
+        # beside the blocks (ROADMAP §3, F8). ``switch_to_consensus`` ends it.
+        self.wait_sync = wait_sync
         self.peer_states: dict[str, PeerState] = {}
         self._running = False
         self.gossip_errors = 0
@@ -149,11 +155,16 @@ class ConsensusReactor(Reactor):
 
     def start(self) -> None:
         self._running = True
-        threading.Thread(target=self._broadcast_round_step_routine, daemon=True).start()
-        threading.Thread(target=self._query_maj23_routine, daemon=True).start()
+        threads.spawn(self._broadcast_round_step_routine)
+        threads.spawn(self._query_maj23_routine)
 
     def stop(self) -> None:
         self._running = False
+
+    def switch_to_consensus(self) -> None:
+        """reactor.go SwitchToConsensus, the reactor's half: from now on our
+        round step is announced and consensus messages are taken."""
+        self.wait_sync = False
 
     # -- peers ----------------------------------------------------------------
 
@@ -161,8 +172,9 @@ class ConsensusReactor(Reactor):
         ps = PeerState(peer)
         self.peer_states[peer.id] = ps
         peer.set("consensus_peer_state", ps)
-        self._send_round_step(peer)
-        threading.Thread(target=self._gossip_routine, args=(ps,), daemon=True).start()
+        if not self.wait_sync:
+            self._send_round_step(peer)
+        threads.spawn(self._gossip_routine, (ps,))
 
     def remove_peer(self, peer, reason) -> None:
         self.peer_states.pop(peer.id, None)
@@ -212,6 +224,8 @@ class ConsensusReactor(Reactor):
                         )
                     ),
                 )
+        elif self.wait_sync:
+            return  # reactor.go Receive: data, votes and bits are ignored during sync
         elif chan_id in (CONSENSUS_DATA_CHANNEL, CONSENSUS_VOTE_CHANNEL):
             # Bookkeeping first (reactor.go:249-297): whatever a peer SENDS
             # us it already HAS — mark it so gossip never echoes it back,
@@ -267,6 +281,9 @@ class ConsensusReactor(Reactor):
         last = None
         last_sent = 0.0
         while self._running:
+            if self.wait_sync:
+                time.sleep(0.02)
+                continue
             rs = self.cs.rs
             cur = (rs.height, rs.round, rs.step)
             now = time.monotonic()

@@ -53,6 +53,7 @@ from cometbft_tpu_torch.consensus.messages import (
 from cometbft_tpu_torch.consensus.ticker import TimeoutTicker
 from cometbft_tpu_torch.consensus.wal import WAL, EndHeightMessage
 from cometbft_tpu_torch.libs import fail
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.privval.file import (
     STEP_PRECOMMIT as PV_STEP_PRECOMMIT,
     STEP_PREVOTE as PV_STEP_PREVOTE,
@@ -202,11 +203,9 @@ class ConsensusState:
         if self.do_wal_catchup:
             self._wal_catchup_with_repair()
         # Hand ticker tocks into the unified queue.
-        self._tock_pump = threading.Thread(target=self._pump_tocks, daemon=True)
         self._running = True
-        self._tock_pump.start()
-        self._thread = threading.Thread(target=self._receive_routine, daemon=True)
-        self._thread.start()
+        self._tock_pump = threads.spawn(self._pump_tocks)
+        self._thread = threads.spawn(self._receive_routine)
         if self.rs.round == 0 and self.rs.step == STEP_NEW_HEIGHT:
             self._schedule_round0()
         else:
@@ -218,9 +217,7 @@ class ConsensusState:
                 self._rearm_step_timeout()
         self._last_progress = self.clock.now()
         if self._stall_factor > 0:
-            threading.Thread(
-                target=self._stall_watchdog_routine, daemon=True
-            ).start()
+            threads.spawn(self._stall_watchdog_routine)
 
     def _wal_catchup_with_repair(self) -> None:
         """state.go:320-370: catchupReplay, with a one-shot corrupted-WAL

@@ -49,13 +49,17 @@ loads a ``NodeKey`` from the reference's ``node_key.json`` and
 reference's key of that seed); ``node_info_from_wire`` takes the
 ``NodeInfo`` proto bytes the handshake swaps (``NodeInfo.encode()``), and
 ``p2p_config_from_fields`` a ``P2PConfig`` from the reference's fields
-(``dataclasses.asdict`` of its ``P2PConfig``), of which it keeps the ones
-the port reads.
+(``dataclasses.asdict`` of its ``P2PConfig``).
 
 The RPC tier carries indexes and proofs: ``indexers_from_items`` puts a
 reference index's DB items under the port's ``KVTxIndexer`` and
 ``KVBlockIndexer``, and ``proof_ops_from_wire`` takes a query's proof ops
 as proto bytes (tendermint.crypto.ProofOps).
+
+A node carries its config file and its address book: ``config_from_toml``
+loads a ``config.toml`` the reference rendered into a port ``Config`` (the
+rendering is the same bytes in both packages), and ``addr_book_from_file``
+loads the reference's ``addrbook.json`` into a port ``AddrBook``.
 """
 
 from __future__ import annotations
@@ -328,10 +332,26 @@ def proof_ops_from_wire(encoded: bytes):
 
 
 def p2p_config_from_fields(fields: dict):
-    """A ``P2PConfig`` from a mapping of the reference's fields: the fields
-    the port reads, and no other."""
+    """A ``P2PConfig`` from a mapping of the reference's fields."""
     import dataclasses
 
     from cometbft_tpu_torch.config import P2PConfig
 
     return P2PConfig(**{f.name: fields[f.name] for f in dataclasses.fields(P2PConfig)})
+
+
+def config_from_toml(text: str):
+    """A port ``Config`` from the text of a ``config.toml`` (the reference's
+    ``render_toml``), layered over the defaults as ``load_toml`` does."""
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.config.toml import apply_toml
+    from cometbft_tpu_torch.libs import tomlcompat
+
+    return apply_toml(Config(), tomlcompat.loads(text))
+
+
+def addr_book_from_file(path: str, strict: bool = True):
+    """A port ``AddrBook`` loaded from the reference's ``addrbook.json``."""
+    from cometbft_tpu_torch.p2p.pex import AddrBook
+
+    return AddrBook(path, strict=strict)

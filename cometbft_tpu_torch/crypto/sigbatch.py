@@ -103,6 +103,7 @@ class SigBatcher:
         self.scalar_direct = 0
         self.fallbacks = 0
         self.max_batch = 0
+        self._inflight = 0  # requests popped by the dispatcher, not yet answered
         self.last_fallback_error: BaseException | None = None
 
     def _fell_back(self, n: int, err: BaseException) -> None:
@@ -279,8 +280,26 @@ class SigBatcher:
                         break  # whole requests only; the rest opens a new window
                     total += nxt
                     batch.append(self._queue.pop(0))
+                self._inflight += len(batch)
             if batch:
-                self._dispatch(batch)
+                try:
+                    self._dispatch(batch)
+                finally:
+                    with self._cond:
+                        self._inflight -= len(batch)
+                        self._cond.notify_all()
+
+    def drain(self, timeout: float) -> bool:
+        """Wait until no request is queued or being dispatched (a stopping
+        node's votes verified before its backend goes); True if so."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while self._queue or self._inflight:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(left)
+        return True
 
     def _dispatch(self, reqs: list[_Req]) -> None:
         from cometbft_tpu_torch.crypto import ed25519 as _ed
@@ -360,6 +379,12 @@ def verify_vote_signature(pub_key, msg: bytes, sig: bytes) -> bool:
 
 def verify_triples(pub_keys, msgs, sigs) -> list[bool]:
     return get_batcher().verify_many(pub_keys, msgs, sigs)
+
+
+def drain(timeout: float) -> bool:
+    """``SigBatcher.drain`` of the process batcher, if one was built."""
+    b = _batcher
+    return True if b is None else b.drain(timeout)
 
 
 def counters() -> dict:

@@ -11,9 +11,9 @@ package, but counted (``receive_errors``, the last exception in
 """
 from __future__ import annotations
 
-import threading
 import time
 
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.reactor import EVIDENCE_CHANNEL, ChannelDescriptor, Reactor
 from cometbft_tpu_torch.types.evidence import decode_evidence, encode_evidence
 from cometbft_tpu_torch.wire import proto as wire
@@ -51,7 +51,7 @@ class EvidenceReactor(Reactor):
 
     def add_peer(self, peer) -> None:
         self._peer_sent[peer.id] = set()
-        threading.Thread(target=self._broadcast_routine, args=(peer,), daemon=True).start()
+        threads.spawn(self._broadcast_routine, (peer,))
 
     def remove_peer(self, peer, reason) -> None:
         self._peer_sent.pop(peer.id, None)

@@ -5,9 +5,10 @@ One broadcast thread per peer walks the mempool FIFO and forwards txs the
 peer hasn't seen from us (reactor.go:132 broadcastTxRoutine); received txs
 enter CheckTx with the sender recorded so they aren't echoed back.
 
-``mempool`` here is the admission surface (``check_tx(tx, sender=...)``);
-the QoS ingress pipeline that the reference's node can put there is not
-ported yet. A received transaction that ``check_tx`` refuses is passed over
+``mempool`` here is the admission surface (``check_tx(tx, sender=...)``):
+when the node wires the QoS ingress pipeline (mempool/ingress.py), gossiped
+txs flow through the same envelope-preverify/lane/shedding path as RPC
+submissions. A received transaction that ``check_tx`` refuses is passed over
 as in the reference (duplicates and a full mempool are expected during
 gossip) and counted by the exception's class in ``check_tx_errors``, the
 last kept in ``last_check_tx_error``.
@@ -15,8 +16,8 @@ last kept in ``last_check_tx_error``.
 
 from __future__ import annotations
 
-import threading
 
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor
 from cometbft_tpu_torch.p2p.reactor import MEMPOOL_CHANNEL, Reactor
 from cometbft_tpu_torch.types.tx import tx_key
@@ -63,9 +64,7 @@ class MempoolReactor(Reactor):
         if not self.config.broadcast:
             return
         self._peer_sent[peer.id] = set()
-        threading.Thread(
-            target=self._broadcast_tx_routine, args=(peer,), daemon=True
-        ).start()
+        threads.spawn(self._broadcast_tx_routine, (peer,))
 
     def remove_peer(self, peer, reason) -> None:
         self._peer_sent.pop(peer.id, None)

@@ -3,7 +3,7 @@
 handshake over X25519 and merlin, framed ChaCha20-Poly1305),
 ``MConnection`` with its receive demux and flow-rate monitors, the TCP
 ``MultiplexTransport``, the ``Switch`` and the reactor base with the channel
-IDs. PEX (the address book and its reactor) waits for the node slice."""
+IDs. PEX, the address book and its reactor, is ``p2p/pex``."""
 
 from cometbft_tpu_torch.p2p.key import NodeKey, node_id_from_pub_key
 from cometbft_tpu_torch.p2p.reactor import Reactor

@@ -20,6 +20,7 @@ import threading
 import time
 
 from cometbft_tpu_torch.libs import flowrate
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.conn import recvq
 from cometbft_tpu_torch.p2p.reactor import ChannelDescriptor
 from cometbft_tpu_torch.wire import proto as wire
@@ -100,8 +101,8 @@ class MConnection:
         self._running = True
         if self._recvq is not None:
             self._recvq.start()
-        threading.Thread(target=self._send_routine, daemon=True).start()
-        threading.Thread(target=self._recv_routine, daemon=True).start()
+        threads.spawn(self._send_routine)
+        threads.spawn(self._recv_routine)
 
     def stop(self) -> None:
         self._running = False

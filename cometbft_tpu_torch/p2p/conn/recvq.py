@@ -40,6 +40,8 @@ import os
 import threading
 from collections import deque
 
+from cometbft_tpu_torch.libs import threads
+
 CLASS_CONSENSUS = 0
 CLASS_BLOCKSYNC = 1
 CLASS_MEMPOOL = 2
@@ -151,8 +153,7 @@ class RecvQueues:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
-        self._thread = threading.Thread(target=self._drain_loop, daemon=True)
-        self._thread.start()
+        self._thread = threads.spawn(self._drain_loop)
 
     def stop(self) -> None:
         with self._cv:

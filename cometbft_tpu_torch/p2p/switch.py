@@ -21,10 +21,12 @@ raised), the reference's ``StopPeerForError``.
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 
 from cometbft_tpu_torch.config import P2PConfig
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor, MConnection
 from cometbft_tpu_torch.p2p.node_info import NodeInfo
 from cometbft_tpu_torch.p2p.transport import MultiplexTransport, UpgradedConn
@@ -118,6 +120,10 @@ class Switch:
         self._peers: dict[str, Peer] = {}
         self._mtx = threading.RLock()
         self._running = False
+        self._stopped = threading.Event()
+        # Threads the switch starts for outside callers (a dial from an RPC
+        # handler or a test) join the group it was built in, its node's.
+        self._group = threads.current_group()
         self._persistent_addrs: list[str] = []
         self._dialing: set[str] = set()
         # Peer instances whose connection died before they reached the
@@ -155,8 +161,17 @@ class Switch:
 
     # -- lifecycle ------------------------------------------------------------
 
+    def _scope(self):
+        group = self._group
+        return group.scope() if group is not None else contextlib.nullcontext()
+
     def start(self, listen_addr: str = "") -> str:
+        with self._scope():
+            return self._start(listen_addr)
+
+    def _start(self, listen_addr: str) -> str:
         self._running = True
+        self._stopped.clear()
         for reactor in self.reactors.values():
             reactor.start()
         actual = ""
@@ -171,6 +186,7 @@ class Switch:
 
     def stop(self) -> None:
         self._running = False
+        self._stopped.set()
         with self._mtx:
             peers = list(self._peers.values())
         for p in peers:
@@ -249,6 +265,10 @@ class Switch:
 
     def dial_peer(self, addr: str) -> Peer | None:
         """addr format: id@host:port."""
+        with self._scope():
+            return self._dial_peer(addr)
+
+    def _dial_peer(self, addr: str) -> Peer | None:
         expected_id = addr.split("@", 1)[0] if "@" in addr else ""
         with self._mtx:
             if addr in self._dialing:
@@ -278,7 +298,7 @@ class Switch:
                 expected_id = addr.split("@", 1)[0] if "@" in addr else ""
                 if expected_id and self.get_peer(expected_id) is not None:
                     attempt = 0
-                    self.clock.sleep(5)
+                    self.clock.nap(5, self._stopped)
                     continue
                 try:
                     self.dial_peer(addr)
@@ -287,10 +307,11 @@ class Switch:
                     self.redial_errors += 1
                     self.last_redial_error = e
                     attempt += 1
-                    self.clock.sleep(redial_delay(attempt))
+                    self.clock.nap(redial_delay(attempt), self._stopped)
 
-        for addr in self._persistent_addrs:
-            threading.Thread(target=redial, args=(addr,), daemon=True).start()
+        with self._scope():
+            for addr in self._persistent_addrs:
+                threads.spawn(redial, (addr,))
 
     def stop_peer_for_error(self, peer: Peer, reason) -> None:
         """switch.go StopPeerForError."""

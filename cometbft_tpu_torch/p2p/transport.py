@@ -11,8 +11,8 @@ reference passes over it.
 from __future__ import annotations
 
 import socket
-import threading
 
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.p2p.conn.secret_connection import SecretConnection
 from cometbft_tpu_torch.p2p.key import NodeKey, node_id_from_pub_key
 from cometbft_tpu_torch.p2p.node_info import NodeInfo
@@ -64,7 +64,7 @@ class MultiplexTransport:
         self.node_info.listen_addr = actual
         self._accept_cb = accept_cb
         self._running = True
-        threading.Thread(target=self._accept_loop, daemon=True).start()
+        threads.spawn(self._accept_loop)
         return actual
 
     def _accept_loop(self) -> None:
@@ -75,9 +75,7 @@ class MultiplexTransport:
                 continue
             except OSError:
                 return
-            threading.Thread(
-                target=self._upgrade_inbound, args=(sock, addr), daemon=True
-            ).start()
+            threads.spawn(self._upgrade_inbound, (sock, addr))
 
     def _upgrade_inbound(self, sock: socket.socket, addr) -> None:
         try:

@@ -37,7 +37,7 @@ class Environment:
     consensus_state: object = None
     consensus_reactor: object = None  # peer round-state introspection
     mempool: object = None
-    ingress: object = None  # IngressPipeline when QoS admission is wired
+    ingress: object = None  # mempool/ingress.IngressPipeline, as the node wires it
     evidence_pool: object = None
     event_bus: EventBus | None = None
     genesis_doc: object = None

@@ -19,6 +19,8 @@ import traceback
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from cometbft_tpu_torch.libs import threads
+
 
 class RPCError(Exception):
     def __init__(self, code: int, message: str, data: str | None = None):
@@ -100,8 +102,7 @@ class JSONRPCServer:
         self._httpd.daemon_threads = True
         if self.port == 0:
             self.port = self._httpd.server_address[1]
-        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
-        self._thread.start()
+        self._thread = threads.spawn(self._httpd.serve_forever)
 
     def stop(self) -> None:
         if self._httpd:

@@ -38,6 +38,8 @@ import heapq
 import threading
 import time as _time
 
+from cometbft_tpu_torch.libs import threads
+
 
 class TimerHandle:
     """Cancelable one-shot timer, returned by ``Clock.timer``."""
@@ -60,6 +62,11 @@ class Clock:
         whose ``cancel()`` is a no-op once the callback started."""
         raise NotImplementedError
 
+    def nap(self, seconds: float, wake: threading.Event) -> None:
+        """``sleep``, cut short once ``wake`` is set where the clock is the
+        wall's (a virtual clock sleeps its full time)."""
+        self.sleep(seconds)
+
 
 class _RealTimerHandle(TimerHandle):
     def __init__(self, t: threading.Timer):
@@ -78,11 +85,11 @@ class MonotonicClock(Clock):
     def sleep(self, seconds: float) -> None:
         _time.sleep(seconds)
 
+    def nap(self, seconds: float, wake: threading.Event) -> None:
+        wake.wait(seconds)
+
     def timer(self, delay: float, fn, *args) -> TimerHandle:
-        t = threading.Timer(delay, fn, args=args)
-        t.daemon = True
-        t.start()
-        return _RealTimerHandle(t)
+        return _RealTimerHandle(threads.timer(delay, fn, args))
 
 
 class _SimTimerEntry(TimerHandle):

@@ -29,6 +29,7 @@ import json
 import queue
 import threading
 
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.libs.db import DB
 from cometbft_tpu_torch.libs.pubsub import Query
 from cometbft_tpu_torch.types import events as ev
@@ -208,9 +209,7 @@ class IndexerService:
                 self.block_indexer.index(d.header.height, evs)
 
         for target in (tx_pump, hdr_pump):
-            t = threading.Thread(target=target, daemon=True)
-            t.start()
-            self._threads.append(t)
+            self._threads.append(threads.spawn(target))
 
     def stop(self) -> None:
         """Returns once neither pump can write again: both have left their

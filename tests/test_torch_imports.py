@@ -3,7 +3,9 @@ native loader, the supervisor, chaos, the fleet tier, the BN254 chain, the
 tooling, the types, commit verification, blocksync, the light client,
 evidence, sigbatch, the RPC codec, consensus, privval, the simnet, p2p, the
 consensus and mempool reactors, the Merkle proof operators, the Handshaker,
-the indexers and the RPC server, routes and client included), it never
+the indexers, the RPC server, routes and client, the config and its TOML,
+the logger, the ingress with its lanes, PEX, the statesync reactor and the
+node included), it never
 falls back to the CPU when CUDA is asked for (the hybrid tier and the
 chains neither), and a missing CUDA compiler is an error, not a silent
 switch to the plain versions."""
@@ -170,6 +172,23 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.rpc.jsonrpc.ws_client",
         "cometbft_tpu_torch.rpc.core",
         "cometbft_tpu_torch.rpc.client",
+        "cometbft_tpu_torch.version",
+        "cometbft_tpu_torch.config",
+        "cometbft_tpu_torch.config.config",
+        "cometbft_tpu_torch.config.toml",
+        "cometbft_tpu_torch.libs.log",
+        "cometbft_tpu_torch.libs.tomlcompat",
+        "cometbft_tpu_torch.libs.threads",
+        "cometbft_tpu_torch.mempool.lanes",
+        "cometbft_tpu_torch.mempool.ingress",
+        "cometbft_tpu_torch.p2p.pex",
+        "cometbft_tpu_torch.p2p.pex.addrbook",
+        "cometbft_tpu_torch.p2p.pex.reactor",
+        "cometbft_tpu_torch.statesync",
+        "cometbft_tpu_torch.statesync.messages",
+        "cometbft_tpu_torch.statesync.reactor",
+        "cometbft_tpu_torch.node",
+        "cometbft_tpu_torch.node.node",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
