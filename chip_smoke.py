@@ -8,6 +8,8 @@
     python3 chip_smoke.py --network       # only the network path (and what it needs)
     python3 chip_smoke.py --rpc           # only the RPC path (and what it needs)
     python3 chip_smoke.py --node          # only the node path (and what it needs)
+    python3 chip_smoke.py --ingress       # only the node path's (j), timed three times
+    python3 chip_smoke.py --statesync     # only the statesync path (and what it needs)
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -49,8 +51,14 @@ and a one-validator chain served over RPC with proven answers
 (``state/txindex``, ``crypto/merkle/proof_op``), and the node path the
 port's ``node/node.Node`` as ``default_new_node`` builds it from a home on
 disk: a node admitting signed transactions through its QoS ingress
-(``mempool/ingress``) over HTTP, and a fresh node catching up with the
-10,240-validator chain over TCP (blocksync, PEX, the consensus catch-up).
+(``mempool/ingress``) over HTTP, a fresh node catching up with the
+10,240-validator chain over TCP (blocksync, PEX, the consensus catch-up),
+and an operator's validator (its key in a signer process,
+``privval/signer``; its app behind the ABCI socket, ``abci/``; a
+``light/proxy.LightProxy`` in front of its RPC), and the statesync path a
+fresh node joining the 10,240-validator chain by statesync
+(``statesync/syncer``, ``statesync/stateprovider``: a snapshot from a peer,
+verified by the light client over HTTP, restored over the ABCI socket).
 In order:
 
   1. prints the PyTorch version and the card (name, power limit);
@@ -407,8 +415,50 @@ In order:
      stay rejected) and at (k)'s batches as the counted catch-up sent
      them (the first light check, full check and consensus batch, and the
      first window of each size if any came; four lanes corrupted, one under
-     8 lanes), held to their plain versions and timed;
- 22. runs the mesh path (the lane-split programs) on two virtual shards of
+     8 lanes), held to their plain versions and timed. (m) An operator's
+     validator: a signer process (``python -m
+     cometbft_tpu_torch.privval.signer`` over a FilePV) and a provable
+     kvstore behind the port's ``ABCIServer`` in a process of its own, a
+     one-validator node by ``default_new_node`` (``priv_validator_laddr``,
+     a ``tcp://`` proxy_app) and a ``LightProxy`` trusting its height 1:
+     OP_TXS txs through the proxy's ``broadcast_tx_sync`` and the heights
+     that hold them, OP_QUERIES proven ``abci_query``s through it, a
+     tampered and a stripped answer refused with the reference's errors,
+     the signer killed and started again (the node commits
+     OP_AFTER_RESTART heights more, each height's one precommit the
+     signer's over the stored block); every card call a proxy header
+     check of one lane, three launches from the device-owner thread;
+     ``operator_ms_per_height`` and ``proxy_query_ms``;
+ 22. runs the statesync path (``statesync/``, ``abci/``, ``light/``),
+     launch counts zeroed before it and read after. (l) Its servers start
+     before step 21: (g)'s RPC server over the 10,240-validator source
+     (its doctored /commit at height 5), the snapshot peer's kvstore
+     (``python -m cometbft_tpu_torch.abci.server persistent_kvstore
+     --snapshot-interval 4``) and the snapshot peer (a non-validator port
+     Node over a sqlite copy of the source's stores, that socket its
+     proxy_app: its Handshaker replays blocks 1-6 through it, so the app
+     holds a snapshot at 4). A fresh node by ``default_new_node`` with
+     statesync on (the honest server its RPC server, height 1 trusted by
+     hash, discovery SS_DISCOVERY_S), its kvstore a process behind the
+     socket, the snapshot peer its persistent peer, under a recording
+     ``TorchBackend()``: it restores height 4 (the state the source's but
+     the field the provider sets), bootstraps and blocksyncs to 5 (gated;
+     6 reported); the app saw one OfferSnapshot and one
+     ApplySnapshotChunk a chunk; the card calls the light walk's six;
+     three launches a call from the device-owner thread;
+     ``statesync_errors`` and every error counter 0; no thread left after
+     ``stop()``, no process after the phase; ``statesync_join_10k_ms``
+     (to the bootstrap and to blocksync's last height) split into
+     discovery, chunk fetch, apply over the socket, the provider's HTTP
+     routes, the card calls, bootstrap and blocksync. Under
+     ``--statesync`` also a join under the process default and the
+     refusal: with the doctored server, the syncer retries the snapshot
+     with the reference's error until its deadline (cut to
+     SS_REFUSAL_TIMEOUT_S), the node counts one statesync error and
+     blocksyncs from genesis to 5. Last, the verify kernels at (l)'s
+     largest and smallest batch, four lanes of each corrupted, held to
+     plain and timed;
+ 23. runs the mesh path (the lane-split programs) on two virtual shards of
      the card: first the sha256 digests entry against its plain version on
      every word at the block's 65,536 leaf digests and at 10,000, 3 and 1
      (timed beside its bound), then, counters zeroed, TorchBackend and
@@ -421,7 +471,7 @@ In order:
      TorchBackend's on one device, each root the host's, each step's
      launches exact; then ``mesh_commit_step_10k_64k_ms`` (two virtual
      shards on one card, not a multi-GPU figure);
- 23. prints the ``kernels`` line (launches summed over the paths, and by
+ 24. prints the ``kernels`` line (launches summed over the paths, and by
      path), the card line and, last, the result line.
 
 Any failure raises and exits nonzero, and ends the processes it started.
@@ -3402,6 +3452,26 @@ class LightWire:
         return Header.decode(wire.get_bytes(wire.decode_fields(signed_header), 1)).hash()
 
 
+@contextlib.contextmanager
+def counting_launches():
+    """While open, counts each kernel launch by (kernel, the launching
+    thread's name) in the Counter it yields."""
+    from cometbft_tpu_torch.ops import _build
+
+    counts = collections.Counter()
+    orig = _build.check_launch
+
+    def check_launch(kernel, rc):
+        counts[(kernel, threading.current_thread().name)] += 1
+        return orig(kernel, rc)
+
+    _build.check_launch = check_launch
+    try:
+        yield counts
+    finally:
+        _build.check_launch = orig
+
+
 class LightRecorder:
     """A backend that records each call it is asked to verify: the caller's
     engine class (``light``: a descent's or the gateway's prewarm), its
@@ -5918,13 +5988,13 @@ def rpc_restart(source, torch_backend) -> dict:
     return out
 
 
-def rpc_doctored_commit(honest, bs):
-    """A /commit route whose tip commit carries its first signature with
-    one bit flipped."""
+def rpc_doctored_commit(honest, bs, doctored_height: int = 0):
+    """A /commit route whose commit at ``doctored_height`` (the tip where 0)
+    carries its first signature with one bit flipped."""
 
     def commit(height=None):
         out = honest(height=height)
-        if int(out["signed_header"]["header"]["height"]) == bs.height():
+        if int(out["signed_header"]["header"]["height"]) == (doctored_height or bs.height()):
             sig = out["signed_header"]["commit"]["signatures"][0]
             raw = base64.b64decode(sig["signature"])
             sig["signature"] = base64.b64encode(bytes([raw[0] ^ 0x01]) + raw[1:]).decode()
@@ -5933,14 +6003,15 @@ def rpc_doctored_commit(honest, bs):
     return commit
 
 
-def rpc_serve_main(conn) -> None:
+def rpc_serve_main(conn, doctored_height: int = 0) -> None:
     """(g)'s node, in a process of its own (so that its server threads do
     not hold the client's interpreter lock), started before (f) and sent
     (f)'s indexes when (f) is done: the port's JSONRPCServer on 127.0.0.1:0
     serving ``routes(Environment(...))`` over the source's stores and
     indexes (their items, the genesis, from the pipe), and a second one
-    whose /commit is doctored (``rpc_doctored_commit``). Sends the two
-    ports, then serves until ``close``."""
+    whose /commit is doctored at ``doctored_height`` (the tip where 0;
+    ``rpc_doctored_commit``). Sends the two ports, then serves until
+    ``close``."""
     servers = []
     try:
         items, index_items, gen_json = conn.recv()
@@ -5957,7 +6028,7 @@ def rpc_serve_main(conn) -> None:
                                     genesis_doc=gen, tx_indexer=tx_ix, block_indexer=blk_ix,
                                     node_info={"moniker": "chip-smoke-rpc",
                                                "network": gen.chain_id}))
-        doctored = dict(honest, commit=rpc_doctored_commit(honest["commit"], bs))
+        doctored = dict(honest, commit=rpc_doctored_commit(honest["commit"], bs, doctored_height))
         for table in (honest, doctored):
             srv = JSONRPCServer(table, host="127.0.0.1", port=0)
             srv.start()
@@ -6036,17 +6107,10 @@ def rpc_light_sync(url: str, anchor, backend, witness: bool = True):
     return {"ms": wall, "trace": trace, "client": client, "stages": stages}
 
 
-def rpc_server_start() -> tuple:
+def rpc_server_start(doctored_height: int = 0) -> tuple:
     """(g)'s server process (``rpc_serve_main``), started: (the process,
     the pipe). It imports while (f) runs."""
-    import multiprocessing
-
-    ctx = multiprocessing.get_context("spawn")
-    conn, child = ctx.Pipe()
-    proc = ctx.Process(target=rpc_serve_main, args=(child,), daemon=True)
-    proc.start()
-    child.close()
-    return proc, conn
+    return spawn(rpc_serve_main, doctored_height)
 
 
 def rpc_light_path(source, index_items, torch_backend, sync_reps: int, started) -> dict:
@@ -6593,6 +6657,7 @@ NODE_PAYLOAD_BYTES = 48
 NODE_WAIT_S = 300.0
 NODE_LAST_WAIT_S = 4.0  # the consensus catch-up of the source's last block, after blocksync
 NODE_DEEP_WAIT_S = 150.0  # ... under --node, long enough to see it commit
+INGRESS_RUNS = 3  # --ingress: timed runs of (j) after its warm-up
 NODE_INGRESS_ERRORS = ("preverify_fallbacks", "dispatcher_errors", "callback_errors",
                        "rejected_other", "rejected_mempool_full", "rejected_queue_full",
                        "rejected_rate_limited", "shed_total")
@@ -6964,15 +7029,17 @@ def node_ingress_run(env: dict, backend, label: str, tmpdir: str, keep: bool = F
     return out
 
 
-def node_serve_main(conn, items, gen_json: str, home: str) -> None:
+def node_serve_main(conn, items, gen_json: str, home: str,
+                    proxy_app: str = "persistent_kvstore") -> None:
     """(k)'s server, in a process of its own (its threads off the
     follower's interpreter lock): a port Node built by
     ``default_new_node`` from a sqlite home whose stores hold the source's
-    items, a fresh FilePV (no validator), the persistent kvstore, PEX on and
-    RPC off, ``TorchBackend()`` its process backend (its consensus checks
-    the seen commit it rebuilds as LastCommit); its Handshaker replays the
-    app at build. Sends its p2p address (with the seconds from its entry
-    to then), then answers "stats" until "close"."""
+    items, a fresh FilePV (no validator), the persistent kvstore (in
+    process, or behind the socket address ``proxy_app``: (l)'s snapshot
+    peer), PEX on and RPC off, ``TorchBackend()`` its process backend (its
+    consensus checks the seen commit it rebuilds as LastCommit); its
+    Handshaker replays the app at build. Sends its p2p address (with the
+    seconds from its entry to then), then answers "stats" until "close"."""
     entered = time.perf_counter()
     node = None
     try:
@@ -6982,7 +7049,7 @@ def node_serve_main(conn, items, gen_json: str, home: str) -> None:
         be.set_backend(be.TorchBackend(device=None if torch.cuda.is_available() else "cpu"))
         # No stall watchdog: the source's validators run nowhere, so the
         # server's consensus waits at the next height by design.
-        cfg = node_config(base__db_backend="sqlite", base__proxy_app="persistent_kvstore",
+        cfg = node_config(base__db_backend="sqlite", base__proxy_app=proxy_app,
                           rpc__laddr="", consensus__stall_watchdog_factor=0.0)
         node_home(home, cfg, items=items)
         node_genesis(cfg, gen_json)
@@ -7058,18 +7125,12 @@ def node_catchup_run(source, backend, server: dict, tmpdir: str, label: str,
         node = node_load(home)
     stages = BsyncStages() if counted else None
     rec = BsyncRecorder(backend, stages, keep=True) if counted else LightRecorder(backend)
-    launch_threads = collections.Counter()
-    orig_launch = _build.check_launch
     wire = {"parts": [], "votes": []}
     orig_send = node.consensus_state.send_peer_message
     orig_caught_up = node.blocksync_reactor.on_caught_up
     pex_in = collections.Counter()
     orig_pex = node.pex_reactor.receive
     handoff = {}
-
-    def check_launch(kernel, rc):
-        launch_threads[(kernel, threading.current_thread().name)] += 1
-        return orig_launch(kernel, rc)
 
     def send_peer_message(msg, peer_id="peer"):
         if getattr(msg, "height", None) == last or getattr(
@@ -7094,14 +7155,14 @@ def node_catchup_run(source, backend, server: dict, tmpdir: str, label: str,
     node.consensus_state.send_peer_message = send_peer_message
     node.blocksync_reactor.on_caught_up = on_caught_up
     node.pex_reactor.receive = pex_receive
-    _build.check_launch = check_launch
     ed25519._verified.clear()  # a cold cache, as in a fresh node's process
     fallbacks0 = sigbatch.counters()["fallbacks"]
     be.set_backend(rec)
     stored, out = {}, {}
     stopped = False
     try:
-        with stages if counted else contextlib.nullcontext():
+        with counting_launches() as launch_threads, (
+                stages if counted else contextlib.nullcontext()):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             node.start()
@@ -7171,7 +7232,6 @@ def node_catchup_run(source, backend, server: dict, tmpdir: str, label: str,
             node.stop()  # before its backend goes: no thread of it calls get_backend() after
         node.consensus_state.send_peer_message = orig_send
         node.blocksync_reactor.on_caught_up = orig_caught_up
-        _build.check_launch = orig_launch
         be.set_backend(None)
     check(node.threads_left_at_stop == 0,
           f"(k) {label}: {node.threads_left_at_stop} threads outlived stop(): "
@@ -7234,16 +7294,9 @@ def node_server_start(source, tmpdir: str) -> tuple:
     fed the source's items over a pipe: (the process, the pipe, its start
     time). The node phase starts it first, so that it builds its home and
     replays its app while (j) runs."""
-    import multiprocessing
-
-    items = list(source["node"]["db"].iterator())
-    ctx = multiprocessing.get_context("spawn")
-    conn, child = ctx.Pipe()
-    proc = ctx.Process(target=node_serve_main, daemon=True, args=(
-        child, items, source["gen"].to_json(), os.path.join(tmpdir, "server")))
     t0 = time.perf_counter()
-    proc.start()
-    child.close()
+    proc, conn = spawn(node_serve_main, list(source["node"]["db"].iterator()),
+                       source["gen"].to_json(), os.path.join(tmpdir, "server"))
     return proc, conn, t0
 
 
@@ -7251,15 +7304,7 @@ def node_server_end(started) -> int:
     """Asks (k)'s server to close (again, where the catch-up did; at once,
     where a step before it failed), waits for it to end (killed after
     NODE_WAIT_S), closes its pipe; returns its exit code."""
-    proc, conn, _ = started
-    with contextlib.suppress(OSError):
-        conn.send("close")
-    proc.join(NODE_WAIT_S)
-    if proc.is_alive():
-        proc.kill()
-        proc.join()
-    conn.close()
-    return proc.exitcode
+    return spawned_end(started[:2])
 
 
 def node_catchup_path(source, torch_backend, auto, tmpdir: str, started,
@@ -7379,11 +7424,12 @@ def corrupt_valid(pubs, msgs, sigs):
     return pubs, msgs, sigs, invalid | set(lanes)
 
 
-def drive_node_path(sources, torch_backend, dev, with_default: bool) -> dict:
+def drive_node_path(sources, torch_backend, dev, with_default: bool, after_timed=None) -> dict:
     """The node phase (module docstring, step 21): (j) and (k) under
     ``TorchBackend()`` (and the process default with ``with_default``),
-    the launch counts of the whole drive, then the verify kernels at the
-    path's batches."""
+    (m) under ``TorchBackend()``, the launch counts of the whole drive,
+    ``after_timed()`` if given, then the verify kernels at the path's
+    batches."""
     import tempfile
 
     from cometbft_tpu_torch.ops import _build
@@ -7391,6 +7437,7 @@ def drive_node_path(sources, torch_backend, dev, with_default: bool) -> dict:
 
     source = sources["10k"]
     auto = None
+    procs: list = []  # (m)'s signer processes
     with tempfile.TemporaryDirectory() as tmp:
         started = node_server_start(source, tmp)
         try:
@@ -7411,11 +7458,19 @@ def drive_node_path(sources, torch_backend, dev, with_default: bool) -> dict:
             stamp("node: (k)")
             catchup = node_catchup_path(source, torch_backend, auto, tmp, started,
                                         deep=with_default)
+            stamp("node: (m)")
+            operator = operator_path(torch_backend, tmp, procs)
             launches = dict(_build.LAUNCHES)
+            if after_timed is not None:
+                after_timed()
         finally:
             if auto is not None:
                 auto.close()
             exitcode = node_server_end(started)
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     check(exitcode == 0, f"(k): the server process exited {exitcode}")
     check(all(launches[k] > 0 for k in ("sha512", "decompress", "ladder")),
           f"node path launches {launches}")
@@ -7439,18 +7494,20 @@ def drive_node_path(sources, torch_backend, dev, with_default: bool) -> dict:
     stamp("node: the kernels at the path's batches")
     kernels = bsync_window_kernels(kb, dev)
     return {"launches": launches, "ingress": ingress, "catchup": catchup, "kernels": kernels,
-            "envelopes_s": env_s}
+            "envelopes_s": env_s, "operator": operator}
 
 
-def node_phase(sources, backend, dev, card, records, with_default: bool = False) -> dict:
+def node_phase(sources, backend, dev, card, records, with_default: bool = False,
+               after_timed=None) -> dict:
     """Runs the node path (step 21), prints its metrics and gates, merges its
-    kernel comparisons into ``records``; returns its launches."""
+    kernel comparisons into ``records``; returns its launches.
+    ``after_timed``: see ``drive_node_path``."""
     start = time.perf_counter()
-    out = drive_node_path(sources, backend, dev, with_default)
+    out = drive_node_path(sources, backend, dev, with_default, after_timed)
     for k in ("sha512", "decompress", "ladder"):
         records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
             b["max_abs_err"][k] for b in out["kernels"].values()])
-    j, k = out["ingress"], out["catchup"]
+    j, k, m = out["ingress"], out["catchup"], out["operator"]
     c = k["counted"]
     print(f"node path ok ((j) a default node committed every one of "
           f"{j['torch']['counters']['admitted']} valid envelopes "
@@ -7458,7 +7515,11 @@ def node_phase(sources, backend, dev, card, records, with_default: bool = False)
           f"without CheckTx, preverify_fallbacks 0; (k) a fresh node caught up over TCP to height "
           f"{c['reached']} of {BSYNC_HEIGHTS} (blocksync to {c['handoff_height']}, the last "
           f"height {'committed' if c['last_reached'] else 'not committed'} by consensus), PEX "
-          f"both ways); launches {out['launches']}", flush=True)
+          f"both ways; (m) a validator with its key in a signer process and its kvstore behind "
+          f"a socket committed {OP_TXS} transactions sent through a LightProxy, answered "
+          f"{OP_QUERIES} proven queries through it, refused a tampered and a stripped answer, and "
+          f"went on {m['signer_restart']['heights_after']} heights past its signer's restart); "
+          f"launches {out['launches']}", flush=True)
     common = {"device": torch.cuda.get_device_name(0), "card": card}
     print(json.dumps({"metric": "node_ingress_4096_ms", "value": j["torch"]["ms"],
                       "by_backend": {b: r["ms"] for b, r in j.items()},
@@ -7473,10 +7534,41 @@ def node_phase(sources, backend, dev, card, records, with_default: bool = False)
                       "from": k["metric_from"], "counted": c, "timed": k["timed"],
                       "server": k["server"], **common}),
           flush=True)
+    print(json.dumps({"metric": "operator_ms_per_height", "value": m["ms_per_height"],
+                      "proxy_query_ms": m["proxy_query_ms"], "txs": OP_TXS,
+                      "queries": OP_QUERIES, **{x: v for x, v in m.items()
+                                                if x not in ("ms_per_height", "proxy_query_ms")},
+                      **common}), flush=True)
+    print(json.dumps({"metric": "proxy_query_ms", "value": m["proxy_query_ms"],
+                      "runs_ms": m["proxy_query_runs_ms"], **common}), flush=True)
     print(json.dumps({"node": {"kernels": out["kernels"], "launches": out["launches"],
                                "envelopes_s": out["envelopes_s"]},
                       "phase_s": time.perf_counter() - start, **common}), flush=True)
     return out["launches"]
+
+
+def ingress_only(card) -> int:
+    """``--ingress``: (j) alone under ``TorchBackend()``, INGRESS_RUNS
+    times in one process after a warm-up run, each run's ms and split
+    printed (to time two checkouts of the mempool or the ingress against
+    each other in one call; no result line)."""
+    import tempfile
+
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    backend = TorchBackend()
+    env = node_envelopes()
+    for i in range(INGRESS_RUNS + 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            r = node_ingress_run(env, backend, f"ingress-{i}", tmp)
+        sp = r["split"]
+        print(json.dumps({"run": "warm-up" if i == 0 else i, "node_ingress_4096_ms": r["ms"],
+                          "http_submit_ms_median": sp["http_submit"]["ms_median"],
+                          "preverify_calls": sp["preverify"]["calls"],
+                          "preverify_ms_median": sp["preverify"]["backend_ms_median"],
+                          "check_tx_ms_median": sp["check_tx"]["ms_median"],
+                          "heights": sp["heights"]["to_commit"], "card": card}), flush=True)
+    return 0
 
 
 def node_only(card, dev) -> int:
@@ -7495,6 +7587,801 @@ def node_only(card, dev) -> int:
     launches = node_phase({"10k": big}, backend, dev, card, records, with_default=True)
     print(json.dumps({"node_launches": launches, "max_abs_err": records}), flush=True)
     return 0
+
+
+# -- the statesync path -------------------------------------------------------------
+
+# (l) A fresh port Node joins the 10,240-validator source by statesync: a
+# snapshot peer (a port Node over a sqlite copy of the source's stores, its
+# kvstore a process behind a socket) serves the app's snapshot at height 4, the
+# joiner's light client verifies it over HTTP against (g)'s server, restores its
+# own out-of-process kvstore over the socket, bootstraps and blocksyncs to the
+# source's last height but one.
+SS_SNAPSHOT_INTERVAL = 4  # a snapshot at 4 only: one at the tip (6) needs headers 7 and 8
+SS_HEIGHT = SS_SNAPSHOT_INTERVAL
+SS_DISCOVERY_S = 2.0  # statesync.discovery_time, 15 s by default
+SS_REFUSAL_TIMEOUT_S = 20.0  # the refused join's statesync deadline (600 s by default)
+SS_WAIT_S = 300.0
+
+
+def abci_app_main(conn, app: str, snapshot_interval: int, provable: bool) -> None:
+    """A kvstore (``app``: kvstore or persistent_kvstore) behind the port's
+    ``ABCIServer`` on 127.0.0.1:0, in a process of its own, counting the
+    requests it serves by type. Sends its address, then answers "stats"
+    with the counts and the app's height until "close"."""
+    srv = None
+    try:
+        from cometbft_tpu_torch.abci.example import kvstore
+        from cometbft_tpu_torch.abci.server import ABCIServer, dispatch_request
+
+        counts = collections.Counter()
+
+        class Counting(ABCIServer):
+            def _dispatch(self, req):
+                with self._mtx:
+                    counts[type(req).__name__] += 1
+                    return dispatch_request(self.app, req)
+
+        cls = (kvstore.PersistentKVStoreApplication if app == "persistent_kvstore"
+               else kvstore.KVStoreApplication)
+        kv = cls(snapshot_interval=snapshot_interval, provable=provable)
+        srv = Counting(kv, "tcp://127.0.0.1:0")
+        conn.send({"addr": srv.start()})
+        while conn.recv() != "close":
+            conn.send({"requests": dict(counts), "height": kv.height})
+    except Exception as e:  # reported to the parent, which fails the run
+        conn.send({"error": repr(e)})
+    finally:
+        if srv is not None:
+            srv.stop()
+        conn.close()
+
+
+def spawn(target, *args) -> tuple:
+    """``target(child_pipe, *args)`` in a spawned process: (process, pipe)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=target, args=(child, *args), daemon=True)
+    proc.start()
+    child.close()
+    return proc, conn
+
+
+def spawned_hello(started, what: str, wait_s: float = SS_WAIT_S) -> dict:
+    """The first message of a spawned process; fails the run on its error."""
+    _, conn = started
+    check(conn.poll(wait_s), f"{what}: the process did not start")
+    hello = conn.recv()
+    check("error" not in hello, f"{what}: the process failed: {hello.get('error')}")
+    return hello
+
+
+def spawned_end(started, wait_s: float = NODE_WAIT_S) -> int:
+    """Asks a spawned process to close, waits for it (killed after
+    ``wait_s``), closes its pipe; returns its exit code."""
+    proc, conn = started
+    with contextlib.suppress(OSError):
+        conn.send("close")
+    proc.join(wait_s)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    conn.close()
+    return proc.exitcode
+
+
+def ss_app_cli(extra=()) -> tuple:
+    """``python -m cometbft_tpu_torch.abci.server persistent_kvstore`` on
+    127.0.0.1:0: (the process, its address)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cometbft_tpu_torch.abci.server", "persistent_kvstore",
+         "--addr", "tcp://127.0.0.1:0", *extra],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    line = proc.stdout.readline()
+    m = re.search(r"listening on (tcp://[\d.]+:\d+)", line)
+    if not m:
+        proc.kill()
+        proc.wait()
+    check(m is not None, f"the ABCI server printed {line!r}")
+    return proc, m.group(1)
+
+
+def ss_servers_start(source, tmpdir: str, procs: list) -> dict:
+    """(l)'s servers, started once the node phase's timed parts are done, so
+    that they build while its kernels are compared and no node metric
+    carries their load: (g)'s RPC server (``rpc_serve_main``, its doctored /commit at
+    SS_HEIGHT + 1, the first header the joiner verifies) fed the source's
+    items; the snapshot peer's kvstore, ``python -m
+    cometbft_tpu_torch.abci.server persistent_kvstore --snapshot-interval
+    4`` (in ``procs``); the snapshot peer, ``node_serve_main`` over a
+    sqlite copy of the source's stores with that socket as its proxy_app
+    (its Handshaker replays blocks 1-6 through it, so the app holds a
+    snapshot at 4)."""
+    items = list(source["node"]["db"].iterator())
+    t0 = time.perf_counter()
+    rpc = rpc_server_start(SS_HEIGHT + 1)
+    rpc[1].send((items, [], source["gen"].to_json()))
+    app_proc, app_addr = ss_app_cli(("--snapshot-interval", str(SS_SNAPSHOT_INTERVAL)))
+    procs.append(app_proc)
+    peer = spawn(node_serve_main, items, source["gen"].to_json(),
+                 os.path.join(tmpdir, "snapshot-peer"), app_addr)
+    return {"rpc": rpc, "peer": peer, "app": app_proc, "app_addr": app_addr, "t0": t0}
+
+
+def ss_servers_ready(servers, source) -> dict:
+    """Waits for (l)'s servers: the RPC server's two URLs and the snapshot
+    peer's address, its Handshaker at the source's height and app hash."""
+    if "peer_hello" not in servers:
+        ports = spawned_hello(servers["rpc"], "(l)'s RPC server")["ports"]
+        servers["honest"], servers["doctored"] = (f"http://127.0.0.1:{p}" for p in ports)
+        hello = spawned_hello(servers["peer"], "(l)'s snapshot peer")
+        check(hello["height"] == len(source["blocks"])
+              and hello["app_hash"] == source["state"].app_hash.hex(),
+              f"(l): the snapshot peer's Handshaker left it at {hello['height']}, app hash "
+              f"{hello['app_hash']}")
+        servers["peer_hello"] = hello
+        servers["ready_s"] = time.perf_counter() - servers["t0"]
+    return servers
+
+
+def ss_servers_end(servers) -> dict:
+    """Ends (l)'s servers: their exit codes (the CLI kvstore killed)."""
+    servers["ended"] = True
+    codes = {"rpc": spawned_end(servers["rpc"], RPC_WAIT_S), "peer": spawned_end(servers["peer"])}
+    servers["app"].kill()
+    servers["app"].wait()
+    servers["app"].stdout.close()
+    return codes
+
+
+def ss_state_fields(state) -> dict:
+    """A State's fields but ``last_height_validators_changed``, which the
+    state provider sets to H + 1 (stateprovider.go State) where the source
+    kept its genesis height; the validator sets by hash."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "last_height_validators_changed":
+            continue
+        out[f.name] = v.hash() if hasattr(v, "hash") and hasattr(v, "validators") else (
+            v.encode() if hasattr(v, "encode") else v)
+    return out
+
+
+def ss_syncer_state(syncer) -> dict | None:
+    """What a stalled join's syncer holds: its candidates and retries."""
+    if syncer is None:
+        return None
+    return {"candidates": [(k[0], sorted(c.peers), c.rejected)
+                           for k, c in syncer._candidates.items()],
+            "chunks": len(syncer._chunks), "retry_errors": syncer.retry_errors,
+            "last_retry_error": repr(syncer.last_retry_error)}
+
+
+def ss_expected_lanes(n: int) -> list:
+    """The card calls of a join at n equal-power validators, by the light
+    walk's arithmetic over the verified-triple cache: the provider's hop
+    1 -> SS_HEIGHT + 1 (the trusting check's first k_t signers, then the
+    light check's k lanes less those), its hop 1 -> SS_HEIGHT (the client
+    verifies a height below its latest from the trusted height under it:
+    the same two checks on that commit), the adjacent hop to SS_HEIGHT + 2
+    (k lanes); then blocksync of SS_HEIGHT + 1, whose light check the cache
+    holds and whose full check sends the other n - k."""
+    total = n * BSYNC_POWER
+    k = (total * 2 // 3) // BSYNC_POWER + 1
+    k_t = (total // 3) // BSYNC_POWER + 1
+    return [k_t, k - k_t, k_t, k - k_t, k, n - k]
+
+
+def ss_join(source, servers, backend, tmpdir: str, label: str, counted: bool,
+            rpc_url: str, timeout_s: float | None = None, last_wait_s: float = NODE_LAST_WAIT_S):
+    """(l) once: a joiner app (``abci_app_main``, persistent kvstore, in a
+    process of its own) and a fresh port Node built by ``default_new_node``
+    with statesync on (``rpc_url`` its RPC server, trusting height 1 by its
+    hash; the snapshot peer its persistent peer; discovery SS_DISCOVERY_S),
+    under ``set_backend(backend)`` behind a LightRecorder; from ``start()``
+    to blocksync's handoff at the source's last height but one, then up to
+    ``last_wait_s`` for consensus to commit the last. ``counted``: the
+    syncer, the provider, the HTTP client by route and the socket's apply
+    timed in place, and the launches' threads kept. Returns the wall ms, the
+    split, the calls, the restored and the final states, the node's
+    counters and the app's requests."""
+    from cometbft_tpu_torch.abci.client import SocketClient
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.light.provider import BlockStoreProvider, HTTPProvider
+    from cometbft_tpu_torch.node import node as node_mod
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.statesync import LightClientStateProvider, Syncer
+
+    last = len(source["blocks"])
+    node_src = source["node"]
+    anchor = BlockStoreProvider(BSYNC_CHAIN_ID, node_src["block_store"],
+                                node_src["state_store"]).light_block(1)
+    app = spawn(abci_app_main, "persistent_kvstore", 0, False)
+    out, node, stopped = {"label": label}, None, False
+    timeout0 = node_mod.STATESYNC_TIMEOUT_S
+    try:
+        app_addr = spawned_hello(app, f"(l) {label}: the joiner's app")["addr"]
+        home = os.path.join(tmpdir, f"joiner-{label}")
+        cfg = node_config(base__proxy_app=app_addr, rpc__laddr="",
+                          p2p__persistent_peers=servers["peer_hello"]["addr"],
+                          statesync__enable=True, statesync__rpc_servers=(rpc_url,),
+                          statesync__trust_height=1, statesync__trust_hash=anchor.hash().hex(),
+                          # The source's blocks carry BSYNC_T0's time; the node
+                          # checks them against the wall clock.
+                          statesync__trust_period=time.time() - BSYNC_T0 + 86_400.0,
+                          statesync__discovery_time=SS_DISCOVERY_S)
+        node_home(home, cfg)
+        node_genesis(cfg, source["gen"].to_json())
+        node = node_load(home)
+        check(node._state_sync and type(node.proxy_app.snapshot) is SocketClient,
+              f"(l) {label}: the joiner is not armed for statesync over a socket")
+        if timeout_s is not None:
+            node_mod.STATESYNC_TIMEOUT_S = timeout_s
+        marks, applied = {}, []
+        boot = node.state_store.bootstrap
+        caught_up = node.blocksync_reactor.on_caught_up
+        apply_chunk = node.proxy_app.snapshot.apply_snapshot_chunk
+
+        def bootstrap(state):
+            marks.setdefault("t_boot_start", time.perf_counter())
+            boot(state)
+            marks["restored"] = state
+            marks["t_boot"] = time.perf_counter()
+
+        def on_caught_up(state):
+            marks["t_handoff"] = time.perf_counter()
+            marks["handoff_height"] = state.last_block_height
+            marks["calls_before_handoff"] = len(rec.calls)
+            caught_up(state)
+
+        def apply_snapshot_chunk(req):
+            t = time.perf_counter()
+            res = apply_chunk(req)
+            applied.append(((time.perf_counter() - t) * 1e3, len(req.chunk)))
+            return res
+
+        node.state_store.bootstrap = bootstrap
+        node.blocksync_reactor.on_caught_up = on_caught_up
+        node.proxy_app.snapshot.apply_snapshot_chunk = apply_snapshot_chunk
+        rec = LightRecorder(backend, keep=counted)
+        stages = StageTimer()
+        if counted:
+            stages.wrap(Syncer, "sync_any", "sync_any", sync=False).wrap(
+                Syncer, "_sync_one", "sync_one", sync=False).wrap(
+                Syncer, "_fetch_and_apply", "fetch_and_apply", sync=False).wrap(
+                LightClientStateProvider, "app_hash", "provider_app_hash", sync=False).wrap(
+                LightClientStateProvider, "state", "provider_state", sync=False).wrap(
+                LightClientStateProvider, "commit", "provider_commit", sync=False).wrap(
+                HTTPProvider, "light_block", "provider_light_block", sync=False).wrap(
+                HTTPClient, "call", lambda _c, method: f"{method}_call", sync=False).wrap(
+                HTTPClient, "_post", lambda _c, method, _p: f"{method}_http", sync=False,
+                count_bytes=True)
+        ed25519._verified.clear()  # a cold cache, as in a fresh node's process
+        be.set_backend(rec)
+        launches0 = dict(_build.LAUNCHES)
+        try:
+            with counting_launches() as launch_threads, stages:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                node.start()
+                deadline = time.monotonic() + SS_WAIT_S + (timeout_s or 0.0)
+                while "t_handoff" not in marks or \
+                        node.consensus_state.state.last_block_height < last - 1:
+                    check(time.monotonic() < deadline,
+                          f"(l) {label}: the joiner stopped at height "
+                          f"{node.consensus_state.state.last_block_height}; statesync errors "
+                          f"{node.statesync_errors} ({node.last_statesync_error!r}); syncer "
+                          f"{ss_syncer_state(node.syncer)}")
+                    time.sleep(0.005)
+                t_sync = time.perf_counter()
+                deadline = time.monotonic() + last_wait_s
+                while node.consensus_state.state.last_block_height < last and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.005)
+                t_end = time.perf_counter()
+                torch.cuda.synchronize()
+                node.stop()  # before the calls are read: its last ones are counted
+                stopped = True
+        finally:
+            be.set_backend(None)
+        launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+        syncer = node.syncer
+        restored = marks.get("restored")
+        reached = node.consensus_state.state.last_block_height
+        out.update({
+            "ms_to_bootstrap": (marks["t_boot"] - t0) * 1e3 if restored else None,
+            "ms_to_blocksync_end": (t_sync - t0) * 1e3,
+            "handoff_height": marks["handoff_height"], "reached": reached,
+            "last_reached": reached == last,
+            "last_height_ms": (t_end - marks["t_handoff"]) * 1e3 if reached == last else None,
+            "bootstrap_ms": (marks["t_boot"] - marks["t_boot_start"]) * 1e3 if restored else None,
+            "blocksync_ms": (t_sync - marks["t_boot"]) * 1e3 if restored else None,
+            "restored_height": restored.last_block_height if restored else None,
+            "calls": [c["lanes"] for c in rec.calls],
+            "call_classes": [c["class"] for c in rec.calls],
+            "calls_before_handoff": marks["calls_before_handoff"],
+            "backend_ms": [c["ms"] for c in rec.calls], "launches": launched,
+            "launch_threads": {f"{k}@{t}": n for (k, t), n in launch_threads.items()},
+            "chunks": len(applied), "chunk_bytes": sum(b for _, b in applied),
+            "apply_ms": sum(ms for ms, _ in applied),
+            "statesync_errors": node.statesync_errors,
+            "last_statesync_error": repr(node.last_statesync_error)
+            if node.last_statesync_error else None,
+            "retry_errors": syncer.retry_errors if syncer else None,
+            "last_retry_error": str(syncer.last_retry_error)
+            if syncer and syncer.last_retry_error else None,
+            "errors": node_errors(node), "threads_left": node.threads_left_at_stop,
+            "restored_state": restored, "final_state": node.consensus_state.state,
+        })
+        if counted:
+            table = rpc_route_split(stages)
+            sync_any = table.get("sync_any", {}).get("ms", 0.0)
+            sync_one = table.get("sync_one", {}).get("ms", 0.0)
+            fetch = table.get("fetch_and_apply", {}).get("ms", 0.0)
+            out["split"] = {
+                "discovery_ms": sync_any - sync_one, "chunk_fetch_ms": fetch - out["apply_ms"],
+                "apply_over_socket_ms": out["apply_ms"],
+                "provider_ms": {k[len("provider_"):]: v for k, v in table.items()
+                                if k.startswith("provider_")},
+                "http_by_route": {k: v for k, v in table.items()
+                                  if k.endswith(("_call", "_http", "_json_decode"))},
+                "card_calls": [[c["lanes"], c["ms"]] for c in rec.calls],
+                "bootstrap_ms": out["bootstrap_ms"], "blocksync_ms": out["blocksync_ms"]}
+            out["triples"] = rec.triples
+        app_conn = app[1]
+        app_conn.send("stats")
+        out["app"] = app_conn.recv()
+    finally:
+        if node is not None and not stopped:
+            node.stop()
+        node_mod.STATESYNC_TIMEOUT_S = timeout0
+        out["app_exit"] = spawned_end(app)
+    return out
+
+
+def ss_gates(source, run: dict, label: str, first: bool = True) -> None:
+    """(l)'s gates on one join (see ``statesync_phase``). ``first``: the
+    counted join under ``TorchBackend()``, which sends every call to the
+    card (the process default's hybrid takes small batches on the host), so
+    each call is three launches from the device-owner thread, and whose
+    peer's address book holds no joiner gone since (a later joiner's PEX
+    dials those and fails: reported, not gated, as for (k)'s timed runs)."""
+    from cometbft_tpu_torch.state import store as state_store
+
+    last, n = len(source["blocks"]), source["n_vals"]
+    want = {h: state_store._decode_state(source["states"][h - 1]) for h in (SS_HEIGHT, last - 1)}
+    check(run["statesync_errors"] == 0 and run["restored_height"] == SS_HEIGHT,
+          f"(l) {label}: statesync errors {run['statesync_errors']} "
+          f"({run['last_statesync_error']}), restored {run['restored_height']}")
+    check(ss_state_fields(run["restored_state"]) == ss_state_fields(want[SS_HEIGHT]),
+          f"(l) {label}: the restored state differs from the source's at {SS_HEIGHT}")
+    check(run["handoff_height"] == last - 1 and run["reached"] >= last - 1,
+          f"(l) {label}: blocksync handed off at {run['handoff_height']}")
+    final = run["final_state"]
+    check(final.app_hash == state_store._decode_state(
+        source["states"][final.last_block_height - 1]).app_hash
+          and (final.last_block_height > last - 1
+               or ss_state_fields(final) == ss_state_fields(want[last - 1])),
+          f"(l) {label}: the state at {final.last_block_height} differs from the source's")
+    reqs = run["app"]["requests"]
+    check(reqs.get("RequestOfferSnapshot") == 1
+          and reqs.get("RequestApplySnapshotChunk") == run["chunks"] > 1
+          and reqs.get("RequestInfo", 0) >= 1,
+          f"(l) {label}: the joiner's app saw {reqs} for {run['chunks']} chunks")
+    before = run["calls"][:run["calls_before_handoff"]]
+    check(before == ss_expected_lanes(n),
+          f"(l) {label}: card calls {before}, the light walk's arithmetic gives "
+          f"{ss_expected_lanes(n)}")
+    calls = len(run["calls"])
+    if first:
+        check(run["launches"] == {"sha512": calls, "decompress": calls, "ladder": calls,
+                                  "sha256": 0, "bn254": 0},
+              f"(l) {label}: launches {run['launches']} for {calls} card calls")
+        check({k.split("@", 1)[1] for k in run["launch_threads"]} <= {"cmtpu-torch-dev"},
+              f"(l) {label}: kernels launched from {run['launch_threads']}")
+    check(all(v == 0 for k, v in run["errors"].items() if first or k != "pex_dial_errors"),
+          f"(l) {label}: errors {run['errors']}")
+    check(run["threads_left"] == 0 and run["app_exit"] == 0,
+          f"(l) {label}: {run['threads_left']} threads outlived stop(); the app exited "
+          f"{run['app_exit']}")
+
+
+def ss_refusal(source, servers, torch_backend, tmpdir: str) -> dict:
+    """Under ``--statesync``: the join with the doctored server as its RPC
+    server (block SS_HEIGHT + 1's commit with one bit flipped), its
+    statesync deadline cut to SS_REFUSAL_TIMEOUT_S: the light client refuses
+    the header with the reference's error, the syncer keeps the snapshot and
+    retries it (the reference's behaviour) until its deadline, the node
+    counts one statesync error and falls back to blocksync from genesis,
+    which reaches the last height but one with the source's blocks."""
+    tip_sig = source["node"]["block_store"].load_seen_commit(SS_HEIGHT + 1).signatures[0].signature
+    flipped = bytes([tip_sig[0] ^ 0x01]) + tip_sig[1:]
+    run = ss_join(source, servers, torch_backend, tmpdir, "refused", counted=False,
+                  rpc_url=servers["doctored"], timeout_s=SS_REFUSAL_TIMEOUT_S, last_wait_s=0.0)
+    want = f"wrong signature (#0): {flipped.hex().upper()}"
+    check(run["statesync_errors"] == 1 and "ErrNoSnapshots" in (run["last_statesync_error"] or "")
+          and run["retry_errors"] >= 1 and run["last_retry_error"] == want
+          and run["restored_height"] is None and run["handoff_height"] == len(source["blocks"]) - 1,
+          f"(l) refused: statesync errors {run['statesync_errors']} "
+          f"({run['last_statesync_error']}), retries {run['retry_errors']} "
+          f"({run['last_retry_error']!r}, want {want!r}), restored {run['restored_height']}, "
+          f"handoff at {run['handoff_height']}")
+    check(run["app"]["requests"].get("RequestOfferSnapshot", 0) == 0,
+          f"(l) refused: the app was offered a snapshot: {run['app']['requests']}")
+    check(all(v == 0 for k, v in run["errors"].items() if k != "pex_dial_errors"),
+          f"(l) refused: errors {run['errors']}")
+    check(run["threads_left"] == 0 and run["app_exit"] == 0,
+          f"(l) refused: {run['threads_left']} threads outlived stop()")
+    return {k: run[k] for k in ("statesync_errors", "last_statesync_error", "retry_errors",
+                                "last_retry_error", "ms_to_blocksync_end", "handoff_height",
+                                "calls", "errors")}
+
+
+def drive_statesync_path(sources, torch_backend, dev, servers, tmpdir: str,
+                         with_default: bool) -> dict:
+    """The statesync phase (module docstring, step 22): (l)'s counted join
+    under ``TorchBackend()``, under ``--statesync`` a join under the process
+    default and the refusal; the launch counts of the whole drive; then the
+    verify kernels at (l)'s batches."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    source = sources["10k"]
+    t_wait = time.perf_counter()
+    ss_servers_ready(servers, source)
+    wait_s = time.perf_counter() - t_wait
+    _build.reset_launches()
+    stamp("statesync: (l) under TorchBackend()")
+    counted = ss_join(source, servers, torch_backend, tmpdir, "torch", counted=True,
+                      rpc_url=servers["honest"])
+    ss_gates(source, counted, "torch")
+    print(f"statesync (l) counted: restored {counted['restored_height']} from "
+          f"{counted['chunks']} chunks of {counted['chunk_bytes']} bytes in "
+          f"{counted['ms_to_bootstrap']:.0f} ms, blocksync to {counted['handoff_height']} at "
+          f"{counted['ms_to_blocksync_end']:.0f} ms, the last height "
+          f"{'in ' + format(counted['last_height_ms'], '.0f') + ' ms' if counted['last_reached'] else 'not committed'}; "
+          f"card calls {counted['calls']}; split {json.dumps(counted['split'])}", flush=True)
+    runs = {"torch": [counted["ms_to_blocksync_end"]], "auto": []}
+    out = {"counted": counted, "servers_ready_s": servers["ready_s"], "servers_wait_s": wait_s}
+    if with_default:
+        with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                     CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+            auto = be._make_backend()
+        try:
+            stamp("statesync: (l) under the process default")
+            r = ss_join(source, servers, auto, tmpdir, "auto", counted=False,
+                        rpc_url=servers["honest"])
+            ss_gates(source, r, "auto", first=False)
+            runs["auto"].append(r["ms_to_blocksync_end"])
+            out["auto"] = {k: v for k, v in r.items()
+                           if k not in ("restored_state", "final_state")}
+        finally:
+            auto.close()
+        stamp("statesync: (l) refused by a doctored server")
+        out["refused"] = ss_refusal(source, servers, torch_backend, tmpdir)
+    out["launches"] = dict(_build.LAUNCHES)
+    out["runs_ms"] = runs
+    stamp("statesync: the kernels at the path's batches")
+    # The light walk's batches (each lane count once) and the smallest of the
+    # consensus catch-up after the handoff; four lanes corrupted, one under 8.
+    triples = counted.pop("triples")
+    picks = {len(t[0]): t for t in triples[:counted["calls_before_handoff"]]}
+    after = triples[counted["calls_before_handoff"]:]
+    if after:
+        smallest = min(after, key=lambda t: len(t[0]))
+        picks.setdefault(len(smallest[0]), smallest)
+    batches = {f"statesync_{n}": (corrupt_valid if n < 8 else corrupt_four)(*t)
+               for n, t in sorted(picks.items())}
+    out["kernels"] = bsync_window_kernels(batches, dev)
+    for k in ("restored_state", "final_state"):
+        counted.pop(k)
+    return out
+
+
+def statesync_phase(sources, backend, dev, card, records, servers, tmpdir: str,
+                    with_default: bool = False) -> dict:
+    """Runs the statesync path (step 22), prints its metric and gates, merges
+    its kernel comparisons into ``records``; returns its launches. Ends
+    (l)'s servers."""
+    start = time.perf_counter()
+    try:
+        out = drive_statesync_path(sources, backend, dev, servers, tmpdir, with_default)
+    finally:
+        codes = ss_servers_end(servers)
+    check(codes == {"rpc": 0, "peer": 0}, f"(l): the servers exited {codes}")
+    for k in ("sha512", "decompress", "ladder"):
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in out["kernels"].values()])
+    c = out["counted"]
+    print(f"statesync path ok ((l) a fresh node restored height {c['restored_height']} of the "
+          f"{N_SIGS}-validator source from a snapshot peer over TCP, the snapshot verified by "
+          f"its light client over HTTP, its kvstore restored over the ABCI socket "
+          f"({c['app']['requests']}), bootstrapped and blocksynced to {c['handoff_height']}, "
+          f"the last height {'committed' if c['last_reached'] else 'not committed'} by "
+          f"consensus; statesync_errors 0"
+          + (f"; refused with the doctored server: {out['refused']['last_retry_error']}, "
+             f"fell back to blocksync" if "refused" in out else "")
+          + f"); launches {out['launches']}", flush=True)
+    common = {"device": torch.cuda.get_device_name(0), "card": card}
+    print(json.dumps({"metric": "statesync_join_10k_ms", "value": c["ms_to_blocksync_end"],
+                      "to_bootstrap_ms": c["ms_to_bootstrap"], "validators": N_SIGS,
+                      "snapshot_height": SS_HEIGHT, "heights": BSYNC_HEIGHTS,
+                      "txs_a_block": BSYNC_TXS, "chunks": c["chunks"],
+                      "chunk_bytes": c["chunk_bytes"], "split": c["split"],
+                      "runs_ms": out["runs_ms"],
+                      "by_backend": {k: statistics.median(v) for k, v in out["runs_ms"].items() if v},
+                      "cuts": {"discovery_s": SS_DISCOVERY_S,
+                               "refused_statesync_deadline_s": SS_REFUSAL_TIMEOUT_S},
+                      "counted": {k: v for k, v in c.items() if k != "split"},
+                      "auto": out.get("auto"), "refused": out.get("refused"),
+                      "servers_ready_s": out["servers_ready_s"],
+                      "servers_wait_s": out["servers_wait_s"], **common}), flush=True)
+    print(json.dumps({"statesync": {"kernels": out["kernels"], "launches": out["launches"]},
+                      "phase_s": time.perf_counter() - start, **common}), flush=True)
+    return out["launches"]
+
+
+def statesync_only(card, dev) -> int:
+    """``--statesync``: the keys, the 10,240-validator blocksync source, (l)'s
+    servers and the statesync phase alone, with the process default's join
+    and the refusal (a quick check of that phase on the card; no result
+    line)."""
+    import tempfile
+
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    backend = TorchBackend()
+    big = bsync_10k_source(fixtures, backend)
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
+    procs: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            servers = ss_servers_start(big, tmp, procs)
+            launches = statesync_phase({"10k": big}, backend, dev, card, records, servers, tmp,
+                                       with_default=True)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    print(json.dumps({"statesync_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
+# (m) An operator's validator: a one-validator port Node by ``default_new_node``
+# whose key is in a signer process (``priv_validator_laddr``) and whose kvstore
+# is a process behind the socket, with a LightProxy in front of its RPC.
+OP_CHAIN_ID = "chip-smoke-operator"
+OP_SECRET = b"chip-smoke-operator-key"
+OP_TXS = 64
+OP_QUERIES = 16
+OP_AFTER_RESTART = 3  # heights committed after the signer's restart
+
+
+class ProxyTamperer:
+    """An RPC client for a LightProxy that corrupts abci_query values or
+    strips their proofs (tests/test_light_proxy.py's _Tamperer)."""
+
+    def __init__(self, inner, corrupt: bool = False, strip_proofs: bool = False):
+        self.inner, self.corrupt, self.strip_proofs = inner, corrupt, strip_proofs
+
+    def call(self, method, **params):
+        res = self.inner.call(method, **params)
+        if method == "abci_query":
+            if self.strip_proofs:
+                res["response"].pop("proofOps", None)
+            if self.corrupt:
+                res["response"]["value"] = base64.b64encode(b"evil").decode()
+        return res
+
+
+def op_signer(laddr: str, key_file: str, state_file: str) -> subprocess.Popen:
+    """``python -m cometbft_tpu_torch.privval.signer`` dialing ``laddr``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "cometbft_tpu_torch.privval.signer", "--addr", laddr,
+         "--chain-id", OP_CHAIN_ID, "--key-file", key_file, "--state-file", state_file],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+
+
+def op_proxy(node_url: str, wrap=None):
+    """A LightProxy on 127.0.0.1:0 over the port's light client (trusting
+    the node's height 1, over HTTPProvider) and the node's RPC: (proxy, its
+    HTTPClient)."""
+    from cometbft_tpu_torch.libs.db import MemDB
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import HTTPProvider
+    from cometbft_tpu_torch.light.proxy import LightProxy
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+
+    provider = HTTPProvider(OP_CHAIN_ID, HTTPClient(node_url, timeout=RPC_WAIT_S))
+    client = Client(OP_CHAIN_ID, TrustOptions(3_600 * 10**9, 1, provider.light_block(1).hash()),
+                    provider, [], LightStore(MemDB()))
+    rpc = HTTPClient(node_url, timeout=RPC_WAIT_S)
+    proxy = LightProxy(client, wrap(rpc) if wrap else rpc, port=0)
+    proxy.start()
+    return proxy, HTTPClient(f"http://127.0.0.1:{proxy.port}", timeout=RPC_WAIT_S)
+
+
+def operator_path(torch_backend, tmpdir: str, procs: list) -> dict:
+    """(m): the signer process (``python -m cometbft_tpu_torch.privval.signer``
+    over a FilePV) and the app process (``abci_app_main``, the provable
+    kvstore) first; the node by ``default_new_node`` (``priv_validator_laddr``
+    a unix socket, ``proxy_app`` the app's ``tcp://`` address, RPC on) under a
+    recording ``TorchBackend()``; a LightProxy in front of its RPC, trusting
+    height 1. OP_TXS transactions through the proxy's ``broadcast_tx_sync``,
+    then the heights that hold them; OP_QUERIES proven ``abci_query``s
+    through the proxy (each value the one sent; the proxy checks each proof
+    against its light client's verified app hash); a tampered value and an
+    answer stripped of its proofs refused with the reference's errors; the
+    signer killed and started again: the node commits OP_AFTER_RESTART
+    heights more, each height's one precommit the signer's over the block
+    the chain holds, the signer's state at the last. Every card call is the
+    proxy's header check, one lane, three launches from the device-owner
+    thread; no error counted; no thread of the node left."""
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.privval.file import FilePV
+    from cometbft_tpu_torch.rpc.client import RPCClientError
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.types import cmttime
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    key_file, state_file = (os.path.join(tmpdir, f"operator-{n}.json") for n in ("key", "state"))
+    pv = FilePV(ed25519.gen_priv_key_from_secret(OP_SECRET), key_file, state_file)
+    pv.save()
+    pub = pv.get_pub_key()
+    gen = GenesisDoc(chain_id=OP_CHAIN_ID, genesis_time=cmttime.now(),
+                     validators=[GenesisValidator(pub.address(), pub, 10, "operator")])
+    gen.validate_and_complete()
+    laddr = f"unix://{tmpdir}/operator-pv.sock"
+    signer = op_signer(laddr, key_file, state_file)
+    procs.append(signer)
+    app = spawn(abci_app_main, "kvstore", 0, True)
+    out, node, proxies, stopped = {}, None, [], False
+    rec = LightRecorder(torch_backend)
+    with counting_launches() as launch_threads:
+        try:
+            app_addr = spawned_hello(app, "(m): the app")["addr"]
+            home = os.path.join(tmpdir, "operator")
+            cfg = node_config(base__proxy_app=app_addr, base__priv_validator_laddr=laddr)
+            node_home(home, cfg)
+            node_genesis(cfg, gen.to_json())
+            be.set_backend(rec)
+            launches0 = dict(_build.LAUNCHES)
+            node = node_load(home)  # asks the signer for the key
+            check(type(node.priv_validator).__name__ == "RetrySignerClient"
+                  and type(node.proxy_app.consensus).__name__ == "SocketClient",
+                  "(m): the node did not take the signer or the socket")
+            node.start()
+            wait_until(lambda: node.block_store.height() >= 2, "(m): the chain never started")
+            url = f"http://127.0.0.1:{node.rpc_port}"
+            proxy, cli = op_proxy(url)
+            proxies.append(proxy)
+            h0 = node.block_store.height()
+            t0 = time.perf_counter()
+            for i in range(OP_TXS):
+                res = cli.broadcast_tx_sync(b"op-%03d=value-%d" % (i, i))
+                check(res["code"] == 0, f"(m): broadcast_tx_sync answered {res}")
+            stored = {}  # height -> the transactions of (m) it holds
+
+            def all_stored() -> bool:
+                for h in range(max(stored, default=h0) + 1, node.block_store.height() + 1):
+                    stored[h] = [tx for tx in node.block_store.load_block(h).data.txs
+                                 if tx.startswith(b"op-")]
+                return sum(len(v) for v in stored.values()) >= OP_TXS
+
+            wait_until(all_stored, "(m): the transactions never committed")
+            t_txs = time.perf_counter()
+            h_txs = max(stored)
+            holding = sorted(h for h, v in stored.items() if v)
+            check(sorted(tx for v in stored.values() for tx in v)
+                  == [b"op-%03d=value-%d" % (i, i) for i in range(OP_TXS)],
+                  f"(m): heights {holding} do not hold the {OP_TXS} transactions once")
+            # The app writes a block's transactions before its Commit: query once
+            # the block after the last one holding them is stored.
+            wait_until(lambda: node.consensus_state.state.last_block_height >= h_txs + 1,
+                       "(m): the chain stopped after the transactions")
+            query_ms = []
+            for i in range(OP_QUERIES):
+                t = time.perf_counter()
+                res = cli.abci_query("/store", b"op-%03d" % i, prove=True)
+                query_ms.append((time.perf_counter() - t) * 1e3)
+                check(base64.b64decode(res["response"]["value"]) == b"value-%d" % i
+                      and res["response"]["proofOps"]["ops"],
+                      f"(m): the proven query of op-{i:03d} answered {res['response']}")
+            refused = {}
+            for name, wrap, want in (
+                    ("tampered", lambda r: ProxyTamperer(r, corrupt=True), "proof verification failed: "),
+                    ("stripped", lambda r: ProxyTamperer(r, strip_proofs=True),
+                     "no proof ops (value-op apps cannot prove absence; query an existing key or use "
+                     "an app with range proofs)")):
+                bad, bad_cli = op_proxy(url, wrap)
+                proxies.append(bad)
+                try:
+                    bad_cli.abci_query("/store", b"op-000", prove=True)
+                    check(False, f"(m): the {name} answer was accepted")
+                except RPCClientError as e:
+                    check(str(e).find(want) >= 0, f"(m): the {name} answer raised {e}")
+                    refused[name] = str(e)
+            # The signer killed and started again while the node runs.
+            h_kill = node.block_store.height()
+            t_kill = time.perf_counter()
+            signer.kill()
+            signer.wait()
+            signer = op_signer(laddr, key_file, state_file)
+            procs.append(signer)
+            wait_until(lambda: node.block_store.height() >= h_kill + OP_AFTER_RESTART,
+                       f"(m): the node stopped at {node.block_store.height()} after the signer's "
+                       f"restart at {h_kill}")
+            restart_ms = (time.perf_counter() - t_kill) * 1e3
+            final = node.block_store.height()
+            node_errs = node_errors(node)
+            node.stop()
+            stopped = True
+            torch.cuda.synchronize()
+        finally:
+            be.set_backend(None)
+            for p in proxies:
+                p.stop()
+            if node is not None and not stopped:
+                node.stop()
+            app_exit = spawned_end(app)
+            signer.kill()
+            signer.wait()
+    launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+    # Each height's one precommit is the signer's, over the block the chain
+    # holds; the signer's state is at the last height it signed.
+    for h in range(1, final):
+        commit = node.block_store.load_block(h + 1).last_commit
+        check(len(commit.signatures) == 1 and commit.block_id.hash ==
+              node.block_store.load_block(h).hash()
+              and pure.verify_zip215(pub.bytes(), commit.vote_sign_bytes(OP_CHAIN_ID, 0),
+                                     commit.signatures[0].signature),
+              f"(m): height {h}'s precommit is not the signer's over the stored block")
+    signed = json.load(open(state_file))
+    check(int(signed["height"]) >= final, f"(m): the signer's state is at {signed}, the chain "
+          f"at {final}")
+    calls = len(rec.calls)
+    check(calls > 0 and all(c["lanes"] == 1 for c in rec.calls)
+          and launched == {"sha512": calls, "decompress": calls, "ladder": calls, "sha256": 0,
+                           "bn254": 0},
+          f"(m): launches {launched} for card calls of {rec.lanes()} lanes")
+    check({t for (_, t) in launch_threads} <= {"cmtpu-torch-dev"},
+          f"(m): kernels launched from {dict(launch_threads)}")
+    check(all(v == 0 for v in node_errs.values()), f"(m): errors {node_errs}")
+    check(node.threads_left_at_stop == 0 and app_exit == 0,
+          f"(m): {node.threads_left_at_stop} threads outlived stop(); the app exited {app_exit}")
+    out.update({
+        "ms_per_height": (t_txs - t0) * 1e3 / max(1, h_txs - h0), "heights_of_txs": holding,
+        "tx_window_heights": h_txs - h0, "tx_window_ms": (t_txs - t0) * 1e3,
+        "proxy_query_ms": statistics.median(query_ms), "proxy_query_runs_ms": query_ms,
+        "refused": refused, "signer_restart": {"at_height": h_kill, "heights_after": final - h_kill,
+                                               "ms_to_3_heights": restart_ms},
+        "final_height": final, "card_calls": calls, "launches": launched,
+        "backend_ms_median": statistics.median(c["ms"] for c in rec.calls)})
+    return out
+
+
+def wait_until(cond, what: str, timeout: float = NODE_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, what)
+        time.sleep(0.01)
 
 
 N_SHARDS = 2
@@ -7876,6 +8763,10 @@ def run_modes(card, dev, props, clock_hz) -> int:
         return rpc_only(card, dev, props.multi_processor_count, clock_hz)
     if sys.argv[1:] == ["--node"]:
         return node_only(card, dev)
+    if sys.argv[1:] == ["--ingress"]:
+        return ingress_only(card)
+    if sys.argv[1:] == ["--statesync"]:
+        return statesync_only(card, dev)
     procs: list = []  # every process the phases start, ended here
     try:
         return run_phases(card, dev, props, clock_hz, so, procs)
@@ -7887,7 +8778,7 @@ def run_modes(card, dev, props, clock_hz) -> int:
 
 
 def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
-    """Phases 4-23 (module docstring); the processes it starts go to ``procs``."""
+    """Phases 4-24 (module docstring); the processes it starts go to ``procs``."""
     from cometbft_tpu_torch.crypto import bn254_pure as bn
     from cometbft_tpu_torch.crypto import ed25519_pure as pure
     from cometbft_tpu_torch.crypto import merkle as host
@@ -8117,7 +9008,22 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
     by_path["rpc"], records["sha256"]["rpc_levels"] = rpc_phase(
         sources, backend, dev, card, records, props.multi_processor_count, clock_hz)
     stamp("the node path")
-    by_path["node"] = node_phase(sources, backend, dev, card, records)
+    import tempfile
+
+    ss_tmp, ss_servers = tempfile.TemporaryDirectory(), {}
+    try:
+        # (l)'s servers build while the node path's kernels are compared.
+        by_path["node"] = node_phase(
+            sources, backend, dev, card, records,
+            after_timed=lambda: ss_servers.update(
+                ss_servers_start(sources["10k"], ss_tmp.name, procs)))
+        stamp("the statesync path")
+        by_path["statesync"] = statesync_phase(sources, backend, dev, card, records, ss_servers,
+                                               ss_tmp.name)
+    finally:
+        if ss_servers and not ss_servers.get("ended"):
+            ss_servers_end(ss_servers)
+        ss_tmp.cleanup()
     stamp("the mesh path")
 
     mesh_start = time.perf_counter()

@@ -60,6 +60,13 @@ A node carries its config file and its address book: ``config_from_toml``
 loads a ``config.toml`` the reference rendered into a port ``Config`` (the
 rendering is the same bytes in both packages), and ``addr_book_from_file``
 loads the reference's ``addrbook.json`` into a port ``AddrBook``.
+
+Statesync carries a snapshot and a state: ``snapshot_from_wire`` takes an
+``abci.Snapshot``'s proto bytes (what ``ListSnapshots`` answers; its chunks
+are plain bytes), and ``state_to_store_bytes`` gives a restored ``State`` as
+the bytes a state store keeps, which the reference's ``_decode_state`` reads
+(``state_from_store_bytes`` is the other way). A remote signer's last-sign
+state is its FilePV's state file (``file_pv_from_state_files``).
 """
 
 from __future__ import annotations
@@ -355,3 +362,17 @@ def addr_book_from_file(path: str, strict: bool = True):
     from cometbft_tpu_torch.p2p.pex import AddrBook
 
     return AddrBook(path, strict=strict)
+
+
+def snapshot_from_wire(encoded: bytes):
+    """An ``abci.Snapshot`` from its proto bytes (types.proto Snapshot)."""
+    from cometbft_tpu_torch.abci import wire
+
+    return wire._dec_snapshot(encoded)
+
+
+def state_to_store_bytes(state) -> bytes:
+    """A ``State`` as the bytes a state store keeps under ``stateKey``."""
+    from cometbft_tpu_torch.state.store import _encode_state
+
+    return _encode_state(state)

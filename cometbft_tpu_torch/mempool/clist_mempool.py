@@ -117,6 +117,13 @@ class CListMempool:
         self._txs: collections.OrderedDict[bytes, MempoolTx] = collections.OrderedDict()
         self._txs_bytes = 0
         self._mtx = threading.RLock()  # update lock (held during block commit)
+        # Guards ``_txs`` and ``_txs_bytes`` alone, held only for the data
+        # access. A first-time CheckTx answer inserts under it and never
+        # waits for the update lock: a socket or gRPC client answers on one
+        # dispatch thread, and an answer blocked there on a commit would
+        # stall the recheck answers queued behind it until the wave's 10 s
+        # timeout (F10; Go's resCbFirstTime takes no update lock either).
+        self._txs_mtx = threading.Lock()
         self.cache = (
             TxCache(config.cache_size) if config.cache_size > 0 else NopTxCache()
         )
@@ -144,7 +151,7 @@ class CListMempool:
 
     def flush(self) -> None:
         """Remove all txs + reset cache (clist_mempool.go Flush)."""
-        with self._mtx:
+        with self._mtx, self._txs_mtx:
             self._txs.clear()
             self._txs_bytes = 0
             self.cache.reset()
@@ -171,9 +178,10 @@ class CListMempool:
             if not self.cache.push(tx):
                 # Record the sender on the existing entry (clist_mempool.go:240).
                 k = tx_key(tx)
-                entry = self._txs.get(k)
-                if entry is not None and sender:
-                    entry.senders.add(sender)
+                with self._txs_mtx:
+                    entry = self._txs.get(k)
+                    if entry is not None and sender:
+                        entry.senders.add(sender)
                 raise ErrTxInCache()
 
         def on_res(res: abci.ResponseCheckTx):
@@ -193,10 +201,10 @@ class CListMempool:
             except Exception:
                 post_ok = False
         if res.code == abci.CODE_TYPE_OK and post_ok:
-            with self._mtx:
-                # Re-check capacity at insertion time: other txs may have been
-                # admitted since the pre-flight check (clist_mempool.go:386
-                # resCbFirstTime re-runs isFull).
+            with self._txs_mtx:
+                # Re-check capacity at insertion time: other txs may have
+                # been admitted since the pre-flight check
+                # (clist_mempool.go:386 resCbFirstTime re-runs isFull).
                 if self.size() >= self.config.size or (
                     self._txs_bytes + len(tx) > self.config.max_txs_bytes
                 ):
@@ -235,10 +243,11 @@ class CListMempool:
         FIFO (admission seq) within a lane. With no ingress wired every tx
         sits in lane 0 and this degenerates to CometBFT's pure FIFO."""
         with self._mtx:
+            with self._txs_mtx:
+                entries = list(self._txs.values())
             total_bytes = 0
             total_gas = 0
             out = []
-            entries = list(self._txs.values())
             if any(m.lane for m in entries):
                 entries.sort(key=lambda m: (-m.lane, m.seq))
             for mtx in entries:
@@ -253,9 +262,9 @@ class CListMempool:
             return out
 
     def reap_max_txs(self, n: int) -> list[bytes]:
-        with self._mtx:
+        with self._mtx, self._txs_mtx:
             txs = [m.tx for m in self._txs.values()]
-            return txs if n < 0 else txs[:n]
+        return txs if n < 0 else txs[:n]
 
     def update(
         self, height: int, txs: list[bytes], deliver_tx_responses, pre_check, post_check
@@ -275,21 +284,22 @@ class CListMempool:
             elif not self.config.keep_invalid_txs_in_cache:
                 self.cache.remove(tx)
             k = tx_key(tx)
-            entry = self._txs.pop(k, None)
-            if entry is not None:
-                self._txs_bytes -= len(entry.tx)
+            with self._txs_mtx:
+                entry = self._txs.pop(k, None)
+                if entry is not None:
+                    self._txs_bytes -= len(entry.tx)
         if self._txs and self.config.recheck:
             self._recheck_txs()
 
     def _recheck_txs(self) -> None:
         """Re-run CheckTx(RECHECK) on survivors; drop newly-invalid ones.
 
-        The survivor snapshot is taken under ``_mtx`` (concurrent admission
+        The survivor snapshot is taken under ``_txs_mtx`` (concurrent admission
         must not tear the iteration), and the rechecks go through the async
         proxy as one pipelined wave closed by a single flush — N txs cost
         one round trip to a socket/grpc app instead of N.
         """
-        with self._mtx:
+        with self._txs_mtx:
             snapshot = list(self._txs.items())
         if not snapshot:
             return
@@ -325,7 +335,7 @@ class CListMempool:
                 except Exception:
                     post_ok = False
             if res.code != abci.CODE_TYPE_OK or not post_ok:
-                with self._mtx:
+                with self._txs_mtx:
                     gone = self._txs.pop(k, None)
                     if gone is not None:
                         self._txs_bytes -= len(gone.tx)
@@ -334,5 +344,5 @@ class CListMempool:
 
     def txs_front(self):
         """Iteration hook for the gossip reactor."""
-        with self._mtx:
+        with self._txs_mtx:
             return list(self._txs.values())

@@ -14,14 +14,21 @@ runs from the store head unless this node is the only validator
 (onlyValidatorIsUs, node/node.go:174), in which case consensus starts
 immediately.
 
+The node's outer interfaces: an app behind a socket (``tcp://``,
+``unix://``) or ``grpc://`` ``base.proxy_app`` (``abci/client``,
+``abci/grpc``), a remote signer at ``base.priv_validator_laddr``
+(``privval/signer``), the gRPC broadcast API at ``rpc.grpc_laddr``
+(``rpc/grpc_server``) and statesync into an empty store
+(``statesync/syncer``). ``grpc`` is imported only on its two branches. A
+failed statesync falls back to blocksync from genesis, as the JAX package's
+node does; the port counts it (``statesync_errors``,
+``last_statesync_error``).
+
 Branches that stand on modules not ported yet raise ``NotImplementedError``
 naming the module, before anything is opened or started:
 ``instrumentation.prometheus`` (``libs/metrics``), ``tx_index.indexer =
-"psql"`` (``state/sink_sql``), ``statesync.enable`` on an empty store
-(``statesync/syncer``), ``rpc.grpc_laddr`` (``rpc/grpc_server``),
-``base.priv_validator_laddr`` (``privval/signer``), a socket or ``grpc://``
-``base.proxy_app`` (``abci/client.SocketClientCreator`` / ``abci/grpc``) and
-``CMTPU_WATCHDOG`` at start (``libs/deadlock``).
+"psql"`` (``state/sink_sql``) and ``CMTPU_WATCHDOG`` at start
+(``libs/deadlock``).
 
 Every thread the node starts, and every thread those start, is in the
 node's ``threads`` group (``libs/threads``): ``stop()`` ends with a join of
@@ -62,6 +69,10 @@ from cometbft_tpu_torch.types.genesis import GenesisDoc
 
 # How long stop() waits for the node's threads to end.
 STOP_JOIN_S = 30.0
+# How long the statesync boot looks for a restorable snapshot before it falls
+# back to blocksync from genesis (the JAX package's node.py:1087, Go's
+# SyncAny with its discovery loop).
+STATESYNC_TIMEOUT_S = 600.0
 
 
 def _not_ported(branch: str, module: str) -> NotImplementedError:
@@ -76,8 +87,6 @@ def _refuse_unported(config: Config) -> None:
         raise _not_ported("instrumentation.prometheus", "libs/metrics")
     if config.tx_index.indexer == "psql":
         raise _not_ported('tx_index.indexer = "psql"', "state/sink_sql")
-    if config.rpc.laddr and config.rpc.grpc_laddr:
-        raise _not_ported("rpc.grpc_laddr", "rpc/grpc_server")
 
 
 class Node:
@@ -144,8 +153,6 @@ class Node:
         if state is None:
             state = make_genesis_state(genesis_doc)
             self.state_store.save(state)
-        if config.statesync.enable and state.last_block_height == 0:
-            raise _not_ported("statesync.enable", "statesync/syncer")
 
         # ABCI connections (node/node.go:164).
         self.proxy_app = AppConns(client_creator)
@@ -234,6 +241,12 @@ class Node:
             self.consensus_state.set_priv_validator(priv_validator)
 
         self._boot_height = state.last_block_height
+        # The statesync boot (node/node.go:423-433): its syncer while it runs,
+        # and the failures it fell back to blocksync from (the JAX package's
+        # node swallows them).
+        self.syncer = None
+        self.statesync_errors = 0
+        self.last_statesync_error: BaseException | None = None
         # Boot mode (node/node.go:174 onlyValidatorIsUs + :423 stateSync
         # gating: statesync only ever runs into an empty store).
         self._state_sync = bool(config.statesync.enable) and state.last_block_height == 0
@@ -460,7 +473,9 @@ class Node:
             )
             self.pprof_server.start()
 
-        if self._block_sync and self.switch is not None:
+        if self._state_sync and self.switch is not None:
+            threads.spawn(self._statesync_routine, name="statesync")
+        elif self._block_sync and self.switch is not None:
             pass  # blocksync reactor's pool routine runs; caught-up hook
             # starts consensus (_on_blocksync_caught_up)
         else:
@@ -495,6 +510,15 @@ class Node:
             routes_map = routes(env)
             self.rpc_server = JSONRPCServer(routes_map, host, port)
             self.rpc_server.start()
+            if self.config.rpc.grpc_laddr:
+                # node/node.go startRPC grpcListener branch: the minimal
+                # BroadcastAPI (Ping/BroadcastTx) on its own port.
+                from cometbft_tpu_torch.rpc.grpc_server import GrpcBroadcastServer
+
+                self.grpc_server = GrpcBroadcastServer(
+                    routes_map, self.config.rpc.grpc_laddr
+                )
+                self.grpc_server.start()
 
     def stop(self) -> None:
         from cometbft_tpu_torch.crypto import sigbatch
@@ -508,6 +532,9 @@ class Node:
     def _stop(self) -> None:
         with self._lifecycle:
             self._stopping = True
+            syncer = self.syncer
+        if syncer is not None:
+            syncer.stop()
         self.consensus_state.stop()
         if self.ingress is not None:
             self.ingress.close()
@@ -519,6 +546,13 @@ class Node:
         self.event_bus.stop()
         if self.rpc_server:
             self.rpc_server.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
+        # A remote signer's endpoint (Go's OnStop stops a privValidator that
+        # is a service).
+        close_pv = getattr(self.priv_validator, "close", None)
+        if close_pv is not None:
+            close_pv()
         # last: RPC handlers reach ABCI through these clients — close them
         # only after no request can arrive
         self.proxy_app.stop()
@@ -546,6 +580,92 @@ class Node:
                 self.consensus_reactor.switch_to_consensus()
             self.consensus_state.start()
 
+    def _make_state_provider(self):
+        """node/setup.go-style light StateProvider over the configured RPC
+        servers (config.go StateSyncConfig.RPCServers)."""
+        from cometbft_tpu_torch.light.provider import HTTPProvider
+        from cometbft_tpu_torch.rpc.client import HTTPClient
+        from cometbft_tpu_torch.statesync import LightClientStateProvider
+        from cometbft_tpu_torch.types import cmttime
+
+        cfg = self.config.statesync
+        if not cfg.rpc_servers:
+            raise ValueError("statesync.rpc_servers must be set when statesync is enabled")
+        providers = [
+            HTTPProvider(self.genesis_doc.chain_id, HTTPClient(s))
+            for s in cfg.rpc_servers
+        ]
+        return LightClientStateProvider(
+            self.genesis_doc.chain_id,
+            providers[0],
+            providers[1:],
+            trust_height=cfg.trust_height,
+            trust_hash=bytes.fromhex(cfg.trust_hash),
+            trust_period_ns=int(cfg.trust_period * 10**9),
+            consensus_params=self.consensus_state.state.consensus_params,
+            now=cmttime.now,
+        )
+
+    def _statesync_routine(self) -> None:
+        """node/node.go:423-433 startStateSync: snapshot restore verified by
+        the light client, store bootstrap, then SwitchToBlockSync — whose
+        caught-up hook starts consensus. A failure falls back to blocksync
+        from genesis, counted in ``statesync_errors``; a stop ends it."""
+        from cometbft_tpu_torch.statesync import Syncer
+
+        cfg = self.config.statesync
+        try:
+            provider = self._make_state_provider()
+            syncer = Syncer(
+                self.proxy_app.snapshot,
+                self.proxy_app.query,
+                provider,
+                self.statesync_reactor.request_chunk,
+                chunk_timeout=cfg.chunk_request_timeout,
+                chunk_fetchers=cfg.chunk_fetchers,
+            )
+            with self._lifecycle:
+                if self._stopping:
+                    return
+                self.syncer = syncer
+            self.statesync_reactor.set_syncer(syncer)
+            if self.logger:
+                self.logger.info("starting statesync", module="statesync")
+            # Go's reactor.Sync asks the peers already connected for their
+            # snapshots, and again at each empty discovery round (F9).
+            state, commit = syncer.sync_any(
+                discovery_time=cfg.discovery_time, timeout=STATESYNC_TIMEOUT_S,
+                request_hook=self.statesync_reactor.request_snapshots,
+            )
+            if self.logger:
+                self.logger.info(
+                    "snapshot restored; switching to blocksync",
+                    module="statesync", height=state.last_block_height,
+                )
+            self.state_store.bootstrap(state)
+            self.block_store.save_seen_commit(state.last_block_height, commit)
+            self.blocksync_reactor.switch_to_block_sync(state, self.block_executor)
+        except Exception as e:
+            # Fall back to blocksync-from-genesis rather than leaving a
+            # zombie node (consensus only starts via blocksync's caught-up
+            # hook, and the reactor was built with block_sync=False while
+            # statesync was armed).
+            with self._lifecycle:
+                if self._stopping:
+                    return
+                self.statesync_errors += 1
+                self.last_statesync_error = e
+            if self.logger:
+                self.logger.error(
+                    "statesync failed; falling back to blocksync",
+                    module="statesync", err=str(e),
+                )
+            else:
+                print(f"statesync failed ({e}); falling back to blocksync")
+            self.blocksync_reactor.switch_to_block_sync(
+                self.consensus_state.state, self.block_executor
+            )
+
 
 def _only_validator_is_us(state, priv_validator) -> bool:
     """node/node.go:174: a 1-validator net that IS us must not wait for
@@ -565,27 +685,29 @@ def _parse_laddr(laddr: str) -> tuple[str, int]:
 
 def default_new_node(config: Config, logger=None, app=None) -> Node:
     """node/setup.go:64 DefaultNewNode: files from config; the app comes
-    from proxy_app — "kvstore", "persistent_kvstore" or "noop" in-process.
-    A socket or grpc:// address (an external ABCI app, proxy/client.go
-    DefaultClientCreator) and a remote signer (priv_validator_laddr,
-    node/node.go:181) wait for their slices and raise."""
-    if config.base.priv_validator_laddr:
-        raise _not_ported("base.priv_validator_laddr", "privval/signer")
-    if app is None and config.base.proxy_app not in ("kvstore", "persistent_kvstore", "noop"):
-        if config.base.proxy_app.startswith("grpc://"):
-            raise _not_ported(f"proxy_app {config.base.proxy_app!r}", "abci/grpc")
-        raise _not_ported(
-            f"proxy_app {config.base.proxy_app!r}", "abci/client.SocketClientCreator"
-        )
+    from proxy_app — "kvstore"/"noop" in-process, otherwise a socket address
+    served by an external ABCI app (proxy/client.go DefaultClientCreator);
+    a remote signer when priv_validator_laddr is set (node/node.go:181
+    createAndStartPrivValidator SocketVal branch)."""
     if logger is None:
         from cometbft_tpu_torch.libs.log import new_logger
 
         logger = new_logger(level=config.base.log_level, fmt=config.base.log_format)
     genesis = GenesisDoc.from_file(config.base.genesis_path())
-    pv = FilePV.load_or_generate(
-        config.base.priv_validator_key_path(),
-        config.base.priv_validator_state_path(),
-    )
+    if config.base.priv_validator_laddr:
+        from cometbft_tpu_torch.privval.signer import (
+            RetrySignerClient,
+            SignerClient,
+            SignerListenerEndpoint,
+        )
+
+        endpoint = SignerListenerEndpoint(config.base.priv_validator_laddr)
+        pv = RetrySignerClient(SignerClient(endpoint, genesis.chain_id))
+    else:
+        pv = FilePV.load_or_generate(
+            config.base.priv_validator_key_path(),
+            config.base.priv_validator_state_path(),
+        )
     if app is not None:
         creator = LocalClientCreator(app)
     elif config.base.proxy_app == "kvstore":
@@ -600,8 +722,22 @@ def default_new_node(config: Config, logger=None, app=None) -> Node:
                 snapshot_interval=config.base.snapshot_interval
             )
         )
-    else:  # "noop"
+    elif config.base.proxy_app == "noop":
         from cometbft_tpu_torch.abci import types as abci_types
 
         creator = LocalClientCreator(abci_types.Application())
-    return Node(config, genesis, pv, creator, logger)
+    elif config.base.proxy_app.startswith("grpc://"):
+        from cometbft_tpu_torch.abci.grpc import GrpcClientCreator
+
+        creator = GrpcClientCreator(config.base.proxy_app)
+    else:
+        from cometbft_tpu_torch.abci.client import SocketClientCreator
+
+        creator = SocketClientCreator(config.base.proxy_app)
+    try:
+        return Node(config, genesis, pv, creator, logger)
+    except BaseException:
+        close_pv = getattr(pv, "close", None)
+        if close_pv is not None:
+            close_pv()
+        raise

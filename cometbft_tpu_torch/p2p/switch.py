@@ -245,6 +245,10 @@ class Switch:
                 dup = True
             elif up.peer_id in self._peers:
                 dup = True
+            elif not self._running:
+                # stop() set _running before it took the peer table: a peer
+                # tabled now would outlive it, its connection's threads too.
+                dup = True
             else:
                 self._peers[peer.id] = peer
                 dup = False

@@ -1,9 +1,22 @@
 """Validator signing (privval/ in CometBFT), the port's copy of
-``cometbft_tpu/privval`` as far as consensus runs it: the file-backed
-signer with its double-sign protection. The remote signer
-(``privval/signer``) is not ported yet; the node raises for
-``base.priv_validator_laddr`` and names it."""
+``cometbft_tpu/privval``: the file-backed signer with its double-sign
+protection, and the remote signer (``privval/signer``)."""
 
 from cometbft_tpu_torch.privval.file import FilePV, LastSignState
+from cometbft_tpu_torch.privval.signer import (
+    RemoteSignerError,
+    RetrySignerClient,
+    SignerClient,
+    SignerListenerEndpoint,
+    SignerServer,
+)
 
-__all__ = ["FilePV", "LastSignState"]
+__all__ = [
+    "FilePV",
+    "LastSignState",
+    "RemoteSignerError",
+    "RetrySignerClient",
+    "SignerClient",
+    "SignerListenerEndpoint",
+    "SignerServer",
+]

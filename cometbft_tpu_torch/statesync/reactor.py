@@ -1,8 +1,8 @@
 """Statesync p2p reactor (statesync/reactor.go: channels 0x60/0x61,
 snapshot/chunk serving from the local app, response routing into the
-syncer), the port's copy of ``cometbft_tpu/statesync/reactor.py``. The
-syncing side (``Syncer``) is not ported yet: ``set_syncer`` takes any object
-with ``add_snapshot`` and ``add_chunk``."""
+syncer), the port's copy of ``cometbft_tpu/statesync/reactor.py``.
+``set_syncer`` takes the ``Syncer`` of ``statesync/syncer`` (or any object
+with ``add_snapshot`` and ``add_chunk``)."""
 
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ evidence, sigbatch, the RPC codec, consensus, privval, the simnet, p2p, the
 consensus and mempool reactors, the Merkle proof operators, the Handshaker,
 the indexers, the RPC server, routes and client, the config and its TOML,
 the logger, the ingress with its lanes, PEX, the statesync reactor and the
-node included), it never
+node, the ABCI wire, socket, CLI and gRPC transports, the remote signer, the
+gRPC broadcast API, the light proxy and statesync's syncing side included;
+``grpc`` only on the gRPC transports), it never
 falls back to the CPU when CUDA is asked for (the hybrid tier and the
 chains neither), and a missing CUDA compiler is an error, not a silent
 switch to the plain versions."""
@@ -189,6 +191,15 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.statesync.reactor",
         "cometbft_tpu_torch.node",
         "cometbft_tpu_torch.node.node",
+        "cometbft_tpu_torch.abci.wire",
+        "cometbft_tpu_torch.abci.server",
+        "cometbft_tpu_torch.abci.cli",
+        "cometbft_tpu_torch.abci.grpc",
+        "cometbft_tpu_torch.privval.signer",
+        "cometbft_tpu_torch.rpc.grpc_server",
+        "cometbft_tpu_torch.light.proxy",
+        "cometbft_tpu_torch.statesync.stateprovider",
+        "cometbft_tpu_torch.statesync.syncer",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
@@ -205,6 +216,40 @@ def test_every_module_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+GRPC_FREE = [
+    "cometbft_tpu_torch.node",
+    "cometbft_tpu_torch.node.node",
+    "cometbft_tpu_torch.abci.client",
+    "cometbft_tpu_torch.abci.server",
+    "cometbft_tpu_torch.abci.wire",
+    "cometbft_tpu_torch.abci.cli",
+    "cometbft_tpu_torch.privval",
+    "cometbft_tpu_torch.privval.signer",
+    "cometbft_tpu_torch.light.proxy",
+    "cometbft_tpu_torch.statesync",
+    "chip_smoke",
+]
+
+
+@pytest.mark.parametrize("module", GRPC_FREE)
+def test_grpc_is_imported_only_on_the_grpc_branches(module):
+    """The card's host may lack grpcio: the node, the socket transport, the
+    signer, the proxy, statesync and chip_smoke.py leave ``grpc`` out of
+    ``sys.modules``; the two gRPC modules bring it in."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "before = sorted(k for k in sys.modules if k == 'grpc' or k.startswith('grpc.'))\n"
+        "importlib.import_module('cometbft_tpu_torch.abci.grpc')\n"
+        "print(repr((before, 'grpc' in sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "([], True)"
 
 
 def test_blocksync_verifies_on_the_card_by_default(monkeypatch):

@@ -12,7 +12,8 @@ package's ``Node``. Modelled on the package's ``tests/test_node_rpc.py``,
 - a fresh node catching up over TCP from a node whose stores hold a
   reference-built chain, in either package: blocksync to the chain's last
   height but one, then consensus;
-- each branch that waits for a later slice raises and names its module;
+- each branch that waits for a later slice raises and names its module, and
+  each branch ported since builds what the JAX package's node builds;
 - ``stop()`` leaves no thread of the node alive.
 
 Nodes listen on 127.0.0.1:0 and every wait is a liveness guard, never a
@@ -336,13 +337,6 @@ def test_fresh_node_catches_up_over_tcp(catchup_chain, tmp_path, pkg):
 BRANCHES = [
     ("instrumentation.prometheus", {"instrumentation__prometheus": True}, "libs/metrics"),
     ('tx_index.indexer = "psql"', {"tx_index__indexer": "psql"}, "state/sink_sql"),
-    ("statesync.enable", {"statesync__enable": True}, "statesync/syncer"),
-    ("rpc.grpc_laddr", {"rpc__grpc_laddr": "tcp://127.0.0.1:0"}, "rpc/grpc_server"),
-    ("base.priv_validator_laddr", {"base__priv_validator_laddr": "tcp://127.0.0.1:0"},
-     "privval/signer"),
-    ("proxy_app", {"base__proxy_app": "tcp://127.0.0.1:26658"},
-     "abci/client.SocketClientCreator"),
-    ("proxy_app", {"base__proxy_app": "grpc://127.0.0.1:26658"}, "abci/grpc"),
 ]
 
 
@@ -359,6 +353,54 @@ def test_unported_branch_raises_and_names_its_module(tmp_path, branch, fields, m
     assert "not ported" in str(e.value)
     assert not [t for t in threading.enumerate() if t not in before and t.is_alive()
                 and t.name.startswith("tx-ingress")]
+
+
+# The branches ported since: ``default_new_node`` builds what the JAX
+# package's builds (the Node's arguments are taken before it is built).
+PORTED = [
+    ("statesync.enable", {"statesync__enable": True}),
+    ("rpc.grpc_laddr", {"rpc__grpc_laddr": "tcp://127.0.0.1:0"}),
+    ("base.priv_validator_laddr", {"base__priv_validator_laddr": "tcp://127.0.0.1:0"}),
+    ("proxy_app-socket", {"base__proxy_app": "tcp://127.0.0.1:26658"}),
+    ("proxy_app-unix", {"base__proxy_app": "unix:///tmp/none.sock"}),
+    ("proxy_app-grpc", {"base__proxy_app": "grpc://127.0.0.1:26658"}),
+]
+
+
+@pytest.mark.parametrize("branch,fields", PORTED, ids=[b for b, _ in PORTED])
+def test_ported_branch_builds_what_the_reference_builds(tmp_path, monkeypatch, branch, fields):
+    """The priv validator's and the ABCI client creator's classes, by name,
+    and their addresses; a remote signer's endpoint is closed again."""
+    gen_json = _genesis([_ref_pub(b"torch-node-branch")])
+    built = {}
+    for name in ("port", "reference"):
+        p = tn.PKGS[name]
+        home = _home(p, tmp_path, name, gen_json, b"torch-node-branch", **fields)
+        monkeypatch.setattr(p.node, "Node", lambda cfg, gen, pv, creator, logger, _n=name: (
+            built.__setitem__(_n, (cfg, pv, creator))))
+        tn.load_node(p, home)
+    shapes = {}
+    for name, (cfg, pv, creator) in built.items():
+        shapes[name] = (type(pv).__name__, type(getattr(pv, "client", pv)).__name__,
+                        type(creator).__name__, getattr(creator, "_addr", None),
+                        cfg.statesync.enable, cfg.rpc.grpc_laddr)
+        endpoint = getattr(getattr(pv, "client", None), "endpoint", None)
+        if endpoint is not None:
+            endpoint.close()
+    assert shapes["port"] == shapes["reference"]
+
+
+def test_statesync_node_is_armed_on_an_empty_store(tmp_path):
+    p = tn.PKGS["port"]
+    home = _home(p, tmp_path, "home", _genesis([_ref_pub(b"torch-node-ss")]),
+                 b"torch-node-ss", statesync__enable=True)
+    n = tn.load_node(p, home)
+    try:
+        assert n._state_sync and not n.blocksync_reactor.block_sync_enabled
+        assert (n.statesync_errors, n.last_statesync_error, n.syncer) == (0, None, None)
+    finally:
+        n.stop()
+    assert n.threads_left_at_stop == 0
 
 
 def test_watchdog_branch_raises_at_start(tmp_path, monkeypatch):
