@@ -10,6 +10,7 @@
     python3 chip_smoke.py --node          # only the node path (and what it needs)
     python3 chip_smoke.py --ingress       # only the node path's (j), timed three times
     python3 chip_smoke.py --statesync     # only the statesync path (and what it needs)
+    python3 chip_smoke.py --ops           # only the ops path (and what it needs), timed
 
 Drives the port's paths at the repo's headline sizes. The Ed25519 / Merkle
 path is the ``VerifyBackend`` contract through ``TorchBackend()``: one
@@ -429,6 +430,43 @@ In order:
      signer's over the stored block); every card call a proxy header
      check of one lane, three launches from the device-owner thread;
      ``operator_ms_per_height`` and ``proxy_query_ms``;
+     then, while (k)'s server is still up, the ops path (n), the operator's
+     tier through the port's CLI (``cmd/``), launch counts zeroed before it
+     and read after (its own ``ops`` entry; ``--ops`` runs it alone, with
+     OPS_REPS timed (n1) runs under ``TorchBackend()`` and the process
+     default in turns). (n1) ``rollback`` then ``replay`` called through
+     ``cmd.__main__.main`` on a sqlite copy of (k)'s server's home (the
+     source's stores, 6 blocks of 4,096 txs) under a recording
+     ``TorchBackend()`` with a cold verified-triple cache: rollback's line
+     and state the source's at 5, the replayed state the source's at 6,
+     two card calls of 10,240 lanes (the Handshaker's final block's
+     LastCommit, then consensus's LastCommit rebuilt from the seen
+     commit), three launches a call from the device-owner thread; ``inspect`` serves status,
+     block, commit and validators as over the source's home;
+     ``reindex-event`` keeps every record the replay indexed live and
+     finds every height's txs; ``cli_replay_10k_ms`` and the Handshaker's
+     stages. (n2) ``python -m cometbft_tpu_torch.cmd init`` and ``start``
+     in processes of their own (the source's genesis, (k)'s server the
+     persistent peer, Prometheus, the psql sink, pprof, CMTPU_WATCHDOG,
+     CMTPU_WAL_GROUP_MS, the process default): blocksync to 5 on
+     ``/metrics`` (``cli_catchup_10k_ms_per_block``, ``metrics_scrape_ms``),
+     the backend gauges clean and the engine's blocksync lanes the window
+     arithmetic's (the pre-warm sends it no lane), a
+     ``/debug/torch/trace`` window from its start holding the three verify
+     kernels, the sink holding every tx of heights 1-5 once by plain SQL,
+     SIGINT ending it with exit code 0, no thread left, no sampler error
+     and no stall report; ``replay`` on its home gives its height. (n3)
+     ``loadtime --signed`` (4 validators, 1 connection, OPS_LOAD_RATE tx/s,
+     OPS_LOAD_BLOCKS blocks) under a recording ``TorchBackend()``: the
+     report covers exactly those blocks, at least OPS_LOAD_MIN_SHARE of
+     the asked rate times the window committed in it, no submission or
+     node stop raised (the command's stderr line), ingress-class
+     calls among the card calls, three launches a call from the
+     device-owner thread (``loadtime_tx_latency_p50_ms``,
+     ``loadtime_block_interval_mean_ms``); last, the verify kernels at
+     (n)'s batches (the replay's 10,240 lanes, (k)'s window, light and full
+     checks, the smallest and largest ingress batch), held to plain with
+     four lanes corrupted (one under 8 lanes) and timed;
  22. runs the statesync path (``statesync/``, ``abci/``, ``light/``),
      launch counts zeroed before it and read after. (l) Its servers start
      before step 21: (g)'s RPC server over the 10,240-validator source
@@ -7300,6 +7338,21 @@ def node_server_start(source, tmpdir: str) -> tuple:
     return proc, conn, t0
 
 
+def node_server_ready(source, started) -> dict:
+    """(k)'s server's first message, once it is up: its p2p address, build
+    and ready seconds, and the height and app hash its Handshaker left it
+    at (gated: the source's)."""
+    _, conn, _ = started
+    check(conn.poll(NODE_WAIT_S), "(k): the server process did not start")
+    server = conn.recv()
+    check("error" not in server, f"(k): the server process failed: {server.get('error')}")
+    check(server["height"] == len(source["blocks"])
+          and server["app_hash"] == source["state"].app_hash.hex(),
+          f"(k): the server's Handshaker left it at {server['height']}, app hash "
+          f"{server['app_hash']}")
+    return server
+
+
 def node_server_end(started) -> int:
     """Asks (k)'s server to close (again, where the catch-up did; at once,
     where a step before it failed), waits for it to end (killed after
@@ -7326,16 +7379,10 @@ def node_catchup_path(source, torch_backend, auto, tmpdir: str, started,
     _, conn, t0 = started
     out = {}
     t_wait = time.perf_counter()
-    check(conn.poll(NODE_WAIT_S), "(k): the server process did not start")
-    server = conn.recv()
-    check("error" not in server, f"(k): the server process failed: {server.get('error')}")
+    server = node_server_ready(source, started)
     out["server"] = {"ready_s": server["ready_s"], "build_s": server["build_s"],
                      "since_start_s": time.perf_counter() - t0,
-                     "wait_s": time.perf_counter() - t_wait}
-    check(server["height"] == len(source["blocks"])
-          and server["app_hash"] == source["state"].app_hash.hex(),
-          f"(k): the server's Handshaker left it at {server['height']}, app hash "
-          f"{server['app_hash']}")
+                     "wait_s": time.perf_counter() - t_wait, "addr": server["addr"]}
     launches0 = dict(_build.LAUNCHES)
     counted = node_catchup_run(
         source, torch_backend, server, tmpdir, "torch", counted=True, conn=conn,
@@ -7392,8 +7439,7 @@ def node_catchup_path(source, torch_backend, auto, tmpdir: str, started,
     out["ms_per_block"] = {k: statistics.median(v) for k, v in runs.items() if v}
     out["timed"] = timed
     out["metric_from"] = "bare runs" if deep else "the counted run (a synchronize a stage)"
-    conn.send("close")
-    return out
+    return out  # the server stays up for (n); node_server_end closes it
 
 
 def corrupt_valid(pubs, msgs, sigs):
@@ -7424,12 +7470,14 @@ def corrupt_valid(pubs, msgs, sigs):
     return pubs, msgs, sigs, invalid | set(lanes)
 
 
-def drive_node_path(sources, torch_backend, dev, with_default: bool, after_timed=None) -> dict:
+def drive_node_path(sources, torch_backend, dev, with_default: bool, after_timed=None,
+                    during_server=None) -> dict:
     """The node phase (module docstring, step 21): (j) and (k) under
     ``TorchBackend()`` (and the process default with ``with_default``),
     (m) under ``TorchBackend()``, the launch counts of the whole drive,
-    ``after_timed()`` if given, then the verify kernels at the path's
-    batches."""
+    ``during_server(server_addr, tmpdir)`` if given (while (k)'s server is
+    still up: phase (n)), ``after_timed()`` if given, then the verify
+    kernels at the path's batches."""
     import tempfile
 
     from cometbft_tpu_torch.ops import _build
@@ -7461,6 +7509,9 @@ def drive_node_path(sources, torch_backend, dev, with_default: bool, after_timed
             stamp("node: (m)")
             operator = operator_path(torch_backend, tmp, procs)
             launches = dict(_build.LAUNCHES)
+            if during_server is not None:
+                stamp("the ops path")
+                during_server(catchup["server"]["addr"], tmp)
             if after_timed is not None:
                 after_timed()
         finally:
@@ -7498,12 +7549,12 @@ def drive_node_path(sources, torch_backend, dev, with_default: bool, after_timed
 
 
 def node_phase(sources, backend, dev, card, records, with_default: bool = False,
-               after_timed=None) -> dict:
+               after_timed=None, during_server=None) -> dict:
     """Runs the node path (step 21), prints its metrics and gates, merges its
     kernel comparisons into ``records``; returns its launches.
-    ``after_timed``: see ``drive_node_path``."""
+    ``after_timed``, ``during_server``: see ``drive_node_path``."""
     start = time.perf_counter()
-    out = drive_node_path(sources, backend, dev, with_default, after_timed)
+    out = drive_node_path(sources, backend, dev, with_default, after_timed, during_server)
     for k in ("sha512", "decompress", "ladder"):
         records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
             b["max_abs_err"][k] for b in out["kernels"].values()])
@@ -7586,6 +7637,664 @@ def node_only(card, dev) -> int:
     records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
     launches = node_phase({"10k": big}, backend, dev, card, records, with_default=True)
     print(json.dumps({"node_launches": launches, "max_abs_err": records}), flush=True)
+    return 0
+
+
+# -- the ops path -------------------------------------------------------------------
+
+# (n) The operator's tier through the port's CLI (``cometbft_tpu_torch/cmd``):
+# (n1) ``rollback`` then ``replay`` on a sqlite copy of the 10,240-validator
+# source's home in this process, ``inspect`` and ``reindex-event`` on it; (n2) a
+# follower started by ``python -m cometbft_tpu_torch.cmd start`` in a process of
+# its own, (k)'s server its persistent peer, with Prometheus, the psql sink,
+# pprof, the watchdog and the WAL's group commit on, under the process default;
+# (n3) ``loadtime --signed`` (4 validators, one connection) in this process.
+OPS_WAIT_S = 300.0
+OPS_WATCHDOG_S = 120  # CMTPU_WATCHDOG: longer than the follower runs unmoved
+OPS_WAL_GROUP_MS = 2  # CMTPU_WAL_GROUP_MS
+OPS_TRACE_S = 10.0  # the /debug/torch/trace window from the follower's start
+OPS_SCRAPE_S = 0.25  # /metrics polled this often while the follower catches up
+OPS_LOAD_RATE = 100  # loadtime's tx/s (the reference's default is 200)
+# The reference's default is 100 blocks. 20 hold some hundreds of txs at
+# OPS_LOAD_RATE; a window of 3 sat in the ramp after the load starts (the
+# ingress and the gossip fill the first blocks slowly) and held a handful.
+OPS_LOAD_BLOCKS = 20
+# The share of OPS_LOAD_RATE x the window's duration that must commit in the
+# window: the generator, four nodes and their ingress share one interpreter,
+# and on a loaded host the generator itself offers less than it is asked.
+OPS_LOAD_MIN_SHARE = 0.5
+OPS_REPS = 3  # --ops: timed (n1) runs under each backend, in turns
+OPS_KERNELS = ("digits_kernel", "decompress_kernel", "ladder_verify_kernel")
+OPS_FOLLOWER_ENV: dict = {}  # added to (n2)'s environment (a CPU rehearsal asks for the CPU)
+
+
+def ops_cli(*args) -> tuple:
+    """``cometbft_tpu_torch.cmd.__main__.main(args)`` in this process, as the
+    reference's ``tests/test_cmd_ops.py`` calls its own: (exit code, what it
+    printed, what it printed to stderr, wall ms)."""
+    import io
+
+    from cometbft_tpu_torch.cmd.__main__ import main as cli
+
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli(list(args))
+    return rc, buf.getvalue(), err.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def ops_source_home(source, home: str) -> None:
+    """(k)'s server's home: the source's stores in sqlite, its genesis, the
+    persistent kvstore, RPC off."""
+    cfg = node_config(base__db_backend="sqlite", base__proxy_app="persistent_kvstore",
+                      rpc__laddr="")
+    node_home(home, cfg, items=list(source["node"]["db"].iterator()))
+    node_genesis(cfg, source["gen"].to_json())
+
+
+def ops_state(home: str) -> bytes:
+    """The home's stored state, encoded."""
+    from cometbft_tpu_torch.libs.db import new_db
+    from cometbft_tpu_torch.state import StateStore
+    from cometbft_tpu_torch.state import store as state_store
+
+    db = new_db("state", "sqlite", os.path.join(home, "data"))
+    try:
+        return state_store._encode_state(StateStore(db).load())
+    finally:
+        db.close()
+
+
+def ops_db_items(home: str, name: str) -> list:
+    from cometbft_tpu_torch.libs.db import new_db
+
+    db = new_db(name, "sqlite", os.path.join(home, "data"))
+    try:
+        return list(db.iterator())
+    finally:
+        db.close()
+
+
+def ops_inspect(home: str) -> dict:
+    """``inspect``'s server over the home: status, block, commit and
+    validators at the home's tip, and the refusal of a write route."""
+    from cometbft_tpu_torch.config.toml import load_toml
+    from cometbft_tpu_torch.inspect import Inspector
+    from cometbft_tpu_torch.rpc.client import HTTPClient, RPCClientError
+
+    cfg = load_toml(os.path.join(home, "config", "config.toml")).set_root(home)
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    ins = Inspector(cfg)
+    ins.start()
+    try:
+        c = HTTPClient(f"http://127.0.0.1:{ins.port}")
+        tip = BSYNC_HEIGHTS
+        out = {"status": c.call("status"), "block": c.call("block", height=tip),
+               "commit": c.call("commit", height=tip),
+               "validators": c.call("validators", height=tip, page=1, per_page=100)}
+        refused = raises(RPCClientError, lambda: c.call("broadcast_tx_sync", tx="00"))
+    finally:
+        ins.stop()
+    check(refused, "(n1): inspect served a write route")
+    return out
+
+
+def ops_rollback_replay(source, backend, tmpdir: str, label: str, src_home: str,
+                        stages: bool = False) -> dict:
+    """(n1) once on a fresh copy of ``src_home``: ``rollback`` then
+    ``replay`` through the CLI under a recording ``backend`` (a cold
+    verified-triple cache), the Handshaker's stages timed when ``stages``.
+    Gates: rollback's line and state (the source's at the height below),
+    the replayed state the source's, two card calls of N_SIGS lanes (the
+    Handshaker's final block checks its LastCommit, then the node's
+    consensus checks the seen commit it rebuilds as LastCommit), three
+    launches a call from the device-owner thread."""
+    import shutil
+
+    from cometbft_tpu_torch.consensus.replay import Handshaker
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    home = os.path.join(tmpdir, f"n1-{label}")
+    shutil.copytree(src_home, home)
+    last = len(source["blocks"])
+    rec = LightRecorder(backend, keep=True)
+    split = StageTimer()
+    ed25519._verified.clear()
+    be.set_backend(rec)
+    try:
+        launches0 = dict(_build.LAUNCHES)
+        with counting_launches() as threads_:
+            if stages:
+                split.wrap(Handshaker, "_replay_blocks_through_app", "replay_through_app")
+                split.wrap(Handshaker, "_replay_final_block", "replay_final_block")
+            with split:
+                torch.cuda.synchronize()
+                rc1, out1, _, rollback_ms = ops_cli("--home", home, "rollback")
+                rolled = ops_state(home)
+                rc2, out2, _, replay_ms = ops_cli("--home", home, "replay")
+                torch.cuda.synchronize()
+        launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+    finally:
+        be.set_backend(None)
+    from cometbft_tpu_torch.state import store as state_store
+
+    want_rolled = state_store._decode_state(source["states"][last - 2])
+    check(rc1 == 0 and out1 == f"Rolled back state to height {last - 1} and hash "
+          f"{want_rolled.app_hash.hex().upper()}\n", f"(n1) {label}: rollback said {out1!r}")
+    check(rolled == source["states"][last - 2],
+          f"(n1) {label}: the rolled-back state is not the source's at {last - 1}")
+    check(rc2 == 0 and f"replay done; store height {last}" in out2,
+          f"(n1) {label}: replay said {out2!r}")
+    check(ops_state(home) == source["states"][last - 1],
+          f"(n1) {label}: the replayed state is not the source's at {last}")
+    lanes = rec.lanes()
+    check(lanes == [N_SIGS, N_SIGS],
+          f"(n1) {label}: the replay's card calls {lanes}, not two of {N_SIGS}")
+    if label == "torch":
+        check(launched == {"sha512": 2, "decompress": 2, "ladder": 2, "sha256": 0, "bn254": 0},
+              f"(n1): launches {launched}")
+        check({t for _, t in threads_} <= {"cmtpu-torch-dev"},
+              f"(n1): kernels launched from {dict(threads_)}")
+    return {"home": home, "ms": rollback_ms + replay_ms, "rollback_ms": rollback_ms,
+            "replay_ms": replay_ms, "card_call_ms": [c["ms"] for c in rec.calls],
+            "stages": split.table() if stages else None, "launches": launched,
+            "triples": rec.triples}
+
+
+def ops_inspect_reindex(source, src_home: str, home: str, start: int = 1) -> dict:
+    """(n1)'s offline tools on the replayed home: ``inspect`` serves what
+    it serves over the source's home; ``reindex-event`` rebuilds the tx and
+    block indexes from height ``start`` (every record the node indexed live
+    kept as it was, every tx of those heights found by hash and by
+    ``tx.height``)."""
+    from cometbft_tpu_torch.libs.db import new_db
+    from cometbft_tpu_torch.state.txindex import KVTxIndexer
+    from cometbft_tpu_torch.types.block import Block
+    from cometbft_tpu_torch.types.tx import tx_hash
+
+    t0 = time.perf_counter()
+    replayed, original = ops_inspect(home), ops_inspect(src_home)
+    inspect_ms = (time.perf_counter() - t0) * 1e3
+    diff = [k for k in replayed if replayed[k] != original[k]]
+    check(not diff, f"(n1): inspect answers differ from the source home's on {diff}")
+    check(int(replayed["status"]["sync_info"]["latest_block_height"]) == BSYNC_HEIGHTS
+          and int(replayed["validators"]["total"]) == N_SIGS,
+          f"(n1): inspect's status {replayed['status']['sync_info']}")
+    live = ops_db_items(home, "tx_index")
+    for name in ("tx_index", "block_index"):
+        for suffix in ("", "-wal", "-shm"):
+            path = os.path.join(home, "data", f"{name}.sqlite{suffix}")
+            if os.path.exists(path):
+                os.unlink(path)
+    last = len(source["blocks"])
+    rc, out, _, reindex_ms = ops_cli("--home", home, "reindex-event", "--start-height", str(start))
+    check(rc == 0 and out == f"reindexed {last - start + 1} blocks ({start}..{last})\n",
+          f"(n1): reindex-event said {out!r}")
+    rebuilt = dict(ops_db_items(home, "tx_index"))
+    lost = [k for k, v in live if rebuilt.get(k) != v]
+    check(not lost, f"(n1): reindex-event lost or changed {len(lost)} records the node "
+          f"indexed live, e.g. {lost[:2]}")
+    idx = KVTxIndexer(new_db("tx_index", "sqlite", os.path.join(home, "data")))
+    for h in range(start, last + 1):
+        txs = Block.decode(source["blocks"][h - 1]).data.txs
+        for i in (0, len(txs) // 2, len(txs) - 1):
+            rec = idx.get(tx_hash(txs[i]))
+            check(rec is not None and rec["height"] == str(h) and rec["index"] == i,
+                  f"(n1): tx {i} of height {h} not in the rebuilt index")
+    by_height = len(idx.search(f"tx.height = {last}"))
+    check(by_height == BSYNC_TXS, f"(n1): tx.height = {last} finds {by_height} txs")
+    n_tx = sum(1 for k in rebuilt if k.startswith(b"tx:"))
+    check(n_tx == (last - start + 1) * BSYNC_TXS, f"(n1): {n_tx} tx records rebuilt")
+    return {"inspect_ms": inspect_ms, "reindex_ms": reindex_ms, "reindexed_from": start,
+            "live_records": len(live),
+            "rebuilt_records": len(rebuilt), "tx_records": n_tx}
+
+
+def ops_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ops_metrics(port: int) -> tuple:
+    """One /metrics GET: (the samples by name, the wall ms)."""
+    t0 = time.perf_counter()
+    body = http_get(port, "/metrics")
+    ms = (time.perf_counter() - t0) * 1e3
+    vals = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            name, _, v = line.rpartition(" ")
+            vals[name] = float(v)
+    return vals, ms
+
+
+def ops_trace(port: int, trace_dir: str, out: dict) -> None:
+    """The follower's /debug/torch/trace over OPS_TRACE_S (a thread's
+    target): the kernels' records by name, from the Chrome trace it wrote."""
+    try:
+        text = http_get(port, f"/debug/torch/trace?seconds={OPS_TRACE_S}&dir={trace_dir}")
+        path = text.split("trace written to ", 1)[1].split(": ", 1)[0]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = collections.Counter(e.get("name", "") for e in events
+                                    if e.get("cat") == "kernel")
+        out["text"] = text
+        out["kernels"] = {k: sum(n for name, n in names.items() if k in name)
+                          for k in OPS_KERNELS}
+    except Exception as e:  # reported; the gate fails on it
+        out["error"] = repr(e)
+
+
+def ops_follower_start(source, server_addr: str, tmpdir: str) -> dict:
+    """(n2) begun: ``init`` of the port's CLI in a process of its own, the
+    home's genesis and config.toml written, then ``start`` in a process of
+    its own, and a thread that waits for its "Node started" line, takes the
+    /debug/torch/trace window from there and polls /metrics until the
+    store reaches the source's last height but one. Returns the handle
+    ``ops_follower_end`` takes."""
+    from cometbft_tpu_torch.config.toml import load_toml, write_config_file
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    home = os.path.join(tmpdir, "n2-follower")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CMTPU_")}
+    t0 = time.perf_counter()
+    init = subprocess.run([sys.executable, "-m", "cometbft_tpu_torch.cmd", "--home", home,
+                           "init", "--chain-id", BSYNC_CHAIN_ID], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=OPS_WAIT_S)
+    check(init.returncode == 0 and f"Initialized node in {home}" in init.stdout,
+          f"(n2): init exited {init.returncode}: {init.stdout} {init.stderr}")
+    init_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(home, "config", "genesis.json"), "w") as f:
+        f.write(source["gen"].to_json())
+    path = os.path.join(home, "config", "config.toml")
+    cfg = load_toml(path)
+    mport, pport = ops_free_port(), ops_free_port()
+    cfg.base.proxy_app = "persistent_kvstore"
+    cfg.base.log_level = "error"
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.persistent_peers = server_addr
+    cfg.p2p.addr_book_strict = False
+    cfg.rpc.laddr = ""
+    cfg.rpc.pprof_laddr = f"127.0.0.1:{pport}"
+    cfg.instrumentation.prometheus = True
+    cfg.instrumentation.prometheus_listen_addr = f"127.0.0.1:{mport}"
+    cfg.tx_index.indexer = "psql"
+    write_config_file(path, cfg)
+    log_path = os.path.join(tmpdir, "n2-follower.log")
+    env.update(CMTPU_WATCHDOG=str(OPS_WATCHDOG_S), CMTPU_WAL_GROUP_MS=str(OPS_WAL_GROUP_MS),
+               **OPS_FOLLOWER_ENV)
+    fol = {"home": home, "log_path": log_path, "mport": mport, "init_ms": init_ms,
+           "scrapes": [], "trace": {}, "height": 0, "t_started": None, "t_height": None,
+           "done": threading.Event(), "stop": threading.Event()}
+    with open(log_path, "w") as log:
+        fol["t_spawn"] = time.perf_counter()
+        fol["proc"] = subprocess.Popen([sys.executable, "-m", "cometbft_tpu_torch.cmd", "--home",
+                                        home, "start"], cwd=here, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT, text=True)
+    _OPS_PROCS.append(fol["proc"])
+    target = len(source["blocks"]) - 1
+
+    def monitor():
+        proc, deadline = fol["proc"], time.monotonic() + OPS_WAIT_S
+        try:
+            while "Node started" not in ops_printed(fol):
+                if proc.poll() is not None or time.monotonic() > deadline or fol["stop"].is_set():
+                    return
+                time.sleep(0.01)
+            fol["t_started"] = time.perf_counter()
+            tracer = threading.Thread(target=ops_trace, daemon=True, args=(
+                pport, os.path.join(tmpdir, "n2-trace"), fol["trace"]))
+            tracer.start()
+            fol["tracer"] = tracer
+            while fol["height"] < target:
+                if proc.poll() is not None or time.monotonic() > deadline or fol["stop"].is_set():
+                    return
+                try:
+                    vals, ms = ops_metrics(mport)
+                    fol["scrapes"].append(ms)
+                    fol["height"] = int(vals["cometbft_blockstore_height"])
+                except OSError:
+                    pass
+                time.sleep(OPS_SCRAPE_S)
+            fol["t_height"] = time.perf_counter()
+        finally:
+            fol["done"].set()
+
+    fol["monitor"] = threading.Thread(target=monitor, daemon=True, name="ops-follower")
+    fol["monitor"].start()
+    return fol
+
+
+def ops_printed(fol) -> str:
+    with open(fol["log_path"]) as f:
+        return f.read()
+
+
+def ops_sink_rows(path: str, below: int) -> list:
+    """(tx hash, height) of every tx row of the sink under height ``below``,
+    by plain SQL, read as an external consumer would (waiting out the
+    node's write transaction)."""
+    import sqlite3
+
+    db = sqlite3.connect(path, timeout=60.0)
+    try:
+        return db.execute("SELECT t.tx_hash, b.height FROM tx_results t JOIN blocks b "
+                          "ON t.block_id = b.rowid WHERE b.height < ?", (below,)).fetchall()
+    finally:
+        db.close()
+
+
+def ops_follower_end(source, fol: dict) -> dict:
+    """(n2) ended: waits for the monitor to see the store at the source's
+    last height but one, and for the psql sink to hold every tx of the
+    heights below it; a last scrape; SIGINT. Gates: that height on
+    ``/metrics``, the backend gauges clean and the engine's blocksync
+    lanes the window arithmetic's; the trace window holds the three
+    verify kernels; every tx of those heights once in the sink; SIGINT
+    ends the process with exit code 0, no thread left, no sampler error,
+    no watchdog report; ``replay`` on its home gives its height."""
+    import signal
+
+    from cometbft_tpu_torch.types.block import Block
+    from cometbft_tpu_torch.types.tx import tx_hash
+
+    proc, last = fol["proc"], len(source["blocks"])
+    rows = []
+    try:
+        fol["done"].wait(OPS_WAIT_S)
+        check(fol["t_height"] is not None,
+              f"(n2): the follower stopped at {fol['height']}: {ops_printed(fol)[-2000:]}")
+        want = {}
+        for h in range(1, last):
+            for tx in Block.decode(source["blocks"][h - 1]).data.txs:
+                want[tx_hash(tx).hex().upper()] = h
+        sink_path = os.path.join(fol["home"], "data", "event_sink.sqlite")
+        deadline = time.monotonic() + OPS_WAIT_S
+        while len(rows) < len(want):
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"(n2): the sink holds {len(rows)} of {len(want)} txs")
+            time.sleep(0.25)
+            rows = ops_sink_rows(sink_path, last)
+        t_sink = time.perf_counter()
+        fol["tracer"].join(OPS_TRACE_S + 120)
+        final, ms = ops_metrics(fol["mport"])
+        fol["scrapes"].append(ms)
+        t_sigint = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(OPS_WAIT_S)
+        t_end = time.perf_counter()
+    finally:
+        fol["stop"].set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log_text = ops_printed(fol)
+    trace = fol["trace"]
+    check(rc == 0, f"(n2): SIGINT: exit code {rc}: {log_text[-3000:]}")
+    check("Node stopped; threads left 0; metrics sampler errors 0; watchdog stalls 0" in log_text
+          and "watchdog: no progress" not in log_text and "Traceback" not in log_text,
+          f"(n2): the follower's output: {log_text[-3000:]}")
+    check(sorted(rows) == sorted(want.items()),
+          f"(n2): the sink's txs of heights 1-{last - 1} are not the source's, once each")
+    check("error" not in trace and all(trace["kernels"][k] > 0 for k in OPS_KERNELS),
+          f"(n2): the trace window: {trace}")
+    n, light_n = source["n_vals"], source["n_vals"] * 2 // 3 + 1
+    heights = last - 1
+    arith = {heights * n, heights * n - (n - light_n)}
+    got_sigs = final["cometbft_engine_blocksync_dispatched_sigs"]
+    check(got_sigs in arith, f"(n2): the engine's blocksync lanes {got_sigs}, not the window "
+          f"arithmetic's {sorted(arith)}")
+    backend_gauges = {k: final[f"cometbft_backend_{k}"]
+                      for k in ("trips", "retries", "deadline_exceeded", "active_tier")}
+    check(all(v == 0 for v in backend_gauges.values()), f"(n2): backend gauges {backend_gauges}")
+    reached = int(final["cometbft_blockstore_height"])
+    check(reached >= last - 1, f"(n2): final scrape {final}")
+    rc2, out2, _, _ = ops_cli("--home", fol["home"], "replay")
+    check(rc2 == 0 and f"replay done; store height {reached}" in out2,
+          f"(n2): replay on the follower's home said {out2!r} (reached {reached})")
+    scrapes = fol["scrapes"]
+    return {
+        "init_ms": fol["init_ms"],
+        "ms_to_height": (fol["t_height"] - fol["t_started"]) * 1e3,
+        "ms_per_block": (fol["t_height"] - fol["t_started"]) * 1e3 / heights,
+        "spawn_to_started_ms": (fol["t_started"] - fol["t_spawn"]) * 1e3,
+        "sink_drain_after_ms": (t_sink - fol["t_height"]) * 1e3,
+        "sigint_to_exit_ms": (t_end - t_sigint) * 1e3,
+        "scrape_ms": scrapes, "scrape_ms_median": statistics.median(scrapes),
+        "reached": reached, "engine": {k[len("cometbft_engine_"):]: v for k, v in final.items()
+                                       if k.startswith("cometbft_engine_blocksync")
+                                       or k.startswith("cometbft_engine_consensus")},
+        "backend": backend_gauges, "trace": trace.get("kernels"),
+        "wal_group_commits": final.get("cometbft_wal_group_commits_total"),
+        "sink_txs": len(rows), "stop_line": [line for line in log_text.splitlines()
+                                              if line.startswith("Node stopped")],
+    }
+
+
+def ops_loadtime(backend) -> dict:
+    """(n3): ``loadtime --signed`` (4 validators, one connection,
+    OPS_LOAD_RATE tx/s, OPS_LOAD_BLOCKS blocks) in this process under a
+    recording ``backend``. Gates: the report covers exactly the blocks
+    asked, with at least OPS_LOAD_MIN_SHARE of the asked rate times the
+    window's duration committed in it, and no submission or stop that
+    raised; ingress-class calls of the preverify's
+    batches among the card calls; three launches a call from the
+    device-owner thread."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.sidecar import backend as be
+
+    rec = LightRecorder(backend, keep=True)
+    be.set_backend(rec)
+    try:
+        launches0 = dict(_build.LAUNCHES)
+        with counting_launches() as threads_:
+            rc, text, err, ms = ops_cli("loadtime", "--signed", "--rate", str(OPS_LOAD_RATE),
+                                        "--blocks", str(OPS_LOAD_BLOCKS), "--validators", "4",
+                                        "--connections", "1")
+        launched = {k: _build.LAUNCHES[k] - launches0[k] for k in launches0}
+    finally:
+        be.set_backend(None)
+    rep = json.loads(text.strip().splitlines()[-1])
+    tail = err.strip().splitlines()[-1] if err.strip() else ""
+    m = re.fullmatch(r"loadtime: submitted (\d+); submit errors (\d+); stop errors (\d+)", tail)
+    check(m is not None and m.group(2) == "0" and m.group(3) == "0",
+          f"(n3): loadtime's errors: {err[-2000:]}")
+    submitted = int(m.group(1))
+    check(rc == 0 and rep["blocks"] == OPS_LOAD_BLOCKS
+          and rep["end_height"] - rep["start_height"] == OPS_LOAD_BLOCKS - 1,
+          f"(n3): loadtime's report {rep}")
+    want = OPS_LOAD_MIN_SHARE * OPS_LOAD_RATE * rep["duration_s"]
+    check(rep["txs_committed"] >= want,
+          f"(n3): {rep['txs_committed']} txs committed in the window, under {want:.0f} "
+          f"({OPS_LOAD_MIN_SHARE} x {OPS_LOAD_RATE} tx/s x {rep['duration_s']:.3f} s; "
+          f"{submitted} submitted): {rep}")
+    ingress = rec.lanes("ingress")
+    calls = len(rec.calls)
+    check(ingress and min(ingress) >= 1, f"(n3): ingress calls {ingress}")
+    check(launched == {"sha512": calls, "decompress": calls, "ladder": calls, "sha256": 0,
+                       "bn254": 0}, f"(n3): launches {launched} for {calls} card calls")
+    check({t for _, t in threads_} <= {"cmtpu-torch-dev"},
+          f"(n3): kernels launched from {dict(threads_)}")
+    ing_triples = [t for c, t in zip(rec.calls, rec.triples) if c["class"] == "ingress"]
+    return {"report": rep, "ms": ms, "launches": launched, "calls": calls, "submitted": submitted,
+            "ingress_lanes": ingress, "lanes_by_class": {
+                k: rec.lanes(k) for k in sorted({c["class"] for c in rec.calls})},
+            "ingress_triples": ing_triples}
+
+
+def ops_kernel_batches(source, replay_triples, ingress_triples) -> dict:
+    """(n)'s batches for the kernel comparison: the replay's 10,240-lane
+    call, (k)'s window of two commits, its light and full checks (from the
+    source's commits), and the smallest and largest ingress batches of
+    (n3), four lanes of each corrupted (one under 8 lanes)."""
+    n = source["n_vals"]
+    light_n = n * 2 // 3 + 1
+    w = bsync_window_triples(source, (1, 2))
+    c3 = bsync_window_triples(source, (3,))
+    out = {f"replay_{N_SIGS}": corrupt_four(*replay_triples),
+           f"window_{2 * n}": corrupt_four(*w),
+           f"light_{light_n}": corrupt_four(*(x[:light_n] for x in c3)),
+           f"full_{n - light_n}": corrupt_four(*(x[light_n:] for x in c3))}
+    by_size = sorted(ingress_triples, key=lambda t: len(t[0]))
+    for tag, t in (("smallest", by_size[0]), ("largest", by_size[-1])):
+        out[f"ingress_{tag}_{len(t[0])}"] = corrupt_valid(*t)
+    return out
+
+
+def drive_ops_path(source, server_addr: str, torch_backend, dev, tmpdir: str,
+                   timed: int = 0, auto=None) -> dict:
+    """Phase (n): (n1) counted and staged under ``TorchBackend()`` (and, with
+    ``timed``, that many bare runs under it and under ``auto`` in turns),
+    inspect and reindex; (n2); (n3); launch counts zeroed before and read
+    after; then the verify kernels at (n)'s batches. Without ``timed`` (the
+    full run) (n2)'s follower starts first and (n1) and (n3) run while it
+    warms up and catches up (its process beside this one: its numbers are
+    then not alone on the host); with ``timed`` (``--ops``) each runs
+    alone."""
+    from cometbft_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    try:
+        return _drive_ops_path(source, server_addr, torch_backend, dev, tmpdir, timed, auto)
+    finally:
+        # A failed step leaves no follower running (its end stops it).
+        for proc in _OPS_PROCS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        _OPS_PROCS.clear()
+
+
+_OPS_PROCS: list = []  # (n2)'s follower process while it runs
+
+
+def _drive_ops_path(source, server_addr, torch_backend, dev, tmpdir, timed, auto) -> dict:
+    from cometbft_tpu_torch.ops import _build
+
+    fol = None
+    if not timed:
+        stamp("ops: (n2) a follower from the CLI, started")
+        fol = ops_follower_start(source, server_addr, tmpdir)
+    src_home = os.path.join(tmpdir, "n1-source")
+    t0 = time.perf_counter()
+    ops_source_home(source, src_home)
+    home_s = time.perf_counter() - t0
+    stamp("ops: (n1) rollback and replay")
+    n1 = ops_rollback_replay(source, torch_backend, tmpdir, "torch", src_home, stages=True)
+    runs = {"torch": [n1["ms"]], "auto": []}
+    for i in range(timed):
+        for label, bk in [("torch", torch_backend)] + ([("auto", auto)] if auto else []):
+            r = ops_rollback_replay(source, bk, tmpdir, f"{label}-{i}", src_home)
+            runs[label].append(r["ms"])
+    # The full run rebuilds the tip's index alone (~5 s; all six heights
+    # take ~30 s, under --ops).
+    tools = ops_inspect_reindex(source, src_home, n1["home"],
+                                start=1 if timed else len(source["blocks"]))
+    if fol is None:
+        stamp("ops: (n2) a follower from the CLI")
+        n2 = ops_follower_end(source, ops_follower_start(source, server_addr, tmpdir))
+    stamp("ops: (n3) loadtime")
+    n3 = ops_loadtime(torch_backend)
+    if fol is not None:
+        stamp("ops: (n2) the follower's end")
+        n2 = ops_follower_end(source, fol)
+    n2["alone"] = fol is None
+    launches = dict(_build.LAUNCHES)
+    check(all(launches[k] > 0 for k in ("sha512", "decompress", "ladder")),
+          f"ops path launches {launches}")
+    stamp("ops: the kernels at the path's batches")
+    kernels = bsync_window_kernels(
+        ops_kernel_batches(source, n1.pop("triples")[0], n3.pop("ingress_triples")), dev)
+    return {"launches": launches, "n1": n1, "runs_ms": runs, "tools": tools, "n2": n2,
+            "n3": n3, "kernels": kernels, "home_s": home_s}
+
+
+def ops_phase(source, server_addr: str, backend, dev, card, records, tmpdir: str,
+              timed: int = 0, auto=None) -> dict:
+    """Runs the ops path, prints its metrics and gates, merges its kernel
+    comparisons into ``records``; returns its launches."""
+    start = time.perf_counter()
+    out = drive_ops_path(source, server_addr, backend, dev, tmpdir, timed, auto)
+    for k in ("sha512", "decompress", "ladder"):
+        records[k]["max_abs_err"] = max([records[k]["max_abs_err"]] + [
+            b["max_abs_err"][k] for b in out["kernels"].values()])
+    n1, n2, n3 = out["n1"], out["n2"], out["n3"]
+    rep = n3["report"]
+    print(f"ops path ok ((n1) rollback to {BSYNC_HEIGHTS - 1} and replay to {BSYNC_HEIGHTS} "
+          f"through the CLI gave the source's states, two card calls of {N_SIGS} lanes, inspect "
+          f"served the source's answers, reindex-event rebuilt "
+          f"{out['tools']['tx_records']} tx records; (n2) a follower started from the CLI "
+          f"blocksynced to {n2['reached']}, its /metrics, trace ({n2['trace']}), psql sink "
+          f"({n2['sink_txs']} txs) and watchdog as gated, SIGINT exit 0 with no thread left; "
+          f"(n3) loadtime --signed committed {rep['txs_committed']} txs over {rep['blocks']} "
+          f"blocks, ingress batches {sorted(set(n3['ingress_lanes']))}); launches "
+          f"{out['launches']}", flush=True)
+    common = {"device": torch.cuda.get_device_name(0), "card": card}
+    runs = {k: v for k, v in out["runs_ms"].items() if v}
+    print(json.dumps({"metric": "cli_replay_10k_ms", "value": n1["ms"],
+                      "by_backend": {k: statistics.median(v) for k, v in runs.items()},
+                      "runs_ms": runs, "rollback_ms": n1["rollback_ms"],
+                      "replay_ms": n1["replay_ms"], "card_call_ms": n1["card_call_ms"],
+                      "stages": n1["stages"], "tools": out["tools"],
+                      "source_home_s": out["home_s"], **common}), flush=True)
+    print(json.dumps({"metric": "cli_catchup_10k_ms_per_block", "value": n2["ms_per_block"],
+                      **{k: v for k, v in n2.items() if k not in ("ms_per_block", "scrape_ms")},
+                      **common}), flush=True)
+    print(json.dumps({"metric": "metrics_scrape_ms", "value": n2["scrape_ms_median"],
+                      "runs_ms": n2["scrape_ms"], **common}), flush=True)
+    print(json.dumps({"metric": "loadtime_tx_latency_p50_ms",
+                      "value": rep["tx_latency_p50_s"] * 1e3,
+                      "loadtime_block_interval_mean_ms": rep["block_interval_mean_s"] * 1e3,
+                      "report": rep, "wall_ms": n3["ms"], "calls": n3["calls"],
+                      "submitted": n3["submitted"],
+                      "committed_share": rep["txs_committed"] / (OPS_LOAD_RATE * rep["duration_s"]),
+                      "lanes_by_class": {k: collections.Counter(v).most_common(16)
+                                         for k, v in n3["lanes_by_class"].items()},
+                      **common}), flush=True)
+    print(json.dumps({"metric": "loadtime_block_interval_mean_ms",
+                      "value": rep["block_interval_mean_s"] * 1e3, **common}), flush=True)
+    print(json.dumps({"ops": {"kernels": out["kernels"], "launches": out["launches"]},
+                      "phase_s": time.perf_counter() - start, **common}), flush=True)
+    return out["launches"]
+
+
+def ops_only(card, dev) -> int:
+    """``--ops``: the keys, the 10,240-validator blocksync source, (k)'s
+    server, then the ops path with OPS_REPS timed (n1) runs under
+    ``TorchBackend()`` and the process default in turns (no result line)."""
+    import tempfile
+
+    from cometbft_tpu_torch.crypto import ed25519_pure as pure
+    from cometbft_tpu_torch.sidecar import backend as be
+    from cometbft_tpu_torch.sidecar.backend import TorchBackend
+
+    t0 = time.perf_counter()
+    fixtures = make_fixtures(pure, N_SIGS, 1)
+    print(f"fixtures: {N_SIGS} keys in {time.perf_counter() - t0:.1f} s", flush=True)
+    backend = TorchBackend()
+    big = bsync_10k_source(fixtures, backend)
+    records = {k: {"max_abs_err": 0} for k in ("sha512", "decompress", "ladder")}
+    with tempfile.TemporaryDirectory() as tmp:
+        started = node_server_start(big, tmp)
+        auto = None
+        try:
+            server = node_server_ready(big, started)
+            with environ(CMTPU_BACKEND="auto", CMTPU_COALESCE=None, CMTPU_FANOUT_PEERS=None,
+                         CMTPU_SIDECAR_ADDR=None, CMTPU_FAULTS=None):
+                auto = be._make_backend()
+            launches = ops_phase(big, server["addr"], backend, dev, card, records, tmp,
+                                 timed=OPS_REPS, auto=auto)
+        finally:
+            if auto is not None:
+                auto.close()
+            exitcode = node_server_end(started)
+    check(exitcode == 0, f"(k): the server process exited {exitcode}")
+    print(json.dumps({"ops_launches": launches, "max_abs_err": records}), flush=True)
     return 0
 
 
@@ -8767,6 +9476,8 @@ def run_modes(card, dev, props, clock_hz) -> int:
         return ingress_only(card)
     if sys.argv[1:] == ["--statesync"]:
         return statesync_only(card, dev)
+    if sys.argv[1:] == ["--ops"]:
+        return ops_only(card, dev)
     procs: list = []  # every process the phases start, ended here
     try:
         return run_phases(card, dev, props, clock_hz, so, procs)
@@ -9012,11 +9723,17 @@ def run_phases(card, dev, props, clock_hz, so, procs: list) -> int:
 
     ss_tmp, ss_servers = tempfile.TemporaryDirectory(), {}
     try:
-        # (l)'s servers build while the node path's kernels are compared.
+        # (n) runs while (k)'s server is up; (l)'s servers build while the
+        # node path's kernels are compared.
+        def ops(server_addr, tmp):
+            by_path["ops"] = ops_phase(sources["10k"], server_addr, backend, dev, card,
+                                       records, tmp)
+
         by_path["node"] = node_phase(
             sources, backend, dev, card, records,
             after_timed=lambda: ss_servers.update(
-                ss_servers_start(sources["10k"], ss_tmp.name, procs)))
+                ss_servers_start(sources["10k"], ss_tmp.name, procs)),
+            during_server=ops)
         stamp("the statesync path")
         by_path["statesync"] = statesync_phase(sources, backend, dev, card, records, ss_servers,
                                                ss_tmp.name)

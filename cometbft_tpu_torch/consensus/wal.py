@@ -17,6 +17,7 @@ from __future__ import annotations
 import os
 import struct
 import threading
+import time
 import zlib
 
 from cometbft_tpu_torch.types import cmttime
@@ -61,9 +62,7 @@ class DataCorruptionError(Exception):
 class WAL:
     """consensus/wal.go baseWAL over a rotating autofile Group: CRC-framed
     frames appended to the head file, rotated at head_size_limit so the WAL
-    no longer grows unboundedly in one file (libs/autofile/group.go). Each
-    ``write_sync`` syncs alone, the reference's default: its group commit
-    (``CMTPU_WAL_GROUP_MS``, off unless set) is not ported."""
+    no longer grows unboundedly in one file (libs/autofile/group.go)."""
 
     def __init__(self, path: str, codec=None, head_size_limit: int = 10 * 1024 * 1024):
         from cometbft_tpu_torch.libs.autofile import Group
@@ -75,6 +74,20 @@ class WAL:
         self.group = Group(path, head_size_limit=head_size_limit)
         self._mtx = threading.Lock()
         self._running = True
+        # Group commit (CMTPU_WAL_GROUP_MS > 0): concurrent write_sync
+        # callers share one fsync — a leader holds a short window open,
+        # then syncs once for every frame appended so far. Durability is
+        # NEVER weakened: a caller returns only after an fsync that covers
+        # its own frame (whole-message durability; the fsync-before-
+        # processing invariant of state.go:774 holds unchanged). Default 0
+        # keeps the exact serial write+fsync path.
+        self._group_ms = float(os.environ.get("CMTPU_WAL_GROUP_MS", "") or 0.0)
+        self._sync_cond = threading.Condition()
+        self._seq = 0  # frames appended through write_sync
+        self._synced = 0  # highest seq covered by a completed fsync
+        self._sync_leader = False
+        self.group_commits = 0  # fsyncs that covered more than one caller
+        self.group_syncs = 0  # total group-path fsyncs
 
     def start(self) -> None:
         """OnStart writes EndHeightMessage(0) into an empty WAL (wal.go:110)."""
@@ -97,10 +110,44 @@ class WAL:
         if not self._running:
             return
         data = _encode_timed(self._codec, TimedWALMessage(cmttime.now(), msg))
+        if self._group_ms <= 0:
+            with self._mtx:
+                self.group.write(data)
+                self.group.flush_and_sync()
+            self.group.maybe_rotate()
+            return
         with self._mtx:
             self.group.write(data)
-            self.group.flush_and_sync()
-        self.group.maybe_rotate()
+            self._seq += 1
+            my_seq = self._seq
+        while True:
+            with self._sync_cond:
+                if self._synced >= my_seq:
+                    return  # a leader's fsync already covered our frame
+                if not self._sync_leader:
+                    self._sync_leader = True
+                    break
+                self._sync_cond.wait(0.05)
+        # Leader: hold the window open so concurrent writers can append,
+        # then fsync once for everyone appended so far. On failure the
+        # leadership is released (a follower retakes it and retries) and
+        # the error propagates to our caller like the serial path would.
+        try:
+            time.sleep(self._group_ms / 1000.0)
+            with self._mtx:
+                target = self._seq
+                if self._running:
+                    self.group.flush_and_sync()
+            self.group.maybe_rotate()
+            with self._sync_cond:
+                if target - self._synced > 1:
+                    self.group_commits += 1
+                self.group_syncs += 1
+                self._synced = max(self._synced, target)
+        finally:
+            with self._sync_cond:
+                self._sync_leader = False
+                self._sync_cond.notify_all()
 
     def flush_and_sync(self) -> None:
         with self._mtx:

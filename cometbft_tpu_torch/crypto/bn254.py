@@ -375,6 +375,13 @@ def pop_sign_bytes(pub_key_bytes: bytes) -> bytes:
     return POP_DST + bytes(pub_key_bytes)
 
 
+def prove_possession(priv: "PrivKey") -> bytes:
+    """64-byte compressed G2 proof that the holder knows the secret scalar
+    behind their published pubkey — required in genesis for bn254 keys."""
+    sig = priv.sign(pop_sign_bytes(priv.pub_key().bytes()))
+    return _b.g2_compress(_b.g2_unmarshal(sig))
+
+
 def verify_possession(pub_key_bytes: bytes, pop: bytes) -> bool:
     """One pairing check; accepts either G2 wire form. Never raises:
     malformed input is an invalid proof."""

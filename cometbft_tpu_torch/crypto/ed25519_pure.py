@@ -68,6 +68,57 @@ def point_double(p):
     return point_add(p, p)
 
 
+# [j * 16^i]B for i < 64, 0 < j < 16, affine, as (y + x, y - x, 2d x y):
+# a fixed-base product is then 64 of these additions, with no doubling.
+# Built at the first use.
+_BASE_TABLE: list | None = None
+
+
+def _base_table() -> list:
+    global _BASE_TABLE
+    if _BASE_TABLE is None:
+        points, p = [], BASE
+        for _ in range(64):
+            q = p
+            for _ in range(15):
+                points.append(q)
+                q = point_add(q, p)
+            p = q  # 16 p
+        # One inversion for every Z (Montgomery's trick).
+        prefix, acc = [], 1
+        for q in points:
+            prefix.append(acc)
+            acc = acc * q[2] % P
+        inv = pow(acc, P - 2, P)
+        affine = [None] * len(points)
+        for n in range(len(points) - 1, -1, -1):
+            X, Y, Z, _T = points[n]
+            zi = inv * prefix[n] % P
+            inv = inv * Z % P
+            x, y = X * zi % P, Y * zi % P
+            affine[n] = ((y + x) % P, (y - x) % P, 2 * D * x % P * y % P)
+        _BASE_TABLE = [[None] + affine[15 * i:15 * i + 15] for i in range(64)]
+    return _BASE_TABLE
+
+
+def base_mult(k: int):
+    """[k]B for 0 <= k < 2^256, from the fixed-base table (equal to
+    ``scalar_mult(k, BASE)``; variable time, as the rest of this module)."""
+    table = _base_table()
+    X1, Y1, Z1, T1 = IDENTITY
+    for i in range(64):
+        j = (k >> (4 * i)) & 15
+        if j:
+            yp, ym, t2d = table[i][j]
+            A = (Y1 - X1) * ym % P
+            B = (Y1 + X1) * yp % P
+            C = T1 * t2d % P
+            Dd = 2 * Z1
+            E, F, G, H = B - A, Dd - C, Dd + C, B + A
+            X1, Y1, Z1, T1 = E * F % P, G * H % P, F * G % P, E * H % P
+    return (X1, Y1, Z1, T1)
+
+
 def point_neg(p):
     X, Y, Z, T = p
     return ((P - X) % P, Y, Z, (P - T) % P)
@@ -144,14 +195,14 @@ def secret_expand(seed: bytes) -> tuple[int, bytes]:
 
 def public_key(seed: bytes) -> bytes:
     a, _ = secret_expand(seed)
-    return point_compress(scalar_mult(a, BASE))
+    return point_compress(base_mult(a))
 
 
 def sign(seed: bytes, pub: bytes, msg: bytes) -> bytes:
     """RFC 8032 §5.1.6."""
     a, prefix = secret_expand(seed)
     r = sha512_mod_l(prefix, msg)
-    R = scalar_mult(r, BASE)
+    R = base_mult(r)
     Rs = point_compress(R)
     k = sha512_mod_l(Rs, pub, msg)
     s = (r + k * a) % L
@@ -175,7 +226,7 @@ def verify_zip215(pub: bytes, msg: bytes, sig: bytes) -> bool:
         return False
     k = sha512_mod_l(Rs, pub, msg)
     # [8][s]B == [8]R + [8][k]A  ⇔  [8]([s]B - [k]A - R) == identity
-    sB = scalar_mult(s, BASE)
+    sB = base_mult(s)
     kA = scalar_mult(k, A)
     diff = point_add(point_add(sB, point_neg(kA)), point_neg(R))
     eight_diff = point_double(point_double(point_double(diff)))

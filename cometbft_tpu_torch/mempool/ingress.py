@@ -39,8 +39,7 @@ in ``callback_errors`` (``last_callback_error``). The scalar fallback is
 kept only where the process backend verifies on the host: where it runs on
 a CUDA card, the batch call's exception goes to the dispatcher's catch-all,
 which answers the batch ``CODE_REJECTED``, so that no work leaves a card
-that is present. ``register_metrics`` waits
-for ``libs/metrics``, which is not ported yet.
+that is present.
 """
 
 from __future__ import annotations
@@ -442,6 +441,38 @@ class IngressPipeline:
 
     def lane_depths(self):
         return self.lanes.depths()
+
+    def register_metrics(self, registry) -> None:
+        def sample(key):
+            return lambda: float(self.counters[key])
+
+        for key in (
+            "admitted",
+            "legacy_passthrough",
+            "rejected_bad_envelope",
+            "rejected_invalid_sig",
+            "rejected_rate_limited",
+            "rejected_queue_full",
+            "rejected_duplicate",
+            "rejected_mempool_full",
+            "shed_total",
+            "preverify_batches",
+            "preverify_sigs",
+            "preverify_batch_max",
+        ):
+            registry.gauge_func(
+                "ingress", f"{key}_total" if not key.startswith("preverify") else key,
+                f"ingress {key.replace('_', ' ')}", sample(key),
+            )
+        registry.gauge_func(
+            "ingress", "queue_depth", "total queued txs across lanes",
+            lambda: float(self.lanes.size()),
+        )
+        for i in range(self.n_lanes):
+            registry.gauge_func(
+                "ingress", f"lane{i}_depth", f"queued txs in lane {i}",
+                (lambda i=i: float(self.lanes.depths()[i])),
+            )
 
     def flush_queue(self, timeout: float = 5.0) -> bool:
         """Block until the lane queues are empty (tests/bench)."""

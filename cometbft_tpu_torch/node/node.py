@@ -24,11 +24,14 @@ failed statesync falls back to blocksync from genesis, as the JAX package's
 node does; the port counts it (``statesync_errors``,
 ``last_statesync_error``).
 
-Branches that stand on modules not ported yet raise ``NotImplementedError``
-naming the module, before anything is opened or started:
-``instrumentation.prometheus`` (``libs/metrics``), ``tx_index.indexer =
-"psql"`` (``state/sink_sql``) and ``CMTPU_WATCHDOG`` at start
-(``libs/deadlock``).
+Operations: ``instrumentation.prometheus`` serves a ``libs/metrics``
+registry (consensus, mempool, ingress, p2p, the stores and the passive
+device-tier gauges); a sampler that raises reads 0, as the JAX package's
+do, and is counted on the registry (``sample_errors``,
+``last_sample_error``). ``tx_index.indexer = "psql"`` writes through
+``state/sink_sql``, closed after the indexer's pumps have joined.
+``CMTPU_WATCHDOG`` (seconds) starts ``libs/deadlock.Watchdog`` over the
+consensus height.
 
 Every thread the node starts, and every thread those start, is in the
 node's ``threads`` group (``libs/threads``): ``stop()`` ends with a join of
@@ -75,20 +78,6 @@ STOP_JOIN_S = 30.0
 STATESYNC_TIMEOUT_S = 600.0
 
 
-def _not_ported(branch: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{branch} needs {module}, which is not ported to cometbft_tpu_torch yet"
-    )
-
-
-def _refuse_unported(config: Config) -> None:
-    """The node's branches that wait for a later slice of the port."""
-    if config.instrumentation.prometheus:
-        raise _not_ported("instrumentation.prometheus", "libs/metrics")
-    if config.tx_index.indexer == "psql":
-        raise _not_ported('tx_index.indexer = "psql"', "state/sink_sql")
-
-
 class Node:
     """node/node.go Node."""
 
@@ -103,7 +92,6 @@ class Node:
         transport_factory=None,
         clock=None,
     ):
-        _refuse_unported(config)
         self.threads = threads.ThreadGroup("node")
         self.threads_left_at_stop = 0
         # stop() against blocksync's hook: consensus never starts once the
@@ -167,6 +155,17 @@ class Node:
             self.block_indexer = KVBlockIndexer(
                 new_db("block_index", config.base.db_backend, db_dir)
             )
+        elif config.tx_index.indexer == "psql":
+            # SQL event sink (state/indexer/sink/psql): write-only relational
+            # indexing for external SQL consumers; /tx_search et al refuse.
+            from cometbft_tpu_torch.state.sink_sql import SqlEventSink
+
+            conn = config.tx_index.psql_conn or os.path.join(
+                db_dir, "event_sink.sqlite"
+            )
+            self.event_sink = SqlEventSink(conn, genesis_doc.chain_id)
+            self.tx_indexer = self.event_sink.tx_indexer()
+            self.block_indexer = self.event_sink.block_indexer()
         else:
             self.tx_indexer = NullTxIndexer()
             self.block_indexer = NullTxIndexer()
@@ -217,11 +216,41 @@ class Node:
             logger,
         )
 
-        # Metrics (node/node.go:385-387): instrumentation.prometheus waits for
-        # libs/metrics (refused above); consensus keeps its no-op Metrics.
+        # Metrics (node/node.go:385-387 + each subsystem's PrometheusMetrics).
         self.metrics_registry = None
         self.metrics_server = None
         cs_metrics = None
+        if config.instrumentation.prometheus:
+            from cometbft_tpu_torch.consensus.metrics import Metrics as CsMetrics
+            from cometbft_tpu_torch.libs.metrics import MetricsServer, Registry
+
+            reg = Registry(namespace=config.instrumentation.namespace)
+            self.metrics_registry = reg
+            cs_metrics = CsMetrics(reg)
+            reg.gauge_func("mempool", "size", "Txs in the mempool.",
+                           lambda: self.mempool.size())
+            if self.ingress is not None:
+                self.ingress.register_metrics(reg)
+            reg.gauge_func("p2p", "peers", "Connected peers.",
+                           lambda: self.switch.num_peers() if self.switch else 0)
+            reg.gauge_func("blockstore", "height", "Block store tip height.",
+                           lambda: self.block_store.height())
+            reg.gauge_func("blockstore", "base", "Block store base height.",
+                           lambda: self.block_store.base())
+            self._register_backend_metrics(reg)
+            self._register_engine_metrics(reg)
+            self._register_recvq_metrics(reg)
+            self._register_mesh_metrics(reg)
+            self._register_fanout_metrics(reg)
+            self._register_hotpath_metrics(reg)
+            self._register_lightgw_metrics(reg)
+            self._register_evidence_metrics(reg)
+            addr = config.instrumentation.prometheus_listen_addr
+            host, _, port = addr.rpartition(":")
+            self.metrics_server = MetricsServer(
+                reg, host.replace("tcp://", "") or "127.0.0.1", int(port)
+            )
+
 
         # Consensus (node/node.go:256).
         wal = WAL(config.consensus.wal_path()) if config.base.root_dir else None
@@ -431,14 +460,524 @@ class Node:
                 )
             return self._bundle_origin
 
+    @staticmethod
+    def _register_backend_metrics(reg) -> None:
+        """backend_trips / backend_retries / backend_deadline_exceeded /
+        backend_active_tier gauges plus the scheduler_* coalescer gauges,
+        sampled lazily off the process-wide verification backend.  Sampling (not registering) checks for the
+        supervisor so scraping never forces backend construction — under
+        CMTPU_BACKEND=auto with a card visible that would build and warm
+        the kernels at a scrape instead of at the first verification."""
+        from cometbft_tpu_torch.sidecar import backend as backend_mod
+
+        def sample(key):
+            def fn():
+                b = backend_mod._backend  # no get_backend(): never constructs
+                if getattr(b, "name", "") == "coalesce":
+                    b = b.inner  # supervisor gauges read the wrapped chain
+                counters = getattr(b, "counters", None)
+                if counters is None:
+                    return 0
+                c = counters()
+                if key == "active_tier":
+                    # Only the supervisor has tiers: a bare backend with
+                    # counters (grpc, fanout, chaos) is on its one tier.
+                    return getattr(b, "active_tier_index", 0)
+                return c.get(key, 0)
+
+            return fn
+
+        def sched_sample(key):
+            # Lazy like sample(): zeros until the coalescing scheduler
+            # exists (CMTPU_COALESCE=0 keeps them zero forever).
+            def fn():
+                b = backend_mod._backend
+                if getattr(b, "name", "") != "coalesce":
+                    return 0
+                c = b.counters()
+                if key == "coalesce_ratio_milli":
+                    return int(1000 * c["requests"] / max(1, c["dispatches"]))
+                if key == "queue_wait_p95_us":
+                    return int(c["queue_wait_p95_ms"] * 1000)
+                return c.get(key, 0)
+
+            return fn
+
+        reg.gauge_func("backend", "trips",
+                       "Verification-tier circuit-breaker trips.",
+                       sample("trips"))
+        reg.gauge_func("backend", "retries",
+                       "Verification-tier transient-error retries.",
+                       sample("retries"))
+        reg.gauge_func("backend", "deadline_exceeded",
+                       "Verification calls past CMTPU_DEADLINE_MS.",
+                       sample("deadline_exceeded"))
+        reg.gauge_func("backend", "active_tier",
+                       "Degradation-chain index of the serving tier "
+                       "(0 = primary).",
+                       sample("active_tier"))
+        reg.gauge_func("scheduler", "requests",
+                       "Verification requests submitted to the coalescer.",
+                       sched_sample("requests"))
+        reg.gauge_func("scheduler", "dispatches",
+                       "Backend dispatches the coalescer issued.",
+                       sched_sample("dispatches"))
+        reg.gauge_func("scheduler", "batched_requests",
+                       "Requests that shared a coalesced dispatch.",
+                       sched_sample("batched_requests"))
+        reg.gauge_func("scheduler", "fallback_splits",
+                       "Coalesced dispatches split into per-request retries.",
+                       sched_sample("fallback_splits"))
+        reg.gauge_func("scheduler", "coalesce_ratio_milli",
+                       "Requests per dispatch x1000.",
+                       sched_sample("coalesce_ratio_milli"))
+        reg.gauge_func("scheduler", "queue_wait_p95_us",
+                       "95th-percentile coalescer queue wait, microseconds.",
+                       sched_sample("queue_wait_p95_us"))
+
+        def sidecar_sample(key):
+            # Lazy like the others: zeros until a grpc tier exists (bare
+            # CMTPU_BACKEND=grpc client, or the auto chain's sidecar tier,
+            # possibly chaos-wrapped). Never dials or constructs.
+            def fn():
+                b = backend_mod._backend
+                if getattr(b, "name", "") == "coalesce":
+                    b = b.inner
+                g = None
+                if getattr(b, "name", "") == "grpc":
+                    g = b
+                else:
+                    for t in getattr(b, "tiers", []):
+                        be = t.backend
+                        if getattr(be, "name", "").startswith("chaos"):
+                            be = be.inner
+                        if getattr(be, "name", "") == "grpc":
+                            g = be
+                            break
+                counters = getattr(g, "counters", None)
+                if counters is None:
+                    return 0
+                return counters().get(key, 0)
+
+            return fn
+
+        reg.gauge_func("sidecar", "streamed_calls",
+                       "Batch verifications streamed to the sidecar in "
+                       "chunks.",
+                       sidecar_sample("streamed_calls"))
+        reg.gauge_func("sidecar", "streamed_chunks",
+                       "Chunks sent on streamed sidecar verifications.",
+                       sidecar_sample("streamed_chunks"))
+        reg.gauge_func("sidecar", "unary_calls",
+                       "Batch verifications sent to the sidecar as one "
+                       "frame.",
+                       sidecar_sample("unary_calls"))
+        reg.gauge_func("sidecar", "stream_retries",
+                       "Streamed sidecar calls retried on a fresh "
+                       "connection.",
+                       sidecar_sample("stream_retries"))
+        reg.gauge_func("sidecar", "remote_mesh_width",
+                       "Serving pod chip count from the Ping capability "
+                       "reply.",
+                       sidecar_sample("remote_mesh_width"))
+
+    @staticmethod
+    def _register_engine_metrics(reg) -> None:
+        """engine_* gauges: the continuous-batching verification engine's
+        per-class view (consensus/blocksync/ingress/light admission counts,
+        dispatched signatures, p95 admission wait, starvation promotions)
+        plus its dispatch total. Lazy like the backend gauges — the sampler
+        peeks `backend_mod._backend` (never get_backend()) and unwraps the
+        CoalescingScheduler shim, so a scrape never constructs the chain;
+        the legacy scheduler_*/vote_batch_* gauges keep reading through
+        their existing registrations. Zeros under CMTPU_COALESCE=0."""
+        from cometbft_tpu_torch.sidecar import backend as backend_mod
+
+        def _engine():
+            from cometbft_tpu_torch.sidecar.engine import engine_of
+
+            return engine_of(backend_mod._backend)
+
+        def eng_sample(fn0):
+            def fn():
+                eng = _engine()
+                if eng is None:
+                    return 0
+                try:
+                    return fn0(eng)
+                except Exception as e:  # 0, as the JAX package; counted
+                    reg.count_sample_error(e)
+                    return 0
+
+            return fn
+
+        reg.gauge_func(
+            "engine", "dispatches",
+            "Device dispatches the continuous-batching engine issued.",
+            eng_sample(lambda e: e.counters_["dispatches"]),
+        )
+        from cometbft_tpu_torch.sidecar.engine import CLASS_NAMES
+
+        for klass, cname in enumerate(CLASS_NAMES):
+            reg.gauge_func(
+                "engine", f"{cname}_admitted",
+                f"{cname}-class requests admitted to the engine.",
+                eng_sample(
+                    lambda e, k=klass: e.class_counters_[k]["admitted"]
+                ),
+            )
+            reg.gauge_func(
+                "engine", f"{cname}_dispatched_sigs",
+                f"{cname}-class signatures dispatched to the device.",
+                eng_sample(
+                    lambda e, k=klass: e.class_counters_[k]["dispatched_sigs"]
+                ),
+            )
+            reg.gauge_func(
+                "engine", f"{cname}_p95_us",
+                f"{cname}-class 95th-percentile admission wait, microseconds.",
+                eng_sample(
+                    lambda e, k=klass: int(e.class_wait_p95_ms(k) * 1000)
+                ),
+            )
+            reg.gauge_func(
+                "engine", f"{cname}_starvation_promotions",
+                f"{cname}-class requests promoted past fresher "
+                "higher-class work by the starvation hatch.",
+                eng_sample(
+                    lambda e, k=klass: e.class_counters_[k][
+                        "starvation_promotions"
+                    ]
+                ),
+            )
+
+    def _register_recvq_metrics(self, reg) -> None:
+        """recvq_* gauges: the prioritized p2p recv demux, aggregated across
+        every live peer connection plus retired-peer totals (per-channel
+        queue depth, per-class deliveries, sheds, starvation promotions,
+        max queue delay).  Lazy like the backend gauges — the sampler reads
+        `self.switch` via getattr (registration runs before __init__ builds
+        it) and the switch only walks already-built MConnections, so a
+        scrape never constructs anything.  Empty/zero under CMTPU_RECVQ=0."""
+
+        def _stats():
+            sw = getattr(self, "switch", None)
+            if sw is None:
+                return None
+            try:
+                return sw.recvq_stats()
+            except Exception as e:  # zeros, as the JAX package; counted
+                reg.count_sample_error(e)
+                return None
+
+        def rq(key):
+            def fn():
+                st = _stats()
+                return int(st.get(key, 0)) if st else 0
+
+            return fn
+
+        reg.gauge_func("recvq", "depth",
+                       "Messages queued in recv demux queues (all peers).",
+                       rq("depth"))
+        reg.gauge_func("recvq", "delivered_total",
+                       "Messages the recv demux delivered to reactors.",
+                       rq("delivered_total"))
+        reg.gauge_func("recvq", "shed_total",
+                       "Sheddable-class messages dropped on queue overflow.",
+                       rq("shed_total"))
+        reg.gauge_func("recvq", "promoted_total",
+                       "Messages promoted past higher-class backlog by the "
+                       "starvation hatch.",
+                       rq("promoted_total"))
+        reg.gauge_func("recvq", "backpressure_waits",
+                       "Framer waits on a full consensus/blocksync queue "
+                       "(TCP backpressure engaged).",
+                       rq("backpressure_waits"))
+        reg.gauge_func("recvq", "max_delay_us",
+                       "Worst observed recv queue delay, microseconds.",
+                       rq("max_delay_us"))
+        from cometbft_tpu_torch.p2p.conn.recvq import CLASS_NAMES as _RQ_CLASSES
+
+        for cname in _RQ_CLASSES:
+            reg.gauge_func(
+                "recvq", f"{cname}_delivered",
+                f"{cname}-class messages delivered by the recv demux.",
+                rq(f"{cname}_delivered"),
+            )
+        # Per-channel depth over the reserved global channel ids
+        # (p2p/reactor.py); unknown future channels still show up in the
+        # recvq_stats RPC's `channels` map.
+        from cometbft_tpu_torch.p2p import reactor as _reactor_mod
+
+        for chan in (
+            _reactor_mod.PEX_CHANNEL,
+            _reactor_mod.CONSENSUS_STATE_CHANNEL,
+            _reactor_mod.CONSENSUS_DATA_CHANNEL,
+            _reactor_mod.CONSENSUS_VOTE_CHANNEL,
+            _reactor_mod.CONSENSUS_VOTE_SET_BITS_CHANNEL,
+            _reactor_mod.MEMPOOL_CHANNEL,
+            _reactor_mod.EVIDENCE_CHANNEL,
+            _reactor_mod.BLOCKSYNC_CHANNEL,
+            _reactor_mod.SNAPSHOT_CHANNEL,
+            _reactor_mod.CHUNK_CHANNEL,
+        ):
+            def chan_depth(c=chan):
+                st = _stats()
+                if not st:
+                    return 0
+                return int(st.get("channels", {}).get(f"{c:#04x}", 0))
+
+            reg.gauge_func("recvq", f"depth_ch{chan:02x}",
+                           f"Recv demux queue depth on channel {chan:#04x}.",
+                           chan_depth)
+
+    def _register_evidence_metrics(self, reg) -> None:
+        """evidence_* gauges: the misbehavior-accountability pipeline
+        (pending pool size, lifetime reported/added/committed/expired).
+        Lazy like the other families — the sampler reads
+        `self.evidence_pool` via getattr, and `pending` walks only the
+        pool's own DB prefix, so a scrape never constructs anything."""
+
+        def ev(key):
+            def fn():
+                pool = getattr(self, "evidence_pool", None)
+                if pool is None:
+                    return 0
+                try:
+                    return int(pool.stats_snapshot().get(key, 0))
+                except Exception as e:  # 0, as the JAX package; counted
+                    reg.count_sample_error(e)
+                    return 0
+
+            return fn
+
+        reg.gauge_func("evidence", "pending",
+                       "Evidence pieces pending inclusion in a block.",
+                       ev("pending"))
+        reg.gauge_func("evidence", "reported_total",
+                       "Conflicting-vote reports received from consensus.",
+                       ev("reported_total"))
+        reg.gauge_func("evidence", "added_total",
+                       "Evidence pieces accepted into the pending pool.",
+                       ev("added_total"))
+        reg.gauge_func("evidence", "committed_total",
+                       "Evidence pieces committed in blocks.",
+                       ev("committed_total"))
+        reg.gauge_func("evidence", "expired_total",
+                       "Pending evidence pruned past max-age.",
+                       ev("expired_total"))
+
+    @staticmethod
+    def _register_mesh_metrics(reg) -> None:
+        """mesh_* gauges: pod-scale sharding of the device verify tier
+        (device count, sharded dispatches, bucket-padding lanes, sharded
+        merkle roots).  Strictly passive — the sampler reads the ed25519
+        kernel module only if something else already imported it, and the
+        device count only if something already probed it, so a scrape never
+        imports torch, builds a kernel or initialises CUDA."""
+        import sys as _sys
+
+        def mesh_sample(key):
+            def fn():
+                ek = _sys.modules.get("cometbft_tpu_torch.ops.ed25519_kernel")
+                if ek is None:
+                    return 0
+                return ek.mesh_counters().get(key, 0)
+
+            return fn
+
+        reg.gauge_func("mesh", "devices",
+                       "Process-local chips one verify dispatch shards "
+                       "across (0 until the device tier probes).",
+                       mesh_sample("devices"))
+        reg.gauge_func("mesh", "sharded_dispatches",
+                       "Verify dispatches routed to the multi-chip program.",
+                       mesh_sample("sharded_dispatches"))
+        reg.gauge_func("mesh", "padded_lanes",
+                       "Bucket-padding lanes shipped on sharded dispatches.",
+                       mesh_sample("padded_lanes"))
+        reg.gauge_func("mesh", "merkle_sharded_dispatches",
+                       "Fused merkle roots served by the subtree-parallel "
+                       "mesh program.",
+                       mesh_sample("merkle_sharded_dispatches"))
+
+    @staticmethod
+    def _register_fanout_metrics(reg) -> None:
+        """fanout_* gauges: the multi-host verification fleet (shard count,
+        combined width, dispatches, redistributions, shards cooling down).
+        Lazy like the backend gauges — the sampler walks the ALREADY-BUILT
+        chain under `backend_mod._backend` for a tier named `fanout` (never
+        get_backend(), never a dial), so a scrape with no fleet configured
+        costs a few getattr probes and reads zero."""
+        from cometbft_tpu_torch.sidecar import backend as backend_mod
+
+        def _fanout():
+            stack, seen = [backend_mod._backend], set()
+            while stack:
+                b = stack.pop()
+                if b is None or id(b) in seen:
+                    continue
+                seen.add(id(b))
+                if getattr(b, "name", "") == "fanout":
+                    return b
+                stack.append(getattr(b, "inner", None))
+                for t in getattr(b, "tiers", ()) or ():
+                    stack.append(getattr(t, "backend", None))
+            return None
+
+        def fan_sample(fn0):
+            def fn():
+                fan = _fanout()
+                if fan is None:
+                    return 0
+                try:
+                    return fn0(fan)
+                except Exception as e:  # 0, as the JAX package; counted
+                    reg.count_sample_error(e)
+                    return 0
+
+            return fn
+
+        import time as _time
+
+        reg.gauge_func("fanout", "shards",
+                       "Shards in the verification fleet (0 = no fleet).",
+                       fan_sample(lambda f: len(f.shards)))
+        reg.gauge_func("fanout", "width",
+                       "Combined fleet width (sum of shard mesh widths).",
+                       fan_sample(lambda f: f.mesh_width()))
+        reg.gauge_func("fanout", "dispatches",
+                       "Batches the fleet fanned out across its shards.",
+                       fan_sample(lambda f: f.counters_["dispatches"]))
+        reg.gauge_func("fanout", "shard_failures",
+                       "Per-shard slice failures (error or deadline).",
+                       fan_sample(lambda f: f.counters_["shard_failures"]))
+        reg.gauge_func("fanout", "redistributions",
+                       "Retry rounds that re-split dead shards' slices "
+                       "across survivors.",
+                       fan_sample(lambda f: f.counters_["redistributions"]))
+        reg.gauge_func("fanout", "redistributed_sigs",
+                       "Signatures re-dispatched by redistribution rounds.",
+                       fan_sample(lambda f: f.counters_["redistributed_sigs"]))
+        reg.gauge_func("fanout", "shards_down",
+                       "Shards currently sitting out a failure cooldown.",
+                       fan_sample(lambda f: sum(
+                           1 for s in f.shards
+                           if not s.healthy(_time.monotonic())
+                       )))
+
+    def _register_hotpath_metrics(self, reg) -> None:
+        """Consensus hot-path gauges: the vote-admission micro-batcher, WAL
+        group commit, and the blocksync verify/apply pipeline. Lazy like the
+        backend gauges — `sigbatch.counters()` never constructs a batcher,
+        and the WAL/blocksync reads are getattr probes on objects built
+        later in __init__, so a scrape is always side-effect free."""
+        from cometbft_tpu_torch.crypto import sigbatch
+
+        def vb(key):
+            return lambda: sigbatch.counters().get(key, 0)
+
+        def vb_ratio():
+            c = sigbatch.counters()
+            return int(1000 * c["requests"] / max(1, c["dispatches"]))
+
+        reg.gauge_func("vote_batch", "requests",
+                       "Signature-verify requests to the vote micro-batcher.",
+                       vb("requests"))
+        reg.gauge_func("vote_batch", "dispatches",
+                       "Columnar dispatches the vote micro-batcher issued.",
+                       vb("dispatches"))
+        reg.gauge_func("vote_batch", "coalesce_ratio_milli",
+                       "Vote-batch requests per dispatch x1000.",
+                       vb_ratio)
+        reg.gauge_func("vote_batch", "cache_hits",
+                       "Vote admissions answered by the verified-triple cache.",
+                       vb("cache_hits"))
+        reg.gauge_func("wal", "group_commits_total",
+                       "WAL fsyncs that covered more than one write_sync caller.",
+                       lambda: getattr(
+                           getattr(getattr(self, "consensus_state", None),
+                                   "wal", None),
+                           "group_commits", 0) or 0)
+        reg.gauge_func("blocksync", "pipeline_overlap_ms",
+                       "Accumulated verify/apply overlap in blocksync, ms.",
+                       lambda: int(getattr(
+                           getattr(self, "blocksync_reactor", None),
+                           "pipeline_overlap_ms", 0) or 0))
+
+    def _register_lightgw_metrics(self, reg) -> None:
+        """Light-client gateway gauges. Strictly passive: they read the
+        `_light_gateway` attribute (getattr-guarded — registration runs
+        before __init__ assigns it) and never call the light_gateway()
+        accessor, so a metrics scrape can never construct the gateway."""
+
+        def gw(key):
+            def fn():
+                g = getattr(self, "_light_gateway", None)
+                if g is None:
+                    return 0
+                return int(g.stats().get(key, 0))
+            return fn
+
+        def gw_share_milli():
+            g = getattr(self, "_light_gateway", None)
+            if g is None:
+                return 0
+            return int(1000 * g.stats()["plan_share_ratio"])
+
+        reg.gauge_func("lightgw", "sessions_total",
+                       "Light-gateway sync sessions admitted.",
+                       gw("sessions_total"))
+        reg.gauge_func("lightgw", "sessions_active",
+                       "Light-gateway sync sessions currently in flight.",
+                       gw("sessions_active"))
+        reg.gauge_func("lightgw", "sessions_rejected",
+                       "Light-gateway sessions shed at the concurrency cap.",
+                       gw("sessions_rejected"))
+        reg.gauge_func("lightgw", "plan_cache_hits",
+                       "Descent plans answered from the memoized plan cache.",
+                       gw("plan_hits"))
+        reg.gauge_func("lightgw", "proofs_served",
+                       "MMR cold-sync inclusion proofs served.",
+                       gw("proofs_served"))
+        reg.gauge_func("lightgw", "plan_share_ratio_milli",
+                       "Plans served per plan computed x1000.",
+                       gw_share_milli)
+        reg.gauge_func("lightgw", "proof_bytes_served",
+                       "Total wire bytes of MMR cold-sync proofs served.",
+                       gw("proof_bytes_served"))
+
+        # Bundle-origin gauges: same passive contract against
+        # _bundle_origin — a scrape never constructs the origin.
+        def bo(key):
+            def fn():
+                o = getattr(self, "_bundle_origin", None)
+                if o is None:
+                    return 0
+                return int(o.stats().get(key, 0))
+            return fn
+
+        reg.gauge_func("lightgw", "bundles_built",
+                       "Checkpoint bundles frozen by the origin.",
+                       bo("bundles_built"))
+        reg.gauge_func("lightgw", "bundle_hits",
+                       "Checkpoint bundle serves (RPC/export/in-process).",
+                       bo("bundle_hits"))
+        reg.gauge_func("lightgw", "bundle_fallbacks",
+                       "Bundle requests refused (no checkpoint/pruned/"
+                       "mismatch) — the client fell back interactively.",
+                       bo("bundle_fallbacks"))
+        reg.gauge_func("lightgw", "bundle_bytes_served",
+                       "Total wire bytes of checkpoint bundles served.",
+                       bo("bundle_bytes_served"))
+
     # -- lifecycle ------------------------------------------------------------
 
     def start(self) -> None:
         """node/node.go:371 OnStart (event bus/indexer already run from
         __init__, as in NewNode): p2p listen + dial, then the blocksync →
         consensus phase chain."""
-        if os.environ.get("CMTPU_WATCHDOG"):
-            raise _not_ported("CMTPU_WATCHDOG", "libs/deadlock")
         with self.threads.scope():
             self._start()
 
@@ -472,6 +1011,16 @@ class Node:
                 trace_dir=os.path.join(self.config.base.root_dir or ".", "torch-trace"),
             )
             self.pprof_server.start()
+        if os.environ.get("CMTPU_WATCHDOG"):
+            from cometbft_tpu_torch.libs.deadlock import Watchdog
+
+            self.watchdog = Watchdog(
+                lambda: self.consensus_state.rs.height,
+                stall_after=float(os.environ["CMTPU_WATCHDOG"]),
+                logger=self.logger,
+                on_stall=lambda report: print(report),
+            )
+            self.watchdog.start()
 
         if self._state_sync and self.switch is not None:
             threads.spawn(self._statesync_routine, name="statesync")
@@ -540,10 +1089,19 @@ class Node:
             self.ingress.close()
         if getattr(self, "pprof_server", None) is not None:
             self.pprof_server.stop()
+        if getattr(self, "watchdog", None) is not None:
+            self.watchdog.stop()
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
         if self.switch is not None:
             self.switch.stop()
+        # The sink closes only once both indexer pumps have returned: the
+        # service's stop() joins them (the JAX package's closes it under a
+        # writing pump).
         self.indexer_service.stop()
         self.event_bus.stop()
+        if getattr(self, "event_sink", None) is not None:
+            self.event_sink.stop()
         if self.rpc_server:
             self.rpc_server.stop()
         if self.grpc_server is not None:

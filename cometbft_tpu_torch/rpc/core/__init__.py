@@ -16,6 +16,7 @@ connection drops with no answer (ROADMAP §3).
 from __future__ import annotations
 
 import base64
+import contextlib
 from dataclasses import dataclass, field as dfield
 
 from cometbft_tpu_torch.rpc.jsonrpc.server import RPCError
@@ -24,6 +25,7 @@ from cometbft_tpu_torch.types.events import (
     EVENT_TYPE_KEY,
     EventBus,
 )
+from cometbft_tpu_torch.libs import threads
 from cometbft_tpu_torch.libs.pubsub import Query
 
 
@@ -151,7 +153,10 @@ def _validator_json(v) -> dict:
 
 
 def routes(env: Environment) -> dict:
-    """rpc/core/routes.go: the 31-route table."""
+    """rpc/core/routes.go: the 31-route table. A websocket subscription's
+    pump joins the thread group the table was built in (a node's), so that
+    the node's ``stop()`` waits for it; the event bus's stop ends it."""
+    group = threads.current_group()
 
     # ---- info routes -------------------------------------------------------
 
@@ -791,7 +796,6 @@ def routes(env: Environment) -> dict:
         sub = env.event_bus.subscribe(ws.remote, q, 100)
 
         import queue as _q
-        import threading as _t
 
         def pump():
             while ws.open and not sub.canceled.is_set():
@@ -811,7 +815,8 @@ def routes(env: Environment) -> dict:
                     }
                 )
 
-        _t.Thread(target=pump, daemon=True).start()
+        with group.scope() if group is not None else contextlib.nullcontext():
+            threads.spawn(pump, name="rpc-ws-pump")
         return {}
 
     def unsubscribe(query="", ws=None):

@@ -47,18 +47,20 @@ class VerifyBackend:
         raise NotImplementedError
 
 
-# Below this, one signature at a time beats the MSM's fixed costs (two
-# decompressions a signature, window bookkeeping).
+# From this size a batch waits for the native build; a smaller one takes
+# the pure ZIP-215 oracle until the library is loaded.
 _NATIVE_BATCH_MIN = 16
 
 
 class CpuBackend(VerifyBackend):
     """The host tier: the native C batch verifier (one random-linear-
-    combination equation over a Pippenger MSM) from ``_NATIVE_BATCH_MIN``
-    signatures, the pure ZIP-215 oracle one signature at a time below it;
-    roots by ``hash_from_byte_slices`` (the native tree from 32 leaves). A
-    batch of 16 or more and a root of 32 leaves or more wait for the native
-    build and raise if it failed; neither runs pure Python then."""
+    combination equation over a Pippenger MSM); roots by
+    ``hash_from_byte_slices`` (the native tree from 32 leaves). A batch of
+    ``_NATIVE_BATCH_MIN`` or more and a root of 32 leaves or more wait for
+    the native build and raise if it failed; neither runs pure Python then.
+    A smaller batch goes native once the library is loaded (one signature
+    there costs ~1 ms against the oracle's ~5 ms) and to the pure ZIP-215
+    oracle, one signature at a time, before that."""
 
     name = "cpu"
 
@@ -68,7 +70,7 @@ class CpuBackend(VerifyBackend):
         native.ensure_built_async()
 
     def batch_verify(self, pubs, msgs, sigs):
-        if len(pubs) >= _NATIVE_BATCH_MIN:
+        if len(pubs) >= _NATIVE_BATCH_MIN or (pubs and native.ready() is not None):
             return native.batch_verify(pubs, msgs, sigs)
         results = [ed25519_pure.verify_zip215(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
         return all(results), results

@@ -67,6 +67,12 @@ class KVTxIndexer:
                     h,
                 )
 
+    def index_batch(self, items) -> None:
+        """(height, index, tx, result, events) tuples, in order (kv.go
+        AddBatch)."""
+        for item in items:
+            self.index(*item)
+
     def get(self, h: bytes) -> dict | None:
         raw = self._db.get(b"tx:" + h)
         return json.loads(raw) if raw else None
@@ -157,6 +163,9 @@ class NullTxIndexer:
     def index(self, *a, **k):
         pass
 
+    def index_batch(self, items):
+        pass
+
     def get(self, h):
         return None
 
@@ -189,14 +198,24 @@ class IndexerService:
         def tx_pump():
             while self._running:
                 try:
-                    msg = tx_sub.out.get(timeout=0.25)
+                    msgs = [tx_sub.out.get(timeout=0.25)]
                 except queue.Empty:
                     continue
-                d = msg.data
-                rec_events = {
-                    k: v for k, v in msg.events.items() if k != ev.EVENT_TYPE_KEY
-                }
-                self.tx_indexer.index(d.height, d.index, d.tx, d.result, rec_events)
+                # What else is queued goes with it, as one batch (Go's
+                # service hands a block's txs to AddBatch).
+                while True:
+                    try:
+                        msgs.append(tx_sub.out.get_nowait())
+                    except queue.Empty:
+                        break
+                items = []
+                for msg in msgs:
+                    d = msg.data
+                    rec_events = {
+                        k: v for k, v in msg.events.items() if k != ev.EVENT_TYPE_KEY
+                    }
+                    items.append((d.height, d.index, d.tx, d.result, rec_events))
+                self.tx_indexer.index_batch(items)
 
         def hdr_pump():
             while self._running:

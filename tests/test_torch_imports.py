@@ -6,8 +6,9 @@ consensus and mempool reactors, the Merkle proof operators, the Handshaker,
 the indexers, the RPC server, routes and client, the config and its TOML,
 the logger, the ingress with its lanes, PEX, the statesync reactor and the
 node, the ABCI wire, socket, CLI and gRPC transports, the remote signer, the
-gRPC broadcast API, the light proxy and statesync's syncing side included;
-``grpc`` only on the gRPC transports), it never
+gRPC broadcast API, the light proxy and statesync's syncing side, the
+metrics exporter, the watchdog, the SQL event sink, rollback, inspect,
+loadtime and the CLI included; ``grpc`` only on the gRPC transports), it never
 falls back to the CPU when CUDA is asked for (the hybrid tier and the
 chains neither), and a missing CUDA compiler is an error, not a silent
 switch to the plain versions."""
@@ -200,6 +201,14 @@ def test_every_module_imports_without_jax():
         "cometbft_tpu_torch.light.proxy",
         "cometbft_tpu_torch.statesync.stateprovider",
         "cometbft_tpu_torch.statesync.syncer",
+        "cometbft_tpu_torch.libs.metrics",
+        "cometbft_tpu_torch.libs.deadlock",
+        "cometbft_tpu_torch.state.sink_sql",
+        "cometbft_tpu_torch.state.rollback",
+        "cometbft_tpu_torch.inspect",
+        "cometbft_tpu_torch.loadtime",
+        "cometbft_tpu_torch.cmd",
+        "cometbft_tpu_torch.cmd.__main__",
     } <= set(mods)
     from cometbft_tpu_torch.crypto import bn254
 
@@ -229,6 +238,9 @@ GRPC_FREE = [
     "cometbft_tpu_torch.privval.signer",
     "cometbft_tpu_torch.light.proxy",
     "cometbft_tpu_torch.statesync",
+    "cometbft_tpu_torch.cmd.__main__",
+    "cometbft_tpu_torch.libs.metrics",
+    "cometbft_tpu_torch.state.sink_sql",
     "chip_smoke",
 ]
 

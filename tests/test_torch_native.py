@@ -24,6 +24,7 @@ from cometbft_tpu.sidecar.backend import CpuBackend as RefCpuBackend
 from cometbft_tpu_torch import native
 from cometbft_tpu_torch.crypto import ed25519_pure as pure
 from cometbft_tpu_torch.crypto import merkle as tmerkle
+from cometbft_tpu_torch.sidecar import backend as backend_mod
 from cometbft_tpu_torch.sidecar.backend import CpuBackend
 
 pytestmark = pytest.mark.torch_port
@@ -165,9 +166,9 @@ def test_merkle_proof_parts_match_reference_and_proofs():
 
 @pytest.mark.parametrize("n,bad", [(32, {5}), (16, {0, 15}), (15, {3}), (4, set()), (0, set())])
 def test_cpu_backend_matches_reference(n, bad):
-    """CpuBackend on both sides of its native threshold (16): the native
-    MSM above, the pure ZIP-215 oracle one signature at a time below,
-    malformed lengths included; the same answer as the reference's."""
+    """CpuBackend on both sides of its native threshold (16), the library
+    loaded (the native MSM on both sides), malformed lengths included; the
+    same answer as the reference's."""
     pubs, msgs, sigs = _signed(n)
     for i in bad:
         sigs[i] = b"\x00" * 64
@@ -179,11 +180,31 @@ def test_cpu_backend_matches_reference(n, bad):
 
 
 def test_cpu_backend_below_threshold_never_calls_native(monkeypatch):
+    """Until the library is loaded, a batch under 16 signatures and a root
+    under 32 leaves never call (or wait for) it: the pure oracle and the
+    pure tree answer."""
     pubs, msgs, sigs = _signed(15)
+    monkeypatch.setattr(native, "ready", lambda: None)
     monkeypatch.setattr(native, "batch_verify", lambda *a: pytest.fail("native below 16 signatures"))
     assert CpuBackend().batch_verify(pubs, msgs, sigs) == (True, [True] * 15)
     leaves = [b"leaf-%d" % i for i in range(9)]
     assert CpuBackend().merkle_root(leaves) == tmerkle.hash_from_byte_slices(leaves)
+
+
+@pytest.mark.parametrize("n,bad", [(1, set()), (1, {0}), (3, {1}), (15, {0, 14})])
+def test_cpu_backend_small_batch_goes_native_once_loaded(monkeypatch, n, bad):
+    """F16: with the library loaded, a batch under 16 signatures takes the
+    native MSM (~1 ms for one signature, where the pure oracle takes ~5)
+    and never runs pure Python; its bitmap is the reference's."""
+    native.load()
+    pubs, msgs, sigs = _signed(n)
+    for i in bad:
+        sigs[i] = sigs[i][:32] + b"\x01" + sigs[i][33:]
+    want = RefCpuBackend().batch_verify(pubs, msgs, sigs)
+    monkeypatch.setattr(backend_mod.ed25519_pure, "verify_zip215",
+                        lambda *a: pytest.fail("pure Python ran"))
+    got = CpuBackend().batch_verify(pubs, msgs, sigs)
+    assert got == want and got[1] == [i not in bad for i in range(n)]
 
 
 def test_sources_are_the_reference_bytes():

@@ -12,8 +12,9 @@ package's ``Node``. Modelled on the package's ``tests/test_node_rpc.py``,
 - a fresh node catching up over TCP from a node whose stores hold a
   reference-built chain, in either package: blocksync to the chain's last
   height but one, then consensus;
-- each branch that waits for a later slice raises and names its module, and
-  each branch ported since builds what the JAX package's node builds;
+- each branch that waited for a later slice (Prometheus, the psql sink,
+  the watchdog) and each branch ported since builds what the JAX package's
+  node builds;
 - ``stop()`` leaves no thread of the node alive.
 
 Nodes listen on 127.0.0.1:0 and every wait is a liveness guard, never a
@@ -331,11 +332,13 @@ def test_fresh_node_catches_up_over_tcp(catchup_chain, tmp_path, pkg):
         server.stop()
 
 
-# -- branches that wait for later slices -------------------------------------------
+# -- branches that waited for later slices ---------------------------------------
 
 
 BRANCHES = [
-    ("instrumentation.prometheus", {"instrumentation__prometheus": True}, "libs/metrics"),
+    ("instrumentation.prometheus", {"instrumentation__prometheus": True,
+                                    "instrumentation__prometheus_listen_addr": "127.0.0.1:0"},
+     "libs/metrics"),
     ('tx_index.indexer = "psql"', {"tx_index__indexer": "psql"}, "state/sink_sql"),
 ]
 
@@ -343,16 +346,33 @@ BRANCHES = [
 @pytest.mark.parametrize("branch,fields,module", BRANCHES,
                          ids=[m.replace("/", "-") for _, _, m in BRANCHES])
 def test_unported_branch_raises_and_names_its_module(tmp_path, branch, fields, module):
-    p = tn.PKGS["port"]
-    home = _home(p, tmp_path, "home", _genesis([_ref_pub(b"torch-node-branch")]),
-                 b"torch-node-branch", **fields)
-    before = set(threading.enumerate())
-    with pytest.raises(NotImplementedError) as e:
-        tn.load_node(p, home)
-    assert module in str(e.value) and branch in str(e.value)
-    assert "not ported" in str(e.value)
-    assert not [t for t in threading.enumerate() if t not in before and t.is_alive()
-                and t.name.startswith("tx-ingress")]
+    """These branches raised until their modules were ported: now the node
+    builds on each as the reference's does (a metrics registry and its
+    server, or the SQL event sink behind both indexers), with the same
+    classes by name, and stops leaving no thread and the sink closed."""
+    gen_json = _genesis([_ref_pub(b"torch-node-branch")])
+    shapes, nodes = {}, {}
+    for name in ("port", "reference"):
+        p = tn.PKGS[name]
+        nodes[name] = n = tn.load_node(p, _home(p, tmp_path, name, gen_json,
+                                                b"torch-node-branch", **fields))
+        shapes[name] = (type(n.metrics_registry).__name__, type(n.metrics_server).__name__,
+                        type(getattr(n, "event_sink", None)).__name__,
+                        type(n.tx_indexer).__name__, type(n.block_indexer).__name__)
+    try:
+        assert shapes["port"] == shapes["reference"]
+        port = nodes["port"]
+        if module == "libs/metrics":
+            port.start()
+            assert port.metrics_server.port > 0 and port.metrics_registry.sample_errors == 0
+        else:
+            assert port.event_sink is not None and not port.event_sink._closed
+    finally:
+        for n in nodes.values():
+            n.stop()
+    assert nodes["port"].threads_left_at_stop == 0
+    if module == "state/sink_sql":
+        assert nodes["port"].event_sink._closed
 
 
 # The branches ported since: ``default_new_node`` builds what the JAX
@@ -404,15 +424,19 @@ def test_statesync_node_is_armed_on_an_empty_store(tmp_path):
 
 
 def test_watchdog_branch_raises_at_start(tmp_path, monkeypatch):
+    """``CMTPU_WATCHDOG`` raised at ``start()`` until ``libs/deadlock`` was
+    ported: now ``start()`` runs the watchdog over the consensus height in
+    the node's thread group, and ``stop()`` ends it."""
     p = tn.PKGS["port"]
     home = _home(p, tmp_path, "home", _genesis([_ref_pub(b"torch-node-wd")]), b"torch-node-wd")
     n = tn.load_node(p, home)
     monkeypatch.setenv("CMTPU_WATCHDOG", "5")
     try:
-        with pytest.raises(NotImplementedError, match="CMTPU_WATCHDOG.*libs/deadlock"):
-            n.start()
+        n.start()
+        assert n.watchdog.stall_after == 5.0 and n.watchdog._thread in n.threads.threads()
     finally:
         n.stop()
+    assert not n.watchdog._thread.is_alive() and n.threads_left_at_stop == 0
 
 
 # -- stop ------------------------------------------------------------------------
@@ -443,6 +467,38 @@ def test_stop_leaves_no_thread_of_the_node_alive(tmp_path):
     alive = [t.name for t in held if t.is_alive()]
     assert alive == []
     assert a.threads_left_at_stop == b.threads_left_at_stop == 0
+
+
+def test_stop_ends_a_websocket_subscriptions_pump(tmp_path):
+    """A websocket subscription's pump is a thread of the node's group, so
+    ``stop()`` returns only once it has ended, with the client still
+    connected (F14: the pump was outside the group, and could outlive
+    ``stop()`` by up to a poll)."""
+    from cometbft_tpu_torch.rpc.jsonrpc.ws_client import WSClient
+
+    secret = b"torch-node-ws-pump"
+    p = tn.PKGS["port"]
+    node = tn.load_node(p, _home(p, tmp_path, "ws", _genesis([_ref_pub(secret)]), secret))
+    node.start()
+    ws = WSClient(node.rpc_port)
+    # Pumps this subscription starts (another test's may be alive in this
+    # process).
+    before = set(threading.enumerate())
+
+    def new_pumps():
+        return [t for t in threading.enumerate() if "pump" in t.name and t not in before]
+
+    try:
+        ws.send({"jsonrpc": "2.0", "id": 0, "method": "subscribe",
+                 "params": {"query": "tm.event='NewBlock'"}})
+        tn.wait(lambda: new_pumps(), "no pump")
+        pumps = new_pumps()
+        assert set(pumps) <= set(node.threads.threads())
+        node.stop()
+        assert [t for t in pumps if t.is_alive()] == []
+        assert node.threads_left_at_stop == 0
+    finally:
+        ws.close()
 
 
 # -- the consensus reactor's wait for sync (F8) and stop against the hook ---------

@@ -128,18 +128,27 @@ def _publish_block(ev_mod, abci_mod, bus, height: int, n_txs: int):
 
 
 class _Gate:
-    """Indexers whose first ``index`` call waits for ``release``: the
-    publisher runs a whole block ahead of the pump."""
+    """Indexers whose first call waits for ``release``: the publisher runs a
+    whole block ahead of the pump. ``calls`` counts the txs indexed (the
+    reference's pump indexes one a call, the port's a batch of what is
+    queued), ``batches`` the port's batches."""
 
     def __init__(self, inner):
         self.inner, self.release, self.started = inner, threading.Event(), threading.Event()
-        self.calls = 0
+        self.calls = self.batches = 0
 
     def index(self, *a, **k):
         self.started.set()
         self.release.wait()
         self.calls += 1
         self.inner.index(*a, **k)
+
+    def index_batch(self, items):
+        self.started.set()
+        self.release.wait()
+        self.inner.index_batch(items)
+        self.calls += len(items)
+        self.batches += 1
 
 
 def _service_run(pkg: str, n_txs: int):
@@ -198,7 +207,7 @@ def test_service_indexes_every_tx_of_a_block_larger_than_the_reference_buffer():
 
 
 def test_service_stop_leaves_no_pump_writing():
-    """``stop()`` returns only when neither pump can write: an index call
+    """``stop()`` returns only when neither pump can write: the batch
     under way when it is called finishes before it returns, no event
     published after it is indexed, and the subscriptions are gone."""
     bus = events.EventBus()
@@ -216,9 +225,11 @@ def test_service_stop_leaves_no_pump_writing():
     tx_ix.release.set()
     stopper.join()
     writes = list(tx_ix.inner._db.iterator())
-    assert tx_ix.calls == 1 and len(writes) > 0
+    assert tx_ix.batches == 1 and tx_ix.calls >= 1 and len(writes) > 0
     assert bus.num_clients() == 0
+    calls = tx_ix.calls
     _publish_block(events, abci, bus, 2, 5)
-    assert list(tx_ix.inner._db.iterator()) == writes and tx_ix.calls == 1
+    assert list(tx_ix.inner._db.iterator()) == writes
+    assert tx_ix.batches == 1 and tx_ix.calls == calls
     svc.stop()  # a second stop is a no-op
     bus.stop()
